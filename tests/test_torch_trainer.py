@@ -1,0 +1,148 @@
+"""The port's ``Trainer.run`` against ``repro.train.Trainer.run`` on the
+REDUCED gpt2-paper (f32 compute), one worker, from the same parameters and
+the same batches, over a full COVAP cycle plus one step; and the CLI.
+
+The reference runs its ``overlap="post"``, ``arena=False`` path (the
+default), not the fused/arena/sharded equalities it fails on this tree."""
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as rconfigs
+from repro.data import DataConfig as RDataConfig
+from repro.data import make_loader as r_make_loader
+from repro.models import build_model as r_build_model
+from repro.optim import adamw as r_adamw
+from repro.optim import cosine_warmup as r_cosine_warmup
+from repro.optim import sgd as r_sgd
+from repro.train.trainer import TrainConfig as RTrainConfig
+from repro.train.trainer import Trainer as RTrainer
+
+import repro_torch.configs as tconfigs
+from repro_torch.data import DataConfig, make_loader
+from repro_torch.interop import params_from_jax
+from repro_torch.models import build_model
+from repro_torch.optim import adamw, cosine_warmup, sgd
+from repro_torch.train import TrainConfig, Trainer
+
+torch.set_num_threads(2)
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+STEPS = 5
+TC = dict(compressor="covap", interval=4, bucket_bytes=1 << 14, max_buckets=32,
+          log_every=1, steps=STEPS)
+DATA = dict(vocab_size=512, seq_len=32, global_batch=4, corpus_tokens=1 << 14)
+LR = 1e-2
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _run_reference(opt):
+    model = r_build_model(rconfigs.get_reduced("gpt2-paper"))
+    tr = RTrainer(model, opt, RTrainConfig(**TC))
+    state = tr.init_state(jax.random.PRNGKey(0))
+    init = jax.tree.map(np.asarray, state["params"])
+    state = tr.run(state, iter(r_make_loader(RDataConfig(**DATA))), log=None)
+    return init, tr, state
+
+
+def _run_port(init, opt):
+    model = build_model(tconfigs.get_reduced("gpt2-paper"), device="cpu")
+    model.load_state_dict(params_from_jax(init, device="cpu"))
+    tr = Trainer(model, opt, TrainConfig(**TC))
+    state = tr.run(tr.init_state(), make_loader(DataConfig(**DATA), device="cpu"),
+                   log=None)
+    return tr, state
+
+
+def _compare(rtr, rstate, tr, state, *, rtol, atol):
+    assert state["step"] == rstate["step"] == STEPS
+    np.testing.assert_allclose(
+        [h["loss"] for h in tr.history], [h["loss"] for h in rtr.history],
+        rtol=1e-5,
+    )
+    paths = [p for p, _ in tr.model.named_leaves()]
+    rparams, rresid = _flat(rstate["params"]), _flat(rstate["comp"])
+    for path, p, r in zip(paths, state["params"], state["comp"]):
+        np.testing.assert_allclose(p.detach().numpy(), rparams[path],
+                                   rtol=rtol, atol=atol, err_msg=path)
+        np.testing.assert_allclose(r.numpy(), rresid[path],
+                                   rtol=rtol, atol=atol, err_msg=path)
+
+
+def test_trainer_sgd_matches_reference():
+    init, rtr, rstate = _run_reference(r_sgd(LR, momentum=0.9))
+    tr, state = _run_port(init, sgd(LR, momentum=0.9))
+    assert tr.schedule_report() == rtr.schedule_report()
+    _compare(rtr, rstate, tr, state, rtol=1e-4, atol=1e-6)
+
+
+def test_trainer_adamw_matches_reference():
+    """Adam divides by ``sqrt(v) + eps``: where a gradient element is near
+    zero (|g| ~ eps) an ulp of difference in ``g`` moves the step by up to
+    ``lr``, whatever ``g``'s size.  So params are held to ``atol = 2 * lr
+    * steps`` (the most two runs can drift apart), and in addition 99.9% of
+    elements to the SGD bound; residuals and losses stay tight."""
+    lr = 1e-3
+    init, rtr, rstate = _run_reference(r_adamw(r_cosine_warmup(lr, 1, STEPS)))
+    tr, state = _run_port(init, adamw(cosine_warmup(lr, 1, STEPS)))
+    _compare(rtr, rstate, tr, state, rtol=1e-4, atol=2 * lr * STEPS)
+    rparams = _flat(rstate["params"])
+    close = total = 0
+    for (path, _), p in zip(tr.model.named_leaves(), state["params"]):
+        ok = np.isclose(p.detach().numpy(), rparams[path], rtol=1e-4, atol=1e-6)
+        close += int(ok.sum())
+        total += ok.size
+    assert close / total > 0.999
+
+
+@pytest.mark.parametrize("step", [0, 1, 5, 9, 10, 11, 50])
+def test_cosine_warmup_matches_reference(step):
+    assert float(cosine_warmup(1.5e-4, 2, 10)(step)) == pytest.approx(
+        float(r_cosine_warmup(1.5e-4, 2, 10)(step)), rel=1e-6
+    )
+
+
+def test_unported_train_options_raise():
+    for kw in ({"overlap": "fused"}, {"arena": True}, {"sync": "sharded"},
+               {"interval": "auto"}):
+        with pytest.raises(NotImplementedError):
+            TrainConfig(**kw)
+
+
+def test_cli_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "2", "--seq-len", "16", "--global-batch", "4",
+         "--device", "cpu", "--log-every", "1"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = r.stdout
+    for tag in ("[plan] 1 buckets", "[schedule] mean", "[model] gpt2-paper",
+                "step     1  loss", "step     2  loss", "[done]"):
+        assert tag in out, out
+
+
+def test_cli_interval_auto_raises():
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--interval", "auto", "--steps", "1", "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert r.returncode != 0 and "NotImplementedError" in r.stderr
