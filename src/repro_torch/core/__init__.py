@@ -1,6 +1,17 @@
 """COVAP core in PyTorch: bucket plans, the coarse filter, error feedback,
-static comm schedules and the segmented sync pipeline."""
-from . import bucketing, comm, compressors, error_feedback, filter, schedule, stages
+static comm schedules, the zero-copy arena, the segmented sync pipeline and
+the deferred param all-gather of sharded sync."""
+from . import (
+    arena,
+    bucketing,
+    comm,
+    compressors,
+    error_feedback,
+    filter,
+    overlap,
+    schedule,
+    stages,
+)
 from .bucketing import BucketPlan, build_plan
 from .comm import Compressor, SyncStats
 from .compressors import get_compressor
@@ -10,11 +21,13 @@ from .schedule import CollectiveCall, CommSchedule
 from .stages import SyncPipeline
 
 __all__ = [
+    "arena",
     "bucketing",
     "comm",
     "compressors",
     "error_feedback",
     "filter",
+    "overlap",
     "schedule",
     "stages",
     "BucketPlan",

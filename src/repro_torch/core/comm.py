@@ -44,6 +44,43 @@ def pmean(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+def flat_axis_index(group) -> int:
+    """This worker's rank in ``group`` (0 with no group): the index of the
+    shard it owns on the sharded sync path."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def reduce_scatter(x: torch.Tensor, group, *, out: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """Reduce-scatter a flat vector with the mean over ``group``: worker
+    ``w`` receives the reduced shard ``x[w*S:(w+1)*S]``, ``S = len(x) / W``
+    (the caller pads to a W-divisible length, ``arena.build_layout(
+    align=W)``).  The shard is written into ``out`` when given.  The
+    identity with no group."""
+    if group is None:
+        return x
+    W = dist.get_world_size(group)
+    if x.numel() % W:
+        raise ValueError(f"reduce_scatter: {x.numel()} elements do not split "
+                         f"into {W} shards")
+    if out is None:
+        out = torch.empty(x.numel() // W, dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.AVG, group=group)
+    return out
+
+
+def all_gather_tiled(shard: torch.Tensor, group) -> torch.Tensor:
+    """Concatenating all-gather of per-worker shards (worker order = rank,
+    the inverse of :func:`reduce_scatter`'s scatter).  The identity with no
+    group."""
+    if group is None:
+        return shard
+    out = torch.empty(dist.get_world_size(group) * shard.numel(),
+                      dtype=shard.dtype, device=shard.device)
+    dist.all_gather_into_tensor(out, shard, group=group)
+    return out
+
+
 class Compressor:
     """Base class.  Subclasses set ``name`` and implement the plan/execute
     pair (``plan_phase`` + ``execute``)."""

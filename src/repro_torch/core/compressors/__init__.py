@@ -1,6 +1,7 @@
-"""GC scheme registry.  Only COVAP is ported so far."""
+"""GC scheme registry: COVAP and the ``none``/``fp16`` baselines."""
 from .base import Compressor, SyncStats, dense_bytes, get_compressor, register
 from .covap import COVAP
+from .simple import HalfPrecision, NoCompression
 
 __all__ = [
     "Compressor",
@@ -9,4 +10,6 @@ __all__ = [
     "get_compressor",
     "register",
     "COVAP",
+    "HalfPrecision",
+    "NoCompression",
 ]

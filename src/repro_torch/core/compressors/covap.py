@@ -9,8 +9,10 @@ COVAP is ``CoarseFilter(I) ∘ ErrorFeedback(EFSchedule) ∘ WireCast`` under
      everything else is not communicated at all
   3. ``residual' = t`` at unselected positions, ``0`` at selected ones
 
-Steps 1 and 3 run as one pass of the ``ef_update`` CUDA kernel per segment
-on the GPU.
+Steps 1 and 3 run as one pass of a CUDA kernel per segment on the GPU:
+``ef_update`` on the per-segment path, ``pack_ef_cast`` (which also writes
+the wire values into the arena slot, cast when ``wire_dtype`` is set) on
+the arena and sharded paths.
 """
 from __future__ import annotations
 
@@ -32,10 +34,15 @@ class COVAP(SyncPipeline):
         use_ef_kernel: bool | None = None,
         **opts,
     ):
-        """``use_ef_kernel``: ``None`` (default) runs the CUDA EF kernel on
+        """``wire_dtype='bfloat16'`` (or ``'float16'``) also casts the
+        selected buckets on the wire, halving their bytes; the cast's error
+        lands in the EF residual.
+
+        ``use_ef_kernel``: ``None`` (default) runs the CUDA EF kernel on
         CUDA tensors and the plain two-op form on CPU tensors; ``False``
-        keeps the two-op form on the GPU too.  ``wire_dtype`` (a wire cast)
-        is not ported and raises."""
+        keeps the two-op form on the GPU too.  ``use_pack_kernel`` does the
+        same for the ``pack_ef_cast`` kernel of the arena and sharded
+        paths."""
         if interval == "auto":
             raise NotImplementedError(
                 "interval='auto' needs the analytic CCR, which is not ported; "

@@ -1,5 +1,5 @@
 """Static communication schedules: the *plan* half of the plan/execute split
-(the all-reduce case of ``repro.core.schedule``).
+(``repro.core.schedule`` without the per-link split of hierarchical pods).
 
 Bucket selection is a static function of ``(phase, interval)``, so each
 phase's ``CommSchedule`` records which buckets are communicated, with which
@@ -20,24 +20,35 @@ class CollectiveCall:
     this phase.  ``payload_bytes`` counts the bytes one worker injects once;
     ring amplification is applied by :meth:`wire_bytes`."""
 
-    target: str                # "bucket:3"
-    op: str                    # "all_reduce"
+    target: str                # "bucket:3" | "param-bucket:3"
+    op: str                    # "all_reduce" | "reduce_scatter" | "all_gather"
     wire_dtype: str            # dtype name of the wire payload
     payload_bytes: int
     index_bytes: int = 0
+    # planned in this phase but issued at the head of the next step, where
+    # it overlaps the forward pass (sharded sync's param all-gather)
+    deferred: bool = False
 
     @property
     def bytes_per_worker(self) -> int:
         return self.payload_bytes + self.index_bytes
 
     def wire_bytes(self, world: int) -> float:
-        """Bytes one worker moves under the ring all-reduce: ``2(W-1)/W`` of
-        the buffer."""
-        if self.op != "all_reduce":
-            raise NotImplementedError(f"op {self.op!r} is not ported")
+        """Bytes one worker moves under the ring algorithms: an all-reduce
+        moves ``2(W-1)/W`` of the buffer, a reduce-scatter ``(W-1)/W`` of the
+        buffer it feeds in, an all-gather re-sends its local shard ``W-1``
+        times.  A reduce-scatter's ``payload_bytes`` is the full input
+        buffer, an all-gather's the local shard."""
         if world <= 1:
             return 0.0
-        return 2.0 * (world - 1) / world * float(self.bytes_per_worker)
+        b = float(self.bytes_per_worker)
+        if self.op == "all_reduce":
+            return 2.0 * (world - 1) / world * b
+        if self.op == "reduce_scatter":
+            return (world - 1) / world * b
+        if self.op == "all_gather":
+            return (world - 1) * b
+        raise ValueError(f"unknown collective op {self.op!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,12 +66,41 @@ class CommSchedule:
     dense_bytes: int
     world: int = 1
     plan: BucketPlan | None = None
+    # "allreduce" (one all-reduce per selected bucket) or "sharded" (a
+    # reduce-scatter per selected bucket, the optimizer on the local shard,
+    # and the param all-gathers of ``deferred_calls`` at the next step's
+    # head)
     sync: str = "allreduce"
+    deferred_calls: tuple[CollectiveCall, ...] = ()
 
     @property
     def bytes_per_worker(self) -> int:
-        """Exact bytes each worker injects inside ``execute`` this phase."""
+        """Exact bytes each worker injects inside ``execute`` this phase
+        (``deferred_calls`` excluded)."""
         return sum(c.bytes_per_worker for c in self.calls)
+
+    @property
+    def exposed_bytes_per_worker(self) -> int:
+        """Bytes whose collective must finish before the optimizer steps."""
+        return self.bytes_per_worker
+
+    @property
+    def deferred_bytes_per_worker(self) -> int:
+        """Bytes of the deferred param all-gathers (sharded sync)."""
+        return sum(c.bytes_per_worker for c in self.deferred_calls)
+
+    @property
+    def total_bytes_per_worker(self) -> int:
+        return self.bytes_per_worker + self.deferred_bytes_per_worker
+
+    def exposed_wire_bytes(self, world: int | None = None) -> float:
+        """Ring-amplified wire bytes of the exposed calls only."""
+        w = self.world if world is None else world
+        return sum(c.wire_bytes(w) for c in self.calls)
+
+    def deferred_wire_bytes(self, world: int | None = None) -> float:
+        w = self.world if world is None else world
+        return sum(c.wire_bytes(w) for c in self.deferred_calls)
 
     @property
     def volume_ratio(self) -> float:
@@ -80,7 +120,7 @@ class CommSchedule:
         ops: dict[str, int] = {}
         for c in self.calls:
             ops[c.op] = ops.get(c.op, 0) + c.bytes_per_worker
-        return {
+        out = {
             "compressor": self.compressor,
             "phase": self.phase,
             "num_phases": self.num_phases,
@@ -93,6 +133,11 @@ class CommSchedule:
             "bytes_by_op": ops,
             "sync": self.sync,
         }
+        if self.sync != "allreduce":
+            out["exposed_bytes_per_worker"] = self.exposed_bytes_per_worker
+            out["deferred_bytes_per_worker"] = self.deferred_bytes_per_worker
+            out["total_bytes_per_worker"] = self.total_bytes_per_worker
+        return out
 
 
 def mean_bytes_per_step(schedules: Sequence[CommSchedule]) -> float:

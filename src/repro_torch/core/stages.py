@@ -1,14 +1,24 @@
 """Gradient-sync stages + the ``SyncPipeline`` combinator: the segmented
-all-reduce path of ``repro.core.stages``, which COVAP runs::
+path of ``repro.core.stages``, which COVAP and the ``none``/``fp16``
+baselines run::
 
     SyncPipeline(filter=CoarseFilter(I), ef=ErrorFeedback(EFSchedule(...)),
                  wire=WireCast())
 
 ``plan_phase`` emits a static :class:`CommSchedule`; ``execute`` walks the
-plan bucket by bucket, runs error feedback on every bucket (the fused
-``ef_update`` kernel on CUDA), and all-reduces the selected buckets one
-segment at a time.  Ported so far: the dense ``WireCast`` without a wire
-cast, and the non-arena, ``sync="allreduce"`` form; other options raise.
+plan bucket by bucket.  Three execution forms, as in the reference:
+
+* the per-segment form (default): EF on every bucket (the ``ef_update``
+  kernel on CUDA without a wire cast), one all-reduce per selected segment;
+* the zero-copy arena (``use_arena=True``): one pack pass writes every
+  selected segment's compensated, wire-cast values straight into its slot
+  of a flat plane (the ``pack_ef_cast`` kernel on CUDA), one collective per
+  bucket runs in place on the slot view, and static slices carry the
+  results back to the leaves;
+* sharded sync (``sync="sharded"``): each selected bucket's W-aligned slot
+  is reduce-scattered instead of all-reduced; the worker keeps the mean on
+  the shard it owns and zeros elsewhere, and the trainer all-gathers the
+  updated params at the next step's head (``core.overlap``).
 """
 from __future__ import annotations
 
@@ -17,24 +27,31 @@ from typing import Any, Sequence
 
 import torch
 
+from . import arena as ar
 from . import bucketing as bk
+from .arena import bucket_dtype
 from .bucketing import Bucket, BucketPlan
-from .comm import Compressor, SyncStats, dense_bytes, pmean
+from .comm import (
+    Compressor,
+    SyncStats,
+    dense_bytes,
+    flat_axis_index,
+    pmean,
+    reduce_scatter,
+    world_size,
+)
 from .error_feedback import EFSchedule, init_residual
 from .filter import selected_buckets
 from .schedule import CollectiveCall, CommSchedule
+from ..kernels.ref import pack_ef_cast_ref, wire_torch_dtype
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def bucket_dtype(plan: BucketPlan, bucket: Bucket) -> torch.dtype:
-    """Dtype of the flattened bucket (mixed buckets promote)."""
-    dt = plan.leaf_dtypes[bucket.segments[0].leaf_idx]
-    for s in bucket.segments[1:]:
-        dt = torch.promote_types(dt, plan.leaf_dtypes[s.leaf_idx])
-    return dt
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,29 +77,38 @@ class ErrorFeedback:
 
 
 class WireCast:
-    """Dense segment-wise all-reduce.  The reference's optional wire cast
-    (``WireCast('bfloat16')``) is not ported."""
+    """Dense segment-wise all-reduce, optionally cast on the wire.
 
-    def __init__(self, wire_dtype: str | None = None):
-        if wire_dtype:
-            raise NotImplementedError(
-                f"WireCast(wire_dtype={wire_dtype!r}) is not ported; only the "
-                "dense wire (no cast) is"
-            )
+    ``WireCast(None)`` is the DDP baseline; ``WireCast('bfloat16')`` halves
+    the wire volume, and with an :class:`ErrorFeedback` stage the cast's
+    error lands in the EF residual."""
+
+    segmented = True
+
+    def __init__(self, wire_dtype: str | torch.dtype | None = None):
+        self.wire_dtype = wire_torch_dtype(wire_dtype)
 
     def plan_bucket(self, plan: BucketPlan, bucket: Bucket, world: int = 1
                     ) -> CollectiveCall:
-        return CollectiveCall(
-            f"bucket:{bucket.index}", "all_reduce",
-            _dtype_name(bucket_dtype(plan, bucket)), bucket.nbytes,
-        )
+        if self.wire_dtype is not None:
+            payload = bucket.numel * _itemsize(self.wire_dtype)
+            name = _dtype_name(self.wire_dtype)
+        else:
+            payload = bucket.nbytes
+            name = _dtype_name(bucket_dtype(plan, bucket))
+        return CollectiveCall(f"bucket:{bucket.index}", "all_reduce", name, payload)
 
     def execute_segment(self, x: torch.Tensor, group):
-        """-> (synced_segment, residual_segment)."""
+        """-> (synced_segment, residual_segment).  ``x`` is a fresh tensor
+        that the all-reduce may overwrite."""
+        if self.wire_dtype is not None and x.dtype != self.wire_dtype:
+            xw = x.to(self.wire_dtype)
+            resid = x - xw.to(x.dtype)       # before the in-place reduce
+            return pmean(xw, group).to(x.dtype), resid
         return pmean(x, group), torch.zeros_like(x)
 
     def __repr__(self):
-        return "WireCast(None)"
+        return f"WireCast({_dtype_name(self.wire_dtype) if self.wire_dtype else None})"
 
 
 def _state_present(state: Any) -> bool:
@@ -90,24 +116,37 @@ def _state_present(state: Any) -> bool:
 
 
 class SyncPipeline(Compressor):
-    """filter ∘ error-feedback ∘ wire, with the plan/execute split."""
+    """filter ∘ error-feedback ∘ wire, with the plan/execute split.
+
+    Options: ``use_ef_kernel`` and ``use_pack_kernel`` (``None``: the CUDA
+    kernel on CUDA tensors, the plain form on CPU tensors; ``False``: the
+    plain form everywhere; ``True`` on CPU tensors raises), ``use_arena``
+    and ``sync`` (``"allreduce"`` or ``"sharded"``)."""
 
     name = "pipeline"
 
     def __init__(self, *, wire: WireCast, filter: CoarseFilter | None = None,
                  ef: ErrorFeedback | None = None, **opts):
-        for key in ("use_arena", "use_pack_kernel"):
-            if opts.get(key):
-                raise NotImplementedError(f"{key}=True is not ported")
-        sync = opts.get("sync", "allreduce") or "allreduce"
-        if sync != "allreduce":
-            raise NotImplementedError(
-                f"sync={sync!r} is not ported; only 'allreduce' is"
-            )
         super().__init__(**opts)
         self.wire = wire
         self.filter = filter
         self.ef = ef
+        self._layouts: dict = {}
+        sync = self.options.get("sync", "allreduce") or "allreduce"
+        if sync not in ("allreduce", "sharded"):
+            raise ValueError(f"sync must be 'allreduce' or 'sharded', got {sync!r}")
+        if sync == "sharded" and not getattr(self.wire, "segmented", False):
+            raise ValueError(
+                "sync='sharded' requires a segmented bucket pipeline "
+                f"(covap / none / fp16); {self.wire!r} must use sync='allreduce'"
+            )
+
+    @property
+    def sync_mode(self) -> str:
+        """``"allreduce"`` (one all-reduce per selected bucket) or
+        ``"sharded"`` (reduce-scatter, then the deferred param all-gather
+        at the next step's head)."""
+        return self.options.get("sync", "allreduce") or "allreduce"
 
     @property
     def stages(self) -> tuple:
@@ -127,15 +166,48 @@ class SyncPipeline(Compressor):
         return init_residual(params)
 
     # ---- plan -------------------------------------------------------------
+    def _plan_bucket_sharded(self, plan: BucketPlan, bucket: Bucket, world: int
+                             ) -> CollectiveCall:
+        """The exposed half of a bucket's sharded sync: a reduce-scatter of
+        the W-aligned wire slot; the payload is the full padded input
+        buffer at the wire dtype."""
+        padded = ar.aligned_numel(bucket.numel, max(int(world), 1))
+        wd = self.wire.wire_dtype or bucket_dtype(plan, bucket)
+        return CollectiveCall(f"bucket:{bucket.index}", "reduce_scatter",
+                              _dtype_name(wd), padded * _itemsize(wd))
+
+    def _plan_deferred_allgather(self, plan: BucketPlan, world: int
+                                 ) -> tuple[CollectiveCall, ...]:
+        """The deferred half of sharded sync: one param all-gather per plan
+        bucket (every bucket: once selected, a bucket's params keep moving
+        under the optimizer's moments, and only the shard owner holds their
+        authoritative values).  The payload is the local shard at the
+        promoted param dtype (params go on the wire uncompressed)."""
+        W = max(int(world), 1)
+        calls = []
+        for bucket in plan.buckets:
+            padded = ar.aligned_numel(bucket.numel, W)
+            pd = bucket_dtype(plan, bucket)
+            calls.append(CollectiveCall(
+                f"param-bucket:{bucket.index}", "all_gather", _dtype_name(pd),
+                (padded // W) * _itemsize(pd), deferred=True,
+            ))
+        return tuple(calls)
+
     def plan_phase(self, plan: BucketPlan, phase: int, *, world: int = 1
                    ) -> CommSchedule:
         n = self.num_phases()
         ph = int(phase) % max(n, 1)
+        sharded = self.sync_mode == "sharded"
         sel = (
             self.filter.select(plan, ph) if self.filter is not None
             else tuple(range(plan.num_buckets))
         )
-        calls = tuple(self.wire.plan_bucket(plan, plan.buckets[b], world) for b in sel)
+        calls = tuple(
+            self._plan_bucket_sharded(plan, plan.buckets[b], world) if sharded
+            else self.wire.plan_bucket(plan, plan.buckets[b], world)
+            for b in sel
+        )
         return CommSchedule(
             compressor=self.name,
             phase=ph,
@@ -146,6 +218,10 @@ class SyncPipeline(Compressor):
             dense_bytes=dense_bytes(plan),
             world=world,
             plan=plan,
+            sync="sharded" if sharded else "allreduce",
+            deferred_calls=(
+                self._plan_deferred_allgather(plan, world) if sharded else ()
+            ),
         )
 
     # ---- execute ----------------------------------------------------------
@@ -164,28 +240,43 @@ class SyncPipeline(Compressor):
             return None
         return self.ef.schedule.coefficient(step)
 
-    def _use_ef_kernel(self, g: torch.Tensor, r, coeff) -> bool:
-        """The fused EF kernel (``kernels.ef_covap.ef_update``) replaces the
-        two-op form on the segmented path: one pass computes
-        ``t = g + c*r`` and splits it into ``(send, r')``.  Applies to f32
-        operands with EF on (the dense wire has no cast).
-
-        Engagement: on CUDA tensors by default; ``use_ef_kernel=False`` keeps
-        the two-op form; on CPU tensors the two-op form runs, and an
-        explicit ``use_ef_kernel=True`` raises, since the kernel needs the
-        GPU."""
-        if not (coeff is not None and r is not None
-                and g.dtype == torch.float32 and r.dtype == torch.float32):
-            return False
-        use = self.options.get("use_ef_kernel")
+    def _engage(self, option: str, g: torch.Tensor) -> bool:
+        """A kernel option: ``None`` engages the CUDA kernel on CUDA
+        tensors only; ``False`` keeps the plain form; ``True`` on CPU
+        tensors raises, since the kernel needs the GPU."""
+        use = self.options.get(option)
         if use is None:
             return g.is_cuda
         if use and not g.is_cuda:
             raise ValueError(
-                "use_ef_kernel=True needs CUDA tensors; the gradients are on "
-                f"{g.device}"
+                f"{option}=True needs CUDA tensors; the gradients are on {g.device}"
             )
         return bool(use)
+
+    def _use_ef_kernel(self, g: torch.Tensor, r, coeff) -> bool:
+        """The fused EF kernel (``kernels.ef_covap.ef_update``) replaces the
+        two-op form on the per-segment path: one pass computes
+        ``t = g + c*r`` and splits it into ``(send, r')``.  Applies to f32
+        operands with EF on and a wire without a cast (a cast keeps its
+        quantisation error in the residual)."""
+        if not (coeff is not None and r is not None
+                and self.wire.wire_dtype is None
+                and g.dtype == torch.float32 and r.dtype == torch.float32):
+            return False
+        return self._engage("use_ef_kernel", g)
+
+    def _use_pack_kernel(self, g: torch.Tensor, r, coeff) -> bool:
+        """The fused pack kernel (``kernels.pack_ef_cast``) on the arena and
+        sharded pack pass: one pass computes ``t = g + c*r``, the wire cast
+        and the residual split, writing the wire values into the slot.
+        Applies with EF on, a ``WireCast`` wire without a cast or with a
+        bfloat16/float16 cast, and f32 operands."""
+        if not (coeff is not None and r is not None
+                and isinstance(self.wire, WireCast)
+                and g.dtype == torch.float32 and r.dtype == torch.float32
+                and self.wire.wire_dtype in (None, torch.bfloat16, torch.float16)):
+            return False
+        return self._engage("use_pack_kernel", g)
 
     def _ef_segment(self, g, r, coeff, *, selected: bool, group):
         """One segment through EF ∘ filter-decision ∘ wire.  Returns
@@ -210,6 +301,78 @@ class SyncPipeline(Compressor):
         xm, resid = self.wire.execute_segment(t, group)
         return xm, (resid if r is not None else None)
 
+    # ---- zero-copy arena and sharded sync ---------------------------------
+    def layout(self, plan: BucketPlan, selected: tuple[int, ...] | None = None,
+               *, wire_dtype: torch.dtype | None = None, align: int = 1
+               ) -> ar.ArenaLayout:
+        """:func:`arena.build_layout`, built once per plan, selection, wire
+        dtype and alignment: a layout depends on nothing else, so the step
+        reuses it instead of re-planning it."""
+        key = (id(plan), selected, wire_dtype, int(align))
+        hit = self._layouts.get(key)
+        if hit is None:
+            # the entry holds the plan, so its id is not reused while cached
+            hit = self._layouts[key] = (plan, ar.build_layout(
+                plan, selected, wire_dtype=wire_dtype, align=align))
+        return hit[1]
+
+    def _arena_on(self) -> bool:
+        """The ``use_arena`` option: bucket payloads live in static slots of
+        flat per-phase planes."""
+        return bool(self.options.get("use_arena", False))
+
+    def _pack_segment(self, g, r, coeff, *, selected: bool,
+                      wire_out: torch.Tensor | None,
+                      r_out: torch.Tensor | None = None):
+        """One segment through the fused pack + EF + cast pass.
+
+        Writes the wire values into ``wire_out`` (the segment's flat range
+        of its arena slot; ``None`` for an unselected bucket, which has no
+        slot) and returns the new residual in the segment's shape:
+        ``r_out`` itself when given (the segment's slice of the residual
+        leaf), else a fresh tensor; ``None`` when EF is off.  A
+        non-contiguous ``r_out`` (a sub-axis segment) is written through a
+        flat temporary."""
+        if r is None:
+            if selected:
+                wire_out.view(g.shape).copy_(g)
+            return None
+        dst = r_out if r_out is not None else torch.empty(
+            g.shape, dtype=g.dtype, device=g.device)
+        flat = dst.view(-1) if dst.is_contiguous() else torch.empty(
+            g.numel(), dtype=g.dtype, device=g.device)
+        gf, rf = g.reshape(-1), r.reshape(-1).to(g.dtype)
+        if self._use_pack_kernel(g, r, coeff):
+            from ..kernels.pack_ef_cast import pack_ef_cast_into
+
+            pack_ef_cast_into(gf, rf, coeff, wire_out, flat, selected=selected)
+        else:
+            w, rnew = pack_ef_cast_ref(
+                gf, rf, coeff, selected=selected,
+                wire_dtype=wire_out.dtype if selected else None,
+            )
+            if selected:
+                wire_out.copy_(w)
+            flat.copy_(rnew)
+        if not dst.is_contiguous():
+            dst.copy_(flat.view(dst.shape))
+        return dst
+
+    def _reduce_scatter_slot(self, view: torch.Tensor, group) -> torch.Tensor:
+        """One W-aligned slot view through the sharded collective: the
+        reduce-scatter (mean) writes this worker's shard at its owner offset
+        of an otherwise ZERO slot-sized vector, which is returned.  The
+        zeros are the sharded contract: the optimizer's updates off the
+        owned shard are overwritten by the next step's head all-gather.
+        The identity with no group."""
+        if group is None:
+            return view
+        S = view.numel() // world_size(group)
+        full = torch.zeros_like(view)
+        start = flat_axis_index(group) * S
+        reduce_scatter(view, group, out=full[start:start + S])
+        return full
+
     def execute_bucket(self, schedule: CommSchedule, b: int,
                        g_slices: Sequence[torch.Tensor],
                        r_slices: Sequence[torch.Tensor] | None = None, *,
@@ -217,7 +380,9 @@ class SyncPipeline(Compressor):
         """Synchronise ONE bucket: ``g_slices``/``r_slices`` are its
         segments' gradient and residual slices.  Returns
         ``(synced_slices, resid_slices)``; ``synced_slices`` is ``None`` for
-        an unselected bucket, ``resid_slices`` is ``None`` without EF."""
+        an unselected bucket, ``resid_slices`` is ``None`` without EF.
+        The per-segment form only: the arena and sharded forms run over the
+        whole tree (:meth:`_execute_segmented_arena`)."""
         selected = b in schedule.selected
         synced, resids = [], []
         rs = r_slices if r_slices is not None else (None,) * len(g_slices)
@@ -231,10 +396,59 @@ class SyncPipeline(Compressor):
         )
 
     @torch.no_grad()
+    def _execute_segmented_arena(self, schedule, grads, state, step, group):
+        """Arena form of :meth:`_execute_segmented`.  ONE pack pass writes
+        every selected bucket's compensated, wire-cast payload into its
+        static slot and every bucket's residual into the new residual leaf
+        (the ``pack_ef_cast`` kernel where it applies); each selected
+        bucket's collective runs in place on its slot view (a
+        reduce-scatter of the W-aligned slot under sharded sync); the
+        results go back to the leaves through static slices.  Unselected
+        buckets have no slot: their pack writes only the residual."""
+        plan = schedule.plan
+        ef_on = self.ef is not None and _state_present(state)
+        coeff = self.ef_coefficient(step) if ef_on else None
+        sel = dict.fromkeys(schedule.selected)
+        sharded = schedule.sync == "sharded"
+        layout = self.layout(plan, tuple(sel), wire_dtype=self.wire.wire_dtype,
+                             align=world_size(group) if sharded else 1)
+        planes = layout.empty_planes(grads[0].device)
+        resid = ar.empty_leaves(plan, grads) if ef_on else None
+
+        # ---- pack pass: one streaming traversal of the gradient ----------
+        for b in (range(plan.num_buckets) if ef_on else sel):
+            selected = b in sel
+            for si, seg in enumerate(plan.buckets[b].segments):
+                self._pack_segment(
+                    bk._slice_segment(grads[seg.leaf_idx], seg),
+                    bk._slice_segment(state[seg.leaf_idx], seg) if ef_on else None,
+                    coeff, selected=selected,
+                    wire_out=layout.segment_view(planes, b, si) if selected else None,
+                    r_out=bk._slice_segment(resid[seg.leaf_idx], seg) if ef_on else None,
+                )
+
+        # ---- wire pass: one collective per bucket, over a slot view -------
+        synced = {}
+        for b in sel:
+            view = layout.bucket_view(planes, b)
+            wired = (self._reduce_scatter_slot(view, group) if sharded
+                     else pmean(view, group))
+            synced[b] = layout.unpack_bucket(b, wired)
+
+        # ---- reassembly: one write per segment ---------------------------
+        out = ar.gather_leaves(
+            plan, lambda b, si, seg: synced[b][si] if b in synced else None, grads,
+        )
+        return out, (resid if ef_on else state)
+
+    @torch.no_grad()
     def _execute_segmented(self, schedule, grads, state, step, group):
         """Per-segment slices of every bucket.  With EF on, every bucket
         (selected or not) goes through :meth:`execute_bucket`, so the
-        residual update fuses with the compensation."""
+        residual update fuses with the compensation.  The arena and sharded
+        sync run :meth:`_execute_segmented_arena` instead."""
+        if self._arena_on() or schedule.sync == "sharded":
+            return self._execute_segmented_arena(schedule, grads, state, step, group)
         plan = schedule.plan
         ef_on = self.ef is not None and _state_present(state)
         coeff = self.ef_coefficient(step) if ef_on else None

@@ -30,6 +30,7 @@ from ..train.trainer import TrainConfig, Trainer
 # kernel-name fragments, matched in order on the lower-cased name
 GROUPS = (
     ("ef_update", ("ef_update_kernel",)),
+    ("pack_ef_cast", ("pack_ef_cast_kernel",)),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")),
     ("softmax/logsumexp", ("softmax", "logsumexp")),

@@ -4,7 +4,9 @@
         --interval 4 --steps 20 --seq-len 128 --global-batch 8 --device cpu
 
 Prints the same ``[plan]``, ``[schedule]``, ``[model]``, per-step loss and
-``[done]`` lines as ``repro.launch.train``.  Runs on the GPU unless
+``[done]`` lines as ``repro.launch.train``.  ``--compressor`` picks covap,
+none or fp16, ``--arena`` the zero-copy arena and ``--sync sharded`` the
+reduce-scatter + deferred all-gather decomposition.  Runs on the GPU unless
 ``--device cpu`` is given.  ``--interval auto`` is not ported and raises.
 """
 from __future__ import annotations
@@ -35,6 +37,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="gpt2-paper")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-test REDUCED variant")
+    ap.add_argument("--compressor", default="covap",
+                    choices=["covap", "none", "fp16"])
     ap.add_argument("--interval", default="4")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -42,6 +46,14 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     ap.add_argument("--lr", type=float, default=1.5e-4)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--arena", action="store_true",
+                    help="zero-copy gradient arena: statically planned flat "
+                         "bucket buffers + fused pack/EF/cast pass")
+    ap.add_argument("--sync", default="allreduce",
+                    choices=["allreduce", "sharded"],
+                    help="collective decomposition: all-reduce per bucket "
+                         "(default) or reduce-scatter + deferred param "
+                         "all-gather at the next step's head")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -54,7 +66,9 @@ def main(argv=None):
     else:
         opt = sgd(args.lr, momentum=0.9)
 
-    tc = TrainConfig(interval=interval, log_every=args.log_every, steps=args.steps)
+    tc = TrainConfig(compressor=args.compressor, interval=interval,
+                     log_every=args.log_every, steps=args.steps,
+                     arena=args.arena, sync=args.sync)
     tr = Trainer(model, opt, tc)
     print(f"[plan] {tr.plan.num_buckets} buckets, "
           f"target {tr.plan.bucket_bytes_target/1e6:.1f} MB, "
@@ -63,6 +77,12 @@ def main(argv=None):
     print(f"[schedule] mean {sr['mean_bytes_per_step']/1e6:.3f} MB/step "
           f"per worker (dense {sr['dense_bytes']/1e6:.3f} MB, "
           f"volume ratio {sr['volume_ratio']:.2f}x) — static plan, no tracing")
+    if args.sync == "sharded":
+        print(f"[schedule] sharded: "
+              f"{sr['mean_exposed_wire_bytes_per_step']/1e6:.3f} MB/step "
+              f"exposed wire (RS), "
+              f"{sr['mean_deferred_bytes_per_step']/1e6:.3f} MB/step "
+              f"deferred param AG riding the next forward pass")
 
     state = tr.init_state()
     n_params = sum(p.numel() for p in state["params"])

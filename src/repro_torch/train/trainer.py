@@ -10,9 +10,14 @@
   un-reduced gradients, and the compressor decides exactly which bytes
   cross the process group (one ``all_reduce`` per selected segment).
 * Loss metrics are averaged over the process group.
+* ``arena=True`` runs the zero-copy arena form of the sync
+  (``core.arena``); ``sync="sharded"`` reduce-scatters each selected
+  bucket, clips on the all-reduced sum of the local squared norms, and
+  all-gathers the updated params at the head of the next step (and once
+  more in :meth:`Trainer.flush_sync` when ``run`` ends).
 
-Not ported yet (they raise): ``overlap="fused"``, ``arena=True``,
-``sync="sharded"``, hierarchical pods, ``interval="auto"``.
+Not ported yet (they raise): ``overlap="fused"``, hierarchical pods,
+``interval="auto"``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch.distributed as dist
 from ..core import build_plan, get_compressor
 from ..core.bucketing import BucketPlan
 from ..core.comm import Compressor, world_size
+from ..core.overlap import sharded_param_allgather
 from ..core.schedule import CommSchedule, mean_bytes_per_step
 from ..optim import Optimizer, apply_updates, clip_by_global_norm, global_norm
 
@@ -41,8 +47,13 @@ class TrainConfig:
     steps: int = 100
     log_every: int = 10
     overlap: str = "post"                  # only "post" is ported
-    arena: bool = False                    # only False is ported
-    sync: str = "allreduce"                # only "allreduce" is ported
+    # zero-copy gradient arena (core/arena.py): bucket payloads are static
+    # slot views of flat per-phase planes, packed by one fused pass
+    arena: bool = False
+    # "allreduce" or "sharded": reduce-scatter the compressed slot, the
+    # optimizer's meaningful updates on the local shard, and the deferred
+    # param all-gather at the next step's head
+    sync: str = "allreduce"
 
     def __post_init__(self):
         if self.interval == "auto":
@@ -54,18 +65,16 @@ class TrainConfig:
             raise NotImplementedError(
                 f"overlap={self.overlap!r} is not ported; only 'post' is"
             )
-        if self.arena:
-            raise NotImplementedError("arena=True is not ported")
-        if self.sync != "allreduce":
-            raise NotImplementedError(
-                f"sync={self.sync!r} is not ported; only 'allreduce' is"
-            )
 
 
 def make_compressor(tc: TrainConfig) -> Compressor:
     opts = dict(tc.compressor_options)
     if tc.compressor == "covap":
         opts.setdefault("interval", tc.interval)
+    if tc.arena:
+        opts.setdefault("use_arena", True)
+    if tc.sync != "allreduce":
+        opts.setdefault("sync", tc.sync)
     return get_compressor(tc.compressor, **opts)
 
 
@@ -97,6 +106,17 @@ def loss_and_grads(model, params: list[torch.Tensor], batch, group=None):
     return grads, _pmean_metrics(metrics, group)
 
 
+@torch.no_grad()
+def _sharded_grad_norm(synced: list[torch.Tensor], group) -> torch.Tensor:
+    """Global gradient norm under sharded sync: each worker's ``synced`` is
+    zero off its owned shards, so the global square-sum is the all-reduced
+    sum of the local ones (summed in another order than the allreduce
+    path's norm, so the two agree to an ulp, not bitwise)."""
+    sq = sum(torch.sum(torch.square(x.float())) for x in synced)
+    dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=group)
+    return torch.sqrt(sq)
+
+
 def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
                   plan: BucketPlan, *, phase: int, group=None,
                   clip_norm: float = 0.0) -> Callable:
@@ -104,19 +124,31 @@ def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
     this phase's static schedule, optional global-norm clip, optimizer update
     in place.
 
+    Sharded sync with a group: every step begins with the deferred param
+    all-gather of the previous step (``overlap.sharded_param_allgather``),
+    before the forward pass reads any parameter; it covers every bucket
+    and rewrites values that already agree, so it runs from step 0.
+
     ``step_fn(state, batch) -> (state, metrics)``; ``state`` is
     ``{"params", "opt", "comp", "step"}`` as :func:`make_train_state`
     builds it, and its ``params`` are the model's parameters.
     ``step_fn.update(state, grads) -> (state, grad_norm)`` is the part after
     the backward pass, for callers that hold gradients already."""
     comm_schedule = compressor.plan_phase(plan, phase, world=world_size(group))
+    sharded = (getattr(compressor, "sync_mode", "allreduce") == "sharded"
+               and group is not None)
 
     def update(state, grads):
         params = state["params"]
         synced, comp_state, _ = compressor.execute(
             comm_schedule, grads, state["comp"], step=state["step"], group=group,
         )
-        if clip_norm > 0:
+        if sharded:
+            gnorm = _sharded_grad_norm(synced, group)
+            if clip_norm > 0:
+                scale = torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
+                synced = [(x.float() * scale).to(x.dtype) for x in synced]
+        elif clip_norm > 0:
             synced, gnorm = clip_by_global_norm(synced, clip_norm)
         else:
             gnorm = global_norm(synced)
@@ -127,6 +159,9 @@ def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
         return new_state, gnorm
 
     def step_fn(state, batch):
+        if sharded:
+            sharded_param_allgather(compressor, comm_schedule, state["params"],
+                                    group=group)
         grads, metrics = loss_and_grads(model, state["params"], batch, group)
         new_state, metrics["grad_norm"] = update(state, grads)
         return new_state, metrics
@@ -168,6 +203,7 @@ class Trainer:
         )
         self._steps: dict[int, Callable] = {}
         self.history: list[dict] = []
+        self._pending_sync = False
 
     @property
     def num_phases(self) -> int:
@@ -187,7 +223,7 @@ class Trainer:
     def schedule_report(self) -> dict:
         scheds = self.schedules()
         mean = mean_bytes_per_step(scheds)
-        return {
+        out = {
             "compressor": self.tc.compressor,
             "num_phases": len(scheds),
             "bytes_per_worker_per_phase": [s.bytes_per_worker for s in scheds],
@@ -195,6 +231,16 @@ class Trainer:
             "dense_bytes": scheds[0].dense_bytes if scheds else 0,
             "volume_ratio": scheds[0].dense_bytes / max(mean, 1) if scheds else 1.0,
         }
+        if self.sharded:
+            n = max(len(scheds), 1)
+            out["sync"] = self.tc.sync
+            out["mean_exposed_wire_bytes_per_step"] = (
+                sum(s.exposed_wire_bytes(self.dp_world) for s in scheds) / n
+            )
+            out["mean_deferred_bytes_per_step"] = (
+                sum(s.deferred_bytes_per_worker for s in scheds) / n
+            )
+        return out
 
     def _phase_fn(self, phase: int) -> Callable:
         if phase not in self._steps:
@@ -203,6 +249,39 @@ class Trainer:
                 phase=phase, group=self.group, clip_norm=self.tc.clip_norm,
             )
         return self._steps[phase]
+
+    @property
+    def sharded(self) -> bool:
+        return self.tc.sync == "sharded"
+
+    def flush_sync(self, state: dict) -> dict:
+        """Settle the last step's pending deferred gather (sharded sync):
+        all-gather the params and every params-shaped part of the optimizer
+        state (Adam's m and v, SGD's mu) from their shard owners, in place,
+        so every worker holds the values the allreduce path would.  A no-op
+        for allreduce runs, single-worker runs and when nothing is
+        pending."""
+        if not self.sharded or not self._pending_sync:
+            return state
+        self._pending_sync = False
+        if self.group is None:
+            return state
+        schedule = self.compressor.plan_phase(self.plan, 0, world=self.dp_world)
+        shapes = [tuple(p.shape) for p in state["params"]]
+
+        def gather(tree):
+            if (isinstance(tree, (list, tuple)) and len(tree) == len(shapes)
+                    and all(isinstance(x, torch.Tensor) and tuple(x.shape) == s
+                            for x, s in zip(tree, shapes))):
+                sharded_param_allgather(self.compressor, schedule, tree,
+                                        group=self.group)
+            elif isinstance(tree, dict):
+                for v in tree.values():
+                    gather(v)
+
+        gather(state["params"])
+        gather(state["opt"])
+        return state
 
     def init_state(self, seed: int | None = None) -> dict:
         """Fresh optimizer and EF state over the model's parameters; with a
@@ -222,6 +301,7 @@ class Trainer:
         t0 = time.perf_counter()
         for i in range(steps):
             state, metrics = self.step(state, next(it))
+            self._pending_sync = self.sharded
             if (i + 1) % self.tc.log_every == 0 or i == 0:
                 m = {k: float(v) for k, v in metrics.items()}   # syncs the device
                 m["step"] = state["step"]
@@ -232,4 +312,5 @@ class Trainer:
                         f"step {state['step']:>5d}  loss {m['loss']:.4f}  "
                         f"gnorm {m['grad_norm']:.3f}  t {m['wall_s']:.1f}s"
                     )
-        return state
+        # sharded sync: the last step's deferred gather has no next step
+        return self.flush_sync(state)

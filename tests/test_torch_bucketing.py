@@ -3,6 +3,7 @@
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.configs as rconfigs
 from repro.core import build_plan as r_build_plan
@@ -99,12 +100,16 @@ def test_every_bucket_selected_once_per_cycle(interval):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        get_compressor("covap", interval=4, wire_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        get_compressor("covap", interval=4, use_arena=True)
-    with pytest.raises(NotImplementedError):
-        get_compressor("covap", interval=4, sync="sharded")
+    """The wire cast, the arena and sharded sync are ported and accepted;
+    ``interval="auto"`` and the sparsifying compressors still raise."""
+    comp = get_compressor("covap", interval=4, wire_dtype="bfloat16",
+                          use_arena=True, sync="sharded")
+    assert comp.wire.wire_dtype == torch.bfloat16
+    assert comp._arena_on() and comp.sync_mode == "sharded"
+    assert get_compressor("fp16").wire.wire_dtype == torch.bfloat16
+    assert get_compressor("none", sync="sharded").ef is None
+    with pytest.raises(ValueError):
+        get_compressor("covap", interval=4, sync="ring")
     with pytest.raises(NotImplementedError):
         get_compressor("covap", interval="auto")
     with pytest.raises(KeyError):

@@ -117,10 +117,18 @@ def test_cosine_warmup_matches_reference(step):
 
 
 def test_unported_train_options_raise():
-    for kw in ({"overlap": "fused"}, {"arena": True}, {"sync": "sharded"},
-               {"interval": "auto"}):
+    """``arena=True`` and ``sync="sharded"`` are ported and accepted;
+    ``overlap="fused"``, ``interval="auto"`` and ``topk`` still raise."""
+    from repro_torch.train.trainer import make_compressor
+
+    tc = TrainConfig(arena=True, sync="sharded")
+    comp = make_compressor(tc)
+    assert comp._arena_on() and comp.sync_mode == "sharded"
+    for kw in ({"overlap": "fused"}, {"interval": "auto"}):
         with pytest.raises(NotImplementedError):
             TrainConfig(**kw)
+    with pytest.raises(KeyError):
+        make_compressor(TrainConfig(compressor="topk"))
 
 
 def test_cli_runs_on_cpu():
