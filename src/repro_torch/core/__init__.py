@@ -1,6 +1,6 @@
 """COVAP core in PyTorch: bucket plans, the coarse filter, error feedback,
-static comm schedules, the zero-copy arena, the segmented sync pipeline and
-the deferred param all-gather of sharded sync."""
+static comm schedules, the zero-copy arena, the segmented and flat-bucket
+sync pipelines and the deferred param all-gather of sharded sync."""
 from . import (
     arena,
     bucketing,

@@ -69,6 +69,22 @@ def reduce_scatter(x: torch.Tensor, group, *, out: torch.Tensor | None = None
     return out
 
 
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Gather ``x`` from every worker along a new leading axis:
+    ``(W, *x.shape)`` in rank order, through one ``all_gather_into_tensor``
+    into a ``(W*n,)`` buffer.  A 1-byte dtype (int8, float8) goes on the wire
+    as a ``uint8`` view, which every backend carries (gloo refuses float8).
+    With no group, ``x`` with a leading axis of 1."""
+    if group is None:
+        return x.unsqueeze(0)
+    flat = x.contiguous().reshape(-1)
+    wire = flat.view(torch.uint8) if flat.element_size() == 1 else flat
+    out = torch.empty(dist.get_world_size(group) * wire.numel(),
+                      dtype=wire.dtype, device=wire.device)
+    dist.all_gather_into_tensor(out, wire, group=group)
+    return out.view(x.dtype).view(-1, *x.shape)
+
+
 def all_gather_tiled(shard: torch.Tensor, group) -> torch.Tensor:
     """Concatenating all-gather of per-worker shards (worker order = rank,
     the inverse of :func:`reduce_scatter`'s scatter).  The identity with no

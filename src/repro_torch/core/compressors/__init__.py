@@ -1,6 +1,9 @@
-"""GC scheme registry: COVAP and the ``none``/``fp16`` baselines."""
+"""GC scheme registry: COVAP, the ``none``/``fp16`` baselines, the
+block-scaled FP8 wire and EFsignSGD."""
 from .base import Compressor, SyncStats, dense_bytes, get_compressor, register
 from .covap import COVAP
+from .fp8wire import FP8Wire
+from .signsgd import EFSignSGD
 from .simple import HalfPrecision, NoCompression
 
 __all__ = [
@@ -10,6 +13,8 @@ __all__ = [
     "get_compressor",
     "register",
     "COVAP",
+    "EFSignSGD",
+    "FP8Wire",
     "HalfPrecision",
     "NoCompression",
 ]

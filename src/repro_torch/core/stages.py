@@ -1,12 +1,15 @@
 """Gradient-sync stages + the ``SyncPipeline`` combinator: the segmented
 path of ``repro.core.stages``, which COVAP and the ``none``/``fp16``
-baselines run::
+baselines run, and its flat-bucket path, which the block-scaled FP8 wire
+(``fp8wire``) and EFsignSGD (``efsignsgd``) run::
 
     SyncPipeline(filter=CoarseFilter(I), ef=ErrorFeedback(EFSchedule(...)),
                  wire=WireCast())
+    SyncPipeline(ef=ErrorFeedback(), wire=FP8Block(8192))
 
 ``plan_phase`` emits a static :class:`CommSchedule`; ``execute`` walks the
-plan bucket by bucket.  Three execution forms, as in the reference:
+plan bucket by bucket.  A segmented wire (``WireCast``) has three execution
+forms, as in the reference:
 
 * the per-segment form (default): EF on every bucket (the ``ef_update``
   kernel on CUDA without a wire cast), one all-reduce per selected segment;
@@ -19,6 +22,16 @@ plan bucket by bucket.  Three execution forms, as in the reference:
   is reduce-scattered instead of all-reduced; the worker keeps the mean on
   the shard it owns and zeros elsewhere, and the trainer all-gathers the
   updated params at the next step's head (``core.overlap``).
+
+A flat wire (``FP8Block``, ``SignCompress``) sees each selected bucket as
+one flat vector: classic EF compensates the whole tree (``t = g + r``), each
+selected bucket's compensated slices are concatenated, the wire stage
+encodes, all-gathers and decodes them, and the residual is ``t - sent``,
+where ``sent`` is this worker's own decoded contribution.  With
+``use_arena=True`` the compensated tree is packed once into flat planes and
+each wire stage runs on its bucket's slot view.  On CUDA tensors the wire
+stages run the ``quantize_fp8`` / ``dequantize_fp8`` and ``sign_compress``
+kernels.
 """
 from __future__ import annotations
 
@@ -34,6 +47,7 @@ from .bucketing import Bucket, BucketPlan
 from .comm import (
     Compressor,
     SyncStats,
+    all_gather,
     dense_bytes,
     flat_axis_index,
     pmean,
@@ -43,7 +57,14 @@ from .comm import (
 from .error_feedback import EFSchedule, init_residual
 from .filter import selected_buckets
 from .schedule import CollectiveCall, CommSchedule
-from ..kernels.ref import pack_ef_cast_ref, wire_torch_dtype
+from ..kernels.ref import (
+    FP8_BLOCK,
+    dequantize_fp8_ref,
+    pack_ef_cast_ref,
+    quantize_fp8_ref,
+    sign_compress_ref,
+    wire_torch_dtype,
+)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -70,13 +91,49 @@ class CoarseFilter:
 
 @dataclasses.dataclass(frozen=True)
 class ErrorFeedback:
-    """Compensation + residual stage (SS III.D) with COVAP's ascending
+    """Compensation + residual stage (SS III.D).  ``schedule=None`` is the
+    classic EF of the baselines (coefficient 1); COVAP passes its ascending
     :class:`EFSchedule`."""
 
-    schedule: EFSchedule = EFSchedule()
+    schedule: EFSchedule | None = None
+
+    def compensated(self, grads: Sequence[torch.Tensor],
+                    residual: Sequence[torch.Tensor], step: int
+                    ) -> list[torch.Tensor]:
+        """``t = g + r`` (classic EF, no multiply) or ``t = g + c*r`` with
+        the schedule's coefficient of ``step``, leaf by leaf."""
+        if self.schedule is None:
+            return [g + r.to(g.dtype) for g, r in zip(grads, residual)]
+        c = self.schedule.coefficient(step)
+        return [g + c * r.to(g.dtype) for g, r in zip(grads, residual)]
 
 
-class WireCast:
+class WireStage:
+    """How one selected bucket crosses the network.
+
+    ``plan_bucket`` is the static half (exact per-worker bytes, collective
+    op, wire dtype); ``execute_bucket`` / ``execute_segment`` the executed
+    half.  ``segmented=True`` stages work on segment slices; the rest see
+    the flat bucket vector."""
+
+    segmented: bool = False
+
+    def plan_bucket(self, plan: BucketPlan, bucket: Bucket, world: int = 1
+                    ) -> CollectiveCall:
+        raise NotImplementedError
+
+    def execute_bucket(self, flat: torch.Tensor, key, group, *,
+                       use_kernel: bool = False):
+        """-> ``(synced_flat, local_sent_flat)``.  ``key`` is the PRNG key of
+        Random-k, which is not ported (always ``None``); ``use_kernel``
+        runs the stage's CUDA kernels instead of their plain versions."""
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
+
+class WireCast(WireStage):
     """Dense segment-wise all-reduce, optionally cast on the wire.
 
     ``WireCast(None)`` is the DDP baseline; ``WireCast('bfloat16')`` halves
@@ -111,6 +168,82 @@ class WireCast:
         return f"WireCast({_dtype_name(self.wire_dtype) if self.wire_dtype else None})"
 
 
+class SignCompress(WireStage):
+    """EFsignSGD wire format: int8 signs (1 byte an element) and one float32
+    scale ``mean(|t|)``, exchanged by all-gather (each worker's signs
+    differ) and decoded as ``mean_w(scale_w * sign_w)``."""
+
+    def plan_bucket(self, plan, bucket, world=1):
+        return CollectiveCall(f"bucket:{bucket.index}", "all_gather", "int8",
+                              bucket.numel * 1, 4)
+
+    def execute_bucket(self, flat, key, group, *, use_kernel=False):
+        if use_kernel:
+            from ..kernels.sign_compress import sign_compress
+
+            signs, scale = sign_compress(flat.float())
+        else:
+            signs, scale = sign_compress_ref(flat)
+        scale = scale.to(flat.dtype)
+        signs_all = all_gather(signs, group)                 # (W, n) int8
+        scales_all = all_gather(scale.reshape(1), group)     # (W, 1)
+        decoded = (signs_all.to(flat.dtype) * scales_all).mean(dim=0)
+        local_sent = scale * signs.to(flat.dtype)
+        return decoded, local_sent
+
+
+class FP8Block(WireStage):
+    """Block-scaled FP8 wire (4x against float32): a float8_e4m3fn payload
+    and one float32 amax scale per ``block`` elements, exchanged by
+    all-gather (each worker's payload differs) and decoded as the mean of
+    the W dequantised contributions."""
+
+    def __init__(self, block: int = FP8_BLOCK):
+        self.block = int(block)
+
+    def plan_bucket(self, plan, bucket, world=1):
+        nb = max(1, -(-bucket.numel // self.block))
+        return CollectiveCall(f"bucket:{bucket.index}", "all_gather",
+                              "float8_e4m3fn", bucket.numel * 1, nb * 4)
+
+    def _dequantize(self, q, scales, out, use_kernel):
+        if use_kernel:
+            from ..kernels.quantize import dequantize_fp8
+
+            return dequantize_fp8(q, scales, self.block, out=out)
+        return out.copy_(dequantize_fp8_ref(q, scales, self.block))
+
+    def execute_bucket(self, flat, key, group, *, use_kernel=False):
+        if use_kernel:
+            from ..kernels.quantize import quantize_fp8
+
+            q, scales = quantize_fp8(flat.float(), self.block)
+        else:
+            q, scales = quantize_fp8_ref(flat, self.block)
+        q_all = all_gather(q, group)                          # (W, n) fp8
+        s_all = all_gather(scales, group)                     # (W, nb)
+        dec = torch.empty(q_all.shape, dtype=torch.float32, device=flat.device)
+        for w in range(q_all.shape[0]):
+            self._dequantize(q_all[w], s_all[w], dec[w], use_kernel)
+        local_sent = self._dequantize(q, scales, torch.empty_like(dec[0]),
+                                      use_kernel)
+        return dec.mean(dim=0).to(flat.dtype), local_sent.to(flat.dtype)
+
+    def __repr__(self):
+        return f"FP8Block({self.block})"
+
+
+def _split_like(slices: Sequence[torch.Tensor], flat: torch.Tensor
+                ) -> list[torch.Tensor]:
+    """Split a flat bucket vector into views shaped like ``slices``."""
+    out, off = [], 0
+    for x in slices:
+        n = x.numel()
+        out.append(flat[off:off + n].view(x.shape))
+        off += n
+    return out
+
+
 def _state_present(state: Any) -> bool:
     return state is not None and not (isinstance(state, (tuple, list)) and len(state) == 0)
 
@@ -118,10 +251,12 @@ def _state_present(state: Any) -> bool:
 class SyncPipeline(Compressor):
     """filter ∘ error-feedback ∘ wire, with the plan/execute split.
 
-    Options: ``use_ef_kernel`` and ``use_pack_kernel`` (``None``: the CUDA
+    Options: ``use_ef_kernel``, ``use_pack_kernel`` and
+    ``use_wire_kernel`` (the flat wires' kernels) (``None``: the CUDA
     kernel on CUDA tensors, the plain form on CPU tensors; ``False``: the
     plain form everywhere; ``True`` on CPU tensors raises), ``use_arena``
-    and ``sync`` (``"allreduce"`` or ``"sharded"``)."""
+    and ``sync`` (``"allreduce"`` or ``"sharded"``; a flat wire takes only
+    ``"allreduce"``)."""
 
     name = "pipeline"
 
@@ -231,13 +366,21 @@ class SyncPipeline(Compressor):
         in ``state`` are lists of tensors in leaf order; neither is
         modified."""
         stats = SyncStats(schedule.bytes_per_worker, schedule.dense_bytes)
-        out, new_state = self._execute_segmented(schedule, grads, state, step, group)
+        if getattr(self.wire, "segmented", False):
+            out, new_state = self._execute_segmented(schedule, grads, state,
+                                                     step, group)
+        else:
+            out, new_state = self._execute_flat(schedule, grads, state, step,
+                                                group)
         return out, new_state, stats
 
     def ef_coefficient(self, step: int) -> float | None:
-        """The EF coefficient of ``step``; ``None`` without an EF stage."""
+        """The EF coefficient of ``step``; ``None`` without an EF stage,
+        1 for classic EF (``schedule=None``), as in the reference."""
         if self.ef is None:
             return None
+        if self.ef.schedule is None:
+            return 1.0
         return self.ef.schedule.coefficient(step)
 
     def _engage(self, option: str, g: torch.Tensor) -> bool:
@@ -376,14 +519,28 @@ class SyncPipeline(Compressor):
     def execute_bucket(self, schedule: CommSchedule, b: int,
                        g_slices: Sequence[torch.Tensor],
                        r_slices: Sequence[torch.Tensor] | None = None, *,
-                       coeff=None, group=None):
+                       coeff=None, key=None, group=None):
         """Synchronise ONE bucket: ``g_slices``/``r_slices`` are its
-        segments' gradient and residual slices.  Returns
-        ``(synced_slices, resid_slices)``; ``synced_slices`` is ``None`` for
-        an unselected bucket, ``resid_slices`` is ``None`` without EF.
-        The per-segment form only: the arena and sharded forms run over the
-        whole tree (:meth:`_execute_segmented_arena`)."""
+        segments' gradient and residual slices.
+
+        Segmented wire: returns ``(synced_slices, resid_slices)``;
+        ``synced_slices`` is ``None`` for an unselected bucket,
+        ``resid_slices`` is ``None`` without EF.  The per-segment form only:
+        the arena and sharded forms run over the whole tree
+        (:meth:`_execute_segmented_arena`).
+
+        Flat wire: ``g_slices`` are already compensated; returns
+        ``(synced_slices, sent_slices)``, ``(None, None)`` for an unselected
+        bucket.  ``key`` (Random-k's PRNG key) is not used by the ported
+        wires."""
         selected = b in schedule.selected
+        if not getattr(self.wire, "segmented", False):
+            if not selected:
+                return None, None
+            flat = torch.cat([x.reshape(-1) for x in g_slices])
+            synced_flat, sent_flat = self.wire.execute_bucket(
+                flat, key, group, use_kernel=self._engage("use_wire_kernel", flat))
+            return _split_like(g_slices, synced_flat), _split_like(g_slices, sent_flat)
         synced, resids = [], []
         rs = r_slices if r_slices is not None else (None,) * len(g_slices)
         for g, r in zip(g_slices, rs):
@@ -473,3 +630,58 @@ class SyncPipeline(Compressor):
                 for seg, rr in zip(segs, resids):
                     bk._update_segment(resid[seg.leaf_idx], seg, rr)
         return out, (resid if ef_on else state)
+
+    # ---- flat-bucket path (fp8wire, efsignsgd) ----------------------------
+    @torch.no_grad()
+    def _execute_flat_arena(self, schedule, grads, state, step, group):
+        """Arena form of :meth:`_execute_flat`: the compensated tree is
+        packed ONCE into per-dtype planes (static offsets, the element order
+        of the concatenation), each selected bucket's wire stage runs on its
+        slot view, and the synced and sent values return through static
+        slices.  Bit for bit the per-bucket form."""
+        plan = schedule.plan
+        ef_on = self.ef is not None and _state_present(state)
+        t = self.ef.compensated(grads, state, step) if ef_on else list(grads)
+        sel = dict.fromkeys(schedule.selected)
+        layout = self.layout(plan, tuple(sel))
+        planes = ar.pack_leaves(layout, t)
+        synced, sent = {}, {}
+        for b in sel:
+            view = layout.bucket_view(planes, b)
+            synced_flat, sent_flat = self.wire.execute_bucket(
+                view, None, group, use_kernel=self._engage("use_wire_kernel", view))
+            synced[b] = layout.unpack_bucket(b, synced_flat)
+            sent[b] = layout.unpack_bucket(b, sent_flat)
+        out = ar.gather_leaves(
+            plan, lambda b, si, seg: synced[b][si] if b in synced else None, t)
+        if not ef_on:
+            return out, state
+        sent_leaves = ar.gather_leaves(
+            plan, lambda b, si, seg: sent[b][si] if b in sent else None, t)
+        return out, [a - s for a, s in zip(t, sent_leaves)]
+
+    @torch.no_grad()
+    def _execute_flat(self, schedule, grads, state, step, group):
+        """Flat-bucket path: classic EF compensates the tree, each selected
+        bucket's slices go through :meth:`execute_bucket` as one vector, and
+        the residual is ``t - sent`` (unselected elements keep all of
+        ``t``).  ``use_arena`` runs :meth:`_execute_flat_arena`."""
+        if self._arena_on():
+            return self._execute_flat_arena(schedule, grads, state, step, group)
+        plan = schedule.plan
+        ef_on = self.ef is not None and _state_present(state)
+        t = self.ef.compensated(grads, state, step) if ef_on else list(grads)
+        out = [torch.zeros_like(x) for x in t]
+        sent = [torch.zeros_like(x) for x in t] if ef_on else None
+        for b in dict.fromkeys(schedule.selected):
+            segs = plan.buckets[b].segments
+            slices = [bk._slice_segment(t[s.leaf_idx], s) for s in segs]
+            synced_slices, sent_slices = self.execute_bucket(
+                schedule, b, slices, key=None, group=group)
+            for seg, xm, sv in zip(segs, synced_slices, sent_slices):
+                bk._update_segment(out[seg.leaf_idx], seg, xm)
+                if ef_on:
+                    bk._update_segment(sent[seg.leaf_idx], seg, sv)
+        if not ef_on:
+            return out, state
+        return out, [a - s for a, s in zip(t, sent)]

@@ -1,5 +1,6 @@
 """Where a training step's time goes on the GPU, from a ``torch.profiler``
-trace of ``Trainer.run`` on the ``TrainConfig()`` defaults.
+trace of ``Trainer.run`` on the ``TrainConfig()`` defaults (or another
+``--compressor``).
 
     python -m repro_torch.launch.profile_train --arch gpt2-paper \
         --seq-len 1024 --global-batch 8 --warmup 3 --steps 4 \
@@ -31,6 +32,9 @@ from ..train.trainer import TrainConfig, Trainer
 GROUPS = (
     ("ef_update", ("ef_update_kernel",)),
     ("pack_ef_cast", ("pack_ef_cast_kernel",)),
+    ("dequantize_fp8", ("dequantize_fp8_kernel",)),   # before its substring
+    ("quantize_fp8", ("quantize_fp8_kernel",)),
+    ("sign_compress", ("sign_compress_kernel",)),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")),
     ("softmax/logsumexp", ("softmax", "logsumexp")),
@@ -67,6 +71,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt2-paper")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--compressor", default="covap",
+                    choices=["covap", "none", "fp16", "fp8wire", "efsignsgd"])
     ap.add_argument("--seq-len", type=int, default=1024)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=3)
@@ -88,7 +94,7 @@ def main(argv=None):
     total_steps = args.warmup + args.steps
     model = build_model(cfg, device="cuda", seed=0)
     tr = Trainer(model, adamw(cosine_warmup(1.5e-4, total_steps // 10 + 1, total_steps)),
-                 TrainConfig(steps=total_steps))
+                 TrainConfig(compressor=args.compressor, steps=total_steps))
     it = iter(make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                                      global_batch=args.global_batch), device="cuda"))
     state = tr.run(tr.init_state(), it, steps=args.warmup, log=None)
@@ -116,7 +122,7 @@ def main(argv=None):
     n = args.steps
     kernel_ms = sum(by_group.values()) / 1e3 / n
     busy = busy_us(spans) / 1e3 / n
-    print(f"[profile] {smi} | {cfg.name} seq {args.seq_len} x batch "
+    print(f"[profile] {smi} | {cfg.name} {args.compressor} seq {args.seq_len} x batch "
           f"{args.global_batch}, {n} steps after {args.warmup}: wall "
           f"{wall_ms / n:.3f} ms/step, device busy {busy:.3f} ms/step "
           f"({100 * busy / (wall_ms / n):.1f}% of wall, idle "

@@ -5,7 +5,7 @@
 
 Prints the same ``[plan]``, ``[schedule]``, ``[model]``, per-step loss and
 ``[done]`` lines as ``repro.launch.train``.  ``--compressor`` picks covap,
-none or fp16, ``--arena`` the zero-copy arena and ``--sync sharded`` the
+none, fp16, fp8wire or efsignsgd, ``--arena`` the zero-copy arena and ``--sync sharded`` the
 reduce-scatter + deferred all-gather decomposition.  Runs on the GPU unless
 ``--device cpu`` is given.  ``--interval auto`` is not ported and raises.
 """
@@ -38,7 +38,7 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-test REDUCED variant")
     ap.add_argument("--compressor", default="covap",
-                    choices=["covap", "none", "fp16"])
+                    choices=["covap", "none", "fp16", "fp8wire", "efsignsgd"])
     ap.add_argument("--interval", default="4")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)

@@ -8,7 +8,9 @@
   backward pass (``overlap="post"``).
 * Gradients come from ``loss.backward()``; every worker holds its own
   un-reduced gradients, and the compressor decides exactly which bytes
-  cross the process group (one ``all_reduce`` per selected segment).
+  cross the process group (one ``all_reduce`` per selected segment, or
+  the all-gathers of each bucket's codes on the flat path of ``fp8wire``
+  and ``efsignsgd``).
 * Loss metrics are averaged over the process group.
 * ``arena=True`` runs the zero-copy arena form of the sync
   (``core.arena``); ``sync="sharded"`` reduce-scatters each selected

@@ -3,12 +3,17 @@ reference's trainer on a two-device CPU mesh, from the same parameters and
 the same global batches, over a full COVAP cycle plus one step, with SGD.
 
 The reference runs its ``arena=False``, ``sync="allreduce"`` post path,
-with an f32 wire, a bf16 wire and a binding global-norm clip.  The port
-runs that path and its sharded forms (per-segment and arena) against it.
+with an f32 wire, a bf16 wire and a binding global-norm clip, and its
+flat-bucket path with the FP8 wire (``fp8wire``) and EFsignSGD.  The port
+runs those paths, its sharded forms (per-segment and arena) and the flat
+wires' arena form against them.
 
 Both sides sum the two workers' gradients in their own order (gloo's is not
 XLA's), so the comparison is allclose at the single-process SGD bound; the
-bf16 wire adds the one-ulp allowance of ``_assert_matches_reference``."""
+bf16 wire adds the one-ulp allowance of ``_assert_matches_reference``, the
+quantizing wires ``assert_quantized_wire_close``'s allowance.  The flat
+wires' all-gathers carry the int8 signs and fp8 codes as uint8 (gloo
+refuses float8)."""
 import os
 import subprocess
 import sys
@@ -18,7 +23,7 @@ import numpy as np
 import pytest
 import torch.multiprocessing as mp
 
-from _torch_dist_worker import train_worker
+from _torch_dist_worker import assert_quantized_wire_close, train_worker, wire_drift
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 WORLD = 2
@@ -31,7 +36,11 @@ BF16 = dict(TC, compressor_options={"wire_dtype": "bfloat16"})
 CLIPPED = dict(TC, clip_norm=CLIP)
 DATA = dict(vocab_size=512, seq_len=32, global_batch=4, corpus_tokens=1 << 14)
 
-REFERENCE_RUNS = {"allreduce": TC, "allreduce-bf16": BF16, "allreduce-clip": CLIPPED}
+FP8 = dict(TC, compressor="fp8wire")
+SIGN = dict(TC, compressor="efsignsgd")
+
+REFERENCE_RUNS = {"allreduce": TC, "allreduce-bf16": BF16, "allreduce-clip": CLIPPED,
+                  "fp8wire": FP8, "efsignsgd": SIGN}
 PORT_RUNS = {
     "allreduce": TC,
     "sharded": dict(TC, sync="sharded"),
@@ -41,6 +50,10 @@ PORT_RUNS = {
     "sharded-arena-bf16": dict(BF16, sync="sharded", arena=True),
     "allreduce-clip": CLIPPED,
     "sharded-clip": dict(CLIPPED, sync="sharded"),
+    "fp8wire": FP8,
+    "fp8wire-arena": dict(FP8, arena=True),
+    "efsignsgd": SIGN,
+    "efsignsgd-arena": dict(SIGN, arena=True),
 }
 
 REFERENCE = """
@@ -201,3 +214,60 @@ def test_two_worker_gloo_sync_forms_match_reference_cpu_mesh(runs, run, ref_run)
                                    ref[f"{ref_run}/grad_norm"], rtol=1e-5)
     if ref_run == "allreduce-clip":
         assert np.all(ref[f"{ref_run}/grad_norm"] > CLIP)
+
+
+@pytest.mark.parametrize("run", ["fp8wire", "fp8wire-arena", "efsignsgd",
+                                 "efsignsgd-arena"])
+def test_two_worker_gloo_flat_wires_match_reference_cpu_mesh(runs, run):
+    """The flat-bucket path at W=2: each worker's fp8 codes and scales (or
+    int8 signs and scale) all-gathered and decoded as the mean of the two
+    contributions, residual ``t - sent``; against the reference's two-device
+    run of the same compressor.  Losses at rtol 1e-5, grad norms at rtol
+    1e-4, params, momenta and residuals within
+    ``assert_quantized_wire_close``'s allowance; params and momenta
+    replicated bit for bit; the arena form equal to the per-bucket form bit
+    for bit on each rank.  ``python tests/test_torch_multiworker.py`` prints
+    rank 0's drift."""
+    ref, ranks = runs
+    ref_run = run.removesuffix("-arena")
+    mu_max = max(float(np.max(np.abs(v))) for v in _part(ref_run, ref, "mu").values())
+    for rank, got in enumerate(ranks):
+        np.testing.assert_allclose(got[f"{run}/losses"], ref[f"{ref_run}/losses"],
+                                   rtol=1e-5, err_msg=run)
+        np.testing.assert_allclose(got[f"{run}/grad_norm"],
+                                   ref[f"{ref_run}/grad_norm"], rtol=1e-4)
+        # the reference hands back the first device's residuals
+        for part in ("params", "mu") + (("resid",) if rank == 0 else ()):
+            want = _part(ref_run, ref, part)
+            assert want
+            assert_quantized_wire_close(
+                part, [got[f"{run}/{part}:{k}"] for k in want], list(want.values()),
+                steps=STEPS, lr=LR, mu_max=mu_max, err_msg=f"{run} rank {rank} {part}")
+        if run != ref_run:
+            for key, v in got.items():
+                if key.startswith(ref_run + "/"):
+                    np.testing.assert_array_equal(
+                        got[key.replace(ref_run, run, 1)], v, err_msg=key)
+    for part in ("params", "mu"):
+        for key, v in _part(run, ranks[0], part).items():
+            np.testing.assert_array_equal(v, ranks[1][f"{run}/{part}:{key}"])
+    assert any(not np.array_equal(v, ranks[1][f"{run}/resid:{key}"])
+               for key, v in _part(run, ranks[0], "resid").items())
+
+
+if __name__ == "__main__":
+    # rank 0's drift from the reference on the quantizing wires, at W=2
+    import tempfile
+    from pathlib import Path
+
+    REFERENCE_RUNS = {k: REFERENCE_RUNS[k] for k in ("fp8wire", "efsignsgd")}
+    PORT_RUNS = {k: PORT_RUNS[k] for k in ("fp8wire", "efsignsgd")}
+    with tempfile.TemporaryDirectory() as tmp:
+        init, out = str(Path(tmp) / "init.npz"), str(Path(tmp) / "ref.npz")
+        _run_reference(init, out)
+        ref, ranks = dict(np.load(out)), _run_port(Path(tmp), init)
+    for wire in PORT_RUNS:
+        for part in ("params", "mu", "resid"):
+            want = _part(wire, ref, part)
+            got = [ranks[0][f"{wire}/{part}:{k}"] for k in want]
+            print(wire, part, wire_drift(got, list(want.values())))

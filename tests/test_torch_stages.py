@@ -15,6 +15,7 @@ from repro.models import build_model as r_build_model
 import repro_torch.configs as tconfigs
 from repro_torch.core import build_plan, get_compressor
 from repro_torch.core.error_feedback import EFSchedule
+from repro_torch.core.stages import ErrorFeedback, SyncPipeline, WireCast
 from repro_torch.models import build_model
 
 torch.set_num_threads(2)
@@ -115,3 +116,32 @@ def test_interval_one_is_a_dense_mean_without_ef():
     out, state, _ = comp.execute(comp.plan_phase(plan, 0), g_t, (), step=0)
     assert state == ()
     assert all(torch.equal(o, g) for o, g in zip(out, g_t))
+
+
+def test_error_feedback_default_is_classic_ef():
+    """``ErrorFeedback()`` is the baselines' classic EF, as in the reference
+    (``schedule=None``, coefficient 1, ``t = g + r``); with a schedule it
+    compensates with the schedule's coefficient (COVAP)."""
+    from repro.core.stages import ErrorFeedback as RErrorFeedback
+    from repro.core.stages import SyncPipeline as RSyncPipeline
+    from repro.core.stages import WireCast as RWireCast
+
+    assert ErrorFeedback().schedule is None and RErrorFeedback().schedule is None
+    pipe = SyncPipeline(wire=WireCast(), ef=ErrorFeedback())
+    rpipe = RSyncPipeline(wire=RWireCast(), ef=RErrorFeedback())
+    for step in (0, 5, 10_000):
+        assert pipe.ef_coefficient(step) == float(rpipe.ef_coefficient(step)) == 1.0
+    _, plan, grads, resid, treedef = _setup(seed=4)
+    g_t = [torch.from_numpy(g) for g in grads]
+    r_t = [torch.from_numpy(r) for r in resid]
+    unflat = lambda xs: jax.tree_util.tree_unflatten(treedef, [jnp.asarray(x) for x in xs])
+    want = jax.tree_util.tree_leaves(
+        RErrorFeedback().compensated(unflat(grads), unflat(resid), 3))
+    got = ErrorFeedback().compensated(g_t, r_t, 3)
+    assert all(np.array_equal(a.numpy(), np.asarray(b)) for a, b in zip(got, want))
+    assert all(torch.equal(a, g + r) for a, g, r in zip(got, g_t, r_t))
+    sched = ErrorFeedback(EFSchedule())
+    assert all(torch.equal(a, g + np.float32(0.3) * r)
+               for a, g, r in zip(sched.compensated(g_t, r_t, 3), g_t, r_t))
+    assert SyncPipeline(wire=WireCast(), ef=sched).ef_coefficient(3) == float(np.float32(0.3))
+    assert get_compressor("covap", interval=4).ef.schedule == EFSchedule()

@@ -109,6 +109,64 @@ def test_trainer_adamw_matches_reference():
     assert close / total > 0.999
 
 
+def _flat_wire_runs(name):
+    """The reference trainer and the port's, with and without the arena,
+    over 5 SGD steps of ``compressor=name`` from the same parameters.
+    -> ``(reference trainer, reference parts, [(trainer, parts), ...])``;
+    parts are ``{"params", "mu", "resid"}`` leaf lists as numpy arrays."""
+    tc = dict(TC, compressor=name)
+    rtr = RTrainer(r_build_model(rconfigs.get_reduced("gpt2-paper")),
+                   r_sgd(LR, momentum=0.9), RTrainConfig(**tc))
+    rstate = rtr.init_state(jax.random.PRNGKey(0))
+    init = jax.tree.map(np.asarray, rstate["params"])
+    rstate = rtr.run(rstate, iter(r_make_loader(RDataConfig(**DATA))), log=None)
+    want = {part: [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+            for part, tree in (("params", rstate["params"]),
+                               ("mu", rstate["opt"]["mu"]), ("resid", rstate["comp"]))}
+    runs = []
+    for arena in (False, True):
+        model = build_model(tconfigs.get_reduced("gpt2-paper"), device="cpu")
+        model.load_state_dict(params_from_jax(init, device="cpu"))
+        tr = Trainer(model, sgd(LR, momentum=0.9), TrainConfig(arena=arena, **tc))
+        state = tr.run(tr.init_state(), make_loader(DataConfig(**DATA), device="cpu"),
+                       log=None)
+        assert state["step"] == STEPS
+        runs.append((tr, {"params": [p.detach().numpy() for p in state["params"]],
+                          "mu": [m.numpy() for m in state["opt"]["mu"]],
+                          "resid": [r.numpy() for r in state["comp"]]}))
+    return rtr, want, runs
+
+
+@pytest.mark.parametrize("name", ["fp8wire", "efsignsgd"])
+def test_trainer_flat_wire_matches_reference(name):
+    """``TrainConfig(compressor=name)`` through ``Trainer.run``, with and
+    without the arena, against the reference trainer over 5 SGD steps:
+    losses at rtol 1e-5, grad norms at rtol 1e-4, params, momenta and EF
+    residuals within ``assert_quantized_wire_close``'s allowance (one
+    framework's last-bit gradient differences flip some fp8 codes or signs,
+    and the runs drift apart from there); the arena run equals the
+    per-bucket run bit for bit.  ``python tests/test_torch_trainer.py``
+    prints the drift."""
+    from _torch_dist_worker import assert_quantized_wire_close
+
+    rtr, want, runs = _flat_wire_runs(name)
+    mu_max = max(float(np.max(np.abs(x))) for x in want["mu"])
+    for arena, (tr, got) in zip((False, True), runs):
+        assert tr.num_phases == 1 and tr.compressor.name == name
+        assert tr.schedule_report() == rtr.schedule_report()
+        np.testing.assert_allclose([h["loss"] for h in tr.history],
+                                   [h["loss"] for h in rtr.history], rtol=1e-5)
+        np.testing.assert_allclose([h["grad_norm"] for h in tr.history],
+                                   [h["grad_norm"] for h in rtr.history], rtol=1e-4)
+        for part in got:
+            assert_quantized_wire_close(part, got[part], want[part], steps=STEPS,
+                                        lr=LR, mu_max=mu_max,
+                                        err_msg=f"{name} arena={arena} {part}")
+    (_, plain), (_, arena) = runs
+    assert all(np.array_equal(a, b) for part in plain
+               for a, b in zip(plain[part], arena[part]))
+
+
 @pytest.mark.parametrize("step", [0, 1, 5, 9, 10, 11, 50])
 def test_cosine_warmup_matches_reference(step):
     assert float(cosine_warmup(1.5e-4, 2, 10)(step)) == pytest.approx(
@@ -146,6 +204,22 @@ def test_cli_runs_on_cpu():
         assert tag in out, out
 
 
+@pytest.mark.parametrize("compressor", ["fp8wire", "efsignsgd"])
+def test_cli_runs_flat_wires_on_cpu(compressor):
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--compressor", compressor, "--arena", "--steps", "2", "--seq-len", "16",
+         "--global-batch", "4", "--device", "cpu", "--log-every", "1"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = r.stdout
+    for tag in ("[plan] 1 buckets, target", "1 phase executable(s)",
+                "[schedule] mean", "step     1  loss", "step     2  loss", "[done]"):
+        assert tag in out, out
+
+
 def test_cli_interval_auto_raises():
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     r = subprocess.run(
@@ -154,3 +228,13 @@ def test_cli_interval_auto_raises():
         capture_output=True, text=True, env=env, timeout=300,
     )
     assert r.returncode != 0 and "NotImplementedError" in r.stderr
+
+
+if __name__ == "__main__":
+    # the drift of the quantizing wires from the reference, one worker
+    from _torch_dist_worker import wire_drift
+
+    for wire in ("fp8wire", "efsignsgd"):
+        _, want, runs = _flat_wire_runs(wire)
+        for part in ("params", "mu", "resid"):
+            print(wire, part, wire_drift(runs[0][1][part], want[part]))
