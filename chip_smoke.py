@@ -18,9 +18,15 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            448 beside subnormal codes, the largest bucket) and
            ``sign_compress`` (signs bit for bit with +-0, subnormals and NaN;
            partials and scale at rtol 1e-6), each timed over one full-width
-           step's buckets
+           step's buckets; ``lowrank.matmul`` within 1e-5 (|A|@|B|) of
+           ``matmul_ref`` (every full-width leaf's three PowerSGD products,
+           an all-zero M, odd sizes, strided views) and timed over one
+           step's 33 products beside ``torch.bmm``; ``threshold_filter`` bit
+           for bit in y and counts (ragged, t = 0, NaN and +-inf, offset 1,
+           the largest bucket) and timed over one step's buckets at
+           ``sample_threshold`` ratios 0.01 and 0.001
   train    full-width gpt2-paper (190,532,352 parameters), AdamW, seq 1024,
-           global batch 8, 5 steps in a one-rank NCCL process group, six
+           global batch 8, 5 steps in a one-rank NCCL process group, seven
            times: COVAP I=4 on the ``TrainConfig`` defaults (every loss
            finite, ``ef_update.launches`` == segments x steps), then
            ``arena=True``, ``arena=True`` with a bf16 wire, and
@@ -29,17 +35,22 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            flat-bucket path, ``fp8wire`` (``quantize_fp8.launches`` ==
            buckets x steps, ``dequantize_fp8.launches`` == 2 x buckets x
            steps) and ``efsignsgd`` (``sign_compress.launches`` == buckets x
-           steps); every other kernel's count must be 0 on each run
+           steps); then the leaf path, ``powersgd`` (rank 2,
+           ``lowrank.matmul.launches`` == 33 x steps); every other kernel's
+           count must be 0 on each run (``threshold_filter``, which no path
+           runs, on all of them)
   parity   one step from the trained state on the same gradients: each
            kernel against its plain version, arena against per-segment
            (f32 and bf16 wires) and sharded against allreduce, bit for bit;
            for each flat wire, the kernels against ``use_wire_kernel=False``
            (fp8wire bit for bit; efsignsgd signs bit for bit, values at rtol
-           1e-6) and the arena against the per-bucket form, bit for bit
+           1e-6) and the arena against the per-bucket form, bit for bit;
+           for powersgd, the matmul kernel against ``use_wire_kernel=False``:
+           approx and residuals at allclose, Q up to QR's column signs
   small    REDUCED gpt2-paper trained 5 steps on the card and on the CPU
-           from the same parameters and batches, on the defaults and with
-           ``arena=True`` (the CPU run is the path the tests hold against
-           the JAX reference)
+           from the same parameters and batches, on the defaults, with
+           ``arena=True`` and with ``powersgd`` (the CPU run is the path the
+           tests hold against the JAX reference)
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -75,7 +86,12 @@ WIRE_BYTES_PER_ELEM = 5
 FP8_BLOCK = 8192
 SIGN_BLOCK = 32768
 STEPS = 5
-KERNELS = ("ef_covap", "pack_ef_cast", "quantize_fp8", "sign_compress")
+# float32 FMA rate outside the tensor cores (H100 SXM data sheet)
+F32_FLOPS_PER_S = 67e12
+THRESHOLD_BLOCK = 32768
+KERNELS = ("ef_covap", "pack_ef_cast", "quantize_fp8", "sign_compress",
+           "lowrank_matmul", "threshold_filter")
+MATMUL = "lowrank.matmul"      # the counter and record name of lowrank.matmul
 # the flat-bucket path: each one full-width run
 FLAT_RUNS = (
     ("fp8wire", {"compressor": "fp8wire"}),
@@ -132,18 +148,29 @@ def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by name; each carries a
     ``launches`` count."""
     from repro_torch.kernels.ef_covap import ef_update
+    from repro_torch.kernels.lowrank import matmul
     from repro_torch.kernels.pack_ef_cast import pack_ef_cast
     from repro_torch.kernels.quantize import dequantize_fp8, quantize_fp8
     from repro_torch.kernels.sign_compress import sign_compress
+    from repro_torch.kernels.topk_threshold import threshold_filter
 
-    return {f.__name__: f for f in (ef_update, pack_ef_cast, quantize_fp8,
-                                    dequantize_fp8, sign_compress)}
+    counters = {f.__name__: f for f in (ef_update, pack_ef_cast, quantize_fp8,
+                                        dequantize_fp8, sign_compress,
+                                        threshold_filter)}
+    counters[MATMUL] = matmul
+    return counters
 
 
 def launch_counts(**nonzero) -> dict:
     """The expected launch counts of a run: 0 for every kernel but those
-    named."""
+    named (``**{MATMUL: n}`` for the matmul)."""
     return {name: nonzero.get(name, 0) for name in kernel_counters()}
+
+
+def lowrank_leaves(plan) -> list[int]:
+    """The leaves PowerSGD factorises (two or more dimensions); each runs
+    three ``lowrank.matmul`` products a step."""
+    return [i for i, s in enumerate(plan.leaf_shapes) if len(s) >= 2]
 
 
 def device_timed(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -641,6 +668,240 @@ def phase_wire_kernels() -> list[dict]:
     ]
 
 
+def leaf_products(seed: int, device="cuda"):
+    """PowerSGD's three products for every full-width leaf of two or more
+    dimensions, on normal M and Q, as ``execute_leaf`` chains them: ``(name,
+    A, B, trans_a, trans_b)`` for ``P = M@Q``, ``Q' = M^T@P`` and ``P@Q'^T``,
+    with P orthonormalised by ``torch.linalg.qr`` and each product fed the
+    plain version's result of the one before."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import build_plan
+    from repro_torch.kernels.ref import matmul_ref
+    from repro_torch.models import build_model
+
+    plan = build_plan(build_model(get_config("gpt2-paper"), device="meta").named_leaves())
+    gen = torch.Generator(device).manual_seed(seed)
+    products = []
+    for i in lowrank_leaves(plan):
+        shape = plan.leaf_shapes[i]
+        M = torch.randn(shape, generator=gen, device=device)
+        M = M.unsqueeze(0) if M.dim() == 2 else M
+        Q = torch.randn((M.shape[0], M.shape[-1], 2), generator=gen, device=device)
+        P, _ = torch.linalg.qr(matmul_ref(M, Q))
+        Qn = matmul_ref(M, P, trans_a=True)
+        name = plan.leaf_paths[i]
+        products += [(f"{name} P=M@Q", M, Q, False, False),
+                     (f"{name} Q'=M^T@P", M, P, True, False),
+                     (f"{name} P@Q'^T", P, Qn, False, True)]
+    return products
+
+
+def matmul_within_bound(got, want, a, b, trans_a, trans_b) -> float:
+    """The largest ``|got - want| / (|A| @ |B|)`` over the elements (0 where
+    both are 0); the check is that it stays within 1e-5."""
+    from repro_torch.kernels.ref import matmul_ref
+
+    scale = matmul_ref(a.abs(), b.abs(), trans_a=trans_a, trans_b=trans_b)
+    diff = (got - want).abs()
+    check(bool((diff <= 1e-5 * scale).all()),
+          f"lowrank.matmul: |got - want| above 1e-5 (|A|@|B|): largest ratio "
+          f"{float((diff / scale.clamp_min(1e-30)).max()):.3g}")
+    return float((diff / scale.clamp_min(1e-30)).max())
+
+
+def phase_lowrank_kernels() -> dict:
+    """``lowrank.matmul`` against ``matmul_ref`` on the card, within
+    ``1e-5 (|A| @ |B|)`` elementwise: every full-width leaf's three products,
+    an all-zero M, odd sizes on both tile shapes, and operands that are
+    strided views; an all-zero leaf through ``LowRank.execute_leaf`` stays
+    finite.  Then the 33 products of one full-width step, timed."""
+    from repro_torch.core.stages import LowRank
+    from repro_torch.kernels.lowrank import matmul
+    from repro_torch.kernels.ref import matmul_ref
+
+    products = leaf_products(6)
+    gen = torch.Generator("cuda").manual_seed(7)
+    Z = torch.zeros(1, 50304, 768, device="cuda")
+    Zq = torch.randn(1, 768, 2, generator=gen, device="cuda")
+    Zp, _ = torch.linalg.qr(matmul_ref(Z, Zq))
+    odd_a = torch.randn(3, 1001, 517, generator=gen, device="cuda")
+    odd_b = torch.randn(3, 517, 3, generator=gen, device="cuda")
+    odd_w = torch.randn(3, 517, 129, generator=gen, device="cuda")
+    big = torch.randn(2, 700, 2 * 901, generator=gen, device="cuda")
+    view = big[:, :, ::2]                        # strides (1261400, 1802, 2)
+    cases = products + [
+        ("zero M P=M@Q", Z, Zq, False, False),
+        ("zero M Q'=M^T@P", Z, Zp, True, False),
+        ("odd 1001x517@517x3", odd_a, odd_b, False, False),
+        ("odd 1001x517@517x129", odd_a, odd_w, False, False),
+        ("odd, B in column-major strides", odd_a,
+         odd_b.transpose(1, 2).contiguous().transpose(1, 2), False, False),
+        ("strided view M^T@P", view, torch.randn(2, 700, 2, generator=gen, device="cuda"),
+         True, False),
+        ("strided view P@Q'^T", torch.randn(2, 700, 2, generator=gen, device="cuda"),
+         view.transpose(1, 2)[:, :, :2], False, True),
+    ]
+    worst = max_err = 0.0
+    for name, a, b, ta, tb in cases:
+        got = matmul(a, b, trans_a=ta, trans_b=tb)
+        want = matmul_ref(a, b, trans_a=ta, trans_b=tb)
+        torch.cuda.synchronize()
+        worst = max(worst, matmul_within_bound(got, want, a, b, ta, tb))
+        max_err = max(max_err, abs_err(got, want))
+    check(not matmul(Z, Zq).any(), "lowrank.matmul: an all-zero M gave nonzero P")
+    approx, qn = LowRank(2).execute_leaf(Z[0], Zq, None, use_kernel=True)
+    torch.cuda.synchronize()
+    check(not approx.any() and bool(torch.isfinite(qn).all()),
+          "LowRank.execute_leaf on an all-zero leaf: approx not 0 or Q not finite")
+    del Z, Zp, odd_a, odd_b, odd_w, big, view, approx, qn
+
+    # ---- one full-width step's 33 products -------------------------------
+    def runner(fn):
+        def run():
+            for _, a, b, ta, tb in products:
+                fn(a, b, ta, tb)
+        return run
+
+    def library(a, b, ta, tb):
+        torch.bmm(a.transpose(1, 2) if ta else a, b.transpose(1, 2) if tb else b)
+
+    run_kernel = runner(lambda a, b, ta, tb: matmul(a, b, trans_a=ta, trans_b=tb))
+    kernel_ms = device_timed(run_kernel)
+    plain_ms = device_timed(runner(
+        lambda a, b, ta, tb: matmul_ref(a, b, trans_a=ta, trans_b=tb)))
+    library_ms = device_timed(runner(library))
+    kernel_wall_ms = wall_timed(run_kernel)
+    by_kind = {}
+    for k, kind in enumerate(("P=M@Q", "Q'=M^T@P", "P@Q'^T")):
+        sub = products[k::3]
+        by_kind[kind] = device_timed(lambda sub=sub: [
+            matmul(a, b, trans_a=ta, trans_b=tb) for _, a, b, ta, tb in sub])
+    nbytes = flops = 0
+    for _, a, b, ta, tb in products:
+        B, m, kk = a.shape[0], a.shape[2 if ta else 1], a.shape[1 if ta else 2]
+        n = b.shape[1 if tb else 2]
+        nbytes += 4 * (a.numel() + b.numel() + B * m * n)
+        flops += 2 * B * m * n * kk
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    print(f"[kernels] lowrank.matmul within 1e-5 (|A|@|B|) of matmul_ref on "
+          f"{len(cases)} cases (largest ratio {worst:.3g}, max |err| {max_err:.3g}); "
+          f"an all-zero leaf through execute_leaf gives 0 and a finite Q; one "
+          f"full-width step = {len(products)} products, {nbytes} B, {flops} flop: "
+          f"kernel_ms {kernel_ms:.4f}  bound_ms {bound_ms:.4f} (bytes at 3.35 "
+          f"TB/s; flops at 67 TFLOP/s f32 {flops_ms:.4f}; {bound_ms / kernel_ms:.1%} "
+          f"of the HBM rate)  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f} "
+          f"(torch.bmm, TF32 off)  by product "
+          f"{ {k: round(v, 4) for k, v in by_kind.items()} }  kernel wall ms with "
+          f"host dispatch {kernel_wall_ms:.4f}", flush=True)
+    return {
+        "name": MATMUL,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lowrank_matmul.cu",
+        "replaces": "src/repro/kernels/lowrank.py:40",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": library_ms,
+        "library_call": "torch.bmm on the same (transposed) views, TF32 off",
+        "timed_work": f"{len(products)} products of one full-width PowerSGD step",
+        "wall_ms": kernel_wall_ms,
+        "ms_by_product": by_kind,
+        "max_err_over_abs_product": worst,
+    }
+
+
+def phase_threshold_kernels() -> dict:
+    """``threshold_filter`` against ``threshold_filter_ref`` bit for bit in y
+    and the counts: ragged, t = 0 (padding never counted), NaN and +-inf,
+    an offset-1 view, the largest bucket; then over one full-width step's 35
+    buckets at ``sample_threshold`` ratios 0.01 and 0.001, timed."""
+    from repro_torch.kernels.ref import sample_threshold, threshold_filter_ref
+    from repro_torch.kernels.topk_threshold import threshold_filter
+
+    plan, bufs, total = full_width_buckets()
+    largest = max(bufs, key=lambda x: x.numel())
+    gen = torch.Generator("cuda").manual_seed(8)
+    # (name, n, view offset, threshold: a ratio for sample_threshold or a value,
+    #  block, special values)
+    cases = [
+        ("ragged", 1_000_003, 0, 0.01, THRESHOLD_BLOCK, False),
+        ("zero-threshold-ragged", 70_001, 0, 0.0, THRESHOLD_BLOCK, True),
+        ("zero-threshold-block-4096", 5000, 0, 0.0, 4096, True),
+        ("nan-inf", 100_003, 0, 0.5, THRESHOLD_BLOCK, True),
+        ("offset-1", 100_003, 1, 0.01, THRESHOLD_BLOCK, True),
+        ("largest-bucket", largest.numel(), 0, 0.001, THRESHOLD_BLOCK, False),
+    ]
+    for name, n, off, thr, block, special in cases:
+        x = (largest.clone() if name == "largest-bucket"
+             else torch.randn(n + off, generator=gen, device="cuda")[off:])
+        if special:
+            x[:6] = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0,
+                                  0.0, 1e-45], device="cuda")
+        t = (sample_threshold(x, thr) if 0 < thr < 0.1
+             else torch.tensor(thr, device="cuda"))
+        y, c = threshold_filter(x, t, block=block)
+        ry, rc = threshold_filter_ref(x, t, block)
+        torch.cuda.synchronize()
+        check(torch.equal(y.view(torch.int32), ry.view(torch.int32)),
+              f"threshold_filter {name}: y not bitwise equal to threshold_filter_ref")
+        check(torch.equal(c, rc), f"threshold_filter {name}: counts {c[:4].tolist()} "
+              f"vs {rc[:4].tolist()}")
+        if thr == 0.0:
+            want_last = n - (c.numel() - 1) * block
+            check(int(c[-1]) == want_last and int(c.sum()) == n - 1,
+                  f"threshold_filter {name}: counts {c.tolist()[-3:]} at t = 0 "
+                  f"(padding counted, or the NaN)")
+
+    times, bounds, kept = {}, {}, {}
+    nb_total = sum(-(-x.numel() // THRESHOLD_BLOCK) for x in bufs)
+    bound_ms = (8 * total + 4 * nb_total + 4 * len(bufs)) / HBM_BYTES_PER_S * 1e3
+    for ratio in (0.01, 0.001):
+        ts = [sample_threshold(x, ratio) for x in bufs]
+        times[ratio] = device_timed(lambda ts=ts: [
+            threshold_filter(x, t) for x, t in zip(bufs, ts)])
+        times[f"{ratio}_plain"] = device_timed(lambda ts=ts: [
+            threshold_filter_ref(x, t, THRESHOLD_BLOCK) for x, t in zip(bufs, ts)])
+        kept[ratio] = sum(int(threshold_filter(x, t)[1].sum())
+                          for x, t in zip(bufs, ts)) / total
+    wall = wall_timed(lambda: [threshold_filter(x, t) for x, t in zip(bufs, ts)])
+    work = f"{len(bufs)} buckets, {total} elements (one full-width step)"
+    for ratio in (0.01, 0.001):
+        print(f"[kernels] threshold_filter at sample_threshold ratio {ratio} "
+              f"(kept {kept[ratio]:.5f} of the elements): {work}: kernel_ms "
+              f"{times[ratio]:.4f}  bound_ms {bound_ms:.4f} ({bound_ms / times[ratio]:.1%} "
+              f"of the HBM rate)  plain_ms {times[f'{ratio}_plain']:.4f}  library_ms "
+              f"none (no single PyTorch call gives y and the counts)", flush=True)
+    print(f"[kernels] threshold_filter bitwise equal to threshold_filter_ref in y "
+          f"and counts on {len(cases)} cases; kernel wall ms with host dispatch "
+          f"(ratio 0.001) {wall:.4f}", flush=True)
+    return {
+        "name": "threshold_filter",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/threshold_filter.cu",
+        "replaces": "src/repro/kernels/topk_threshold.py:27",
+        "launches": 0,
+        "path": None,
+        "path_note": "on no train path: behind repro_torch.kernels.ops only, as the "
+                     "reference's kernel is behind repro.kernels.ops",
+        "max_abs_err": 0.0,
+        "ms": times[0.01],
+        "plain_ms": times["0.01_plain"],
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call gives y and the counts",
+        "timed_work": work + ", sample_threshold ratio 0.01",
+        "ms_ratio_0.001": times[0.001],
+        "plain_ms_ratio_0.001": times["0.001_plain"],
+        "wall_ms": wall,
+    }
+
+
 def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -852,22 +1113,101 @@ def phase_flat_parity(tr, state, loader, group) -> None:
           flush=True)
 
 
+def sign_aligned(q: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``q`` with each column (last axis) of each batch multiplied by the
+    sign that best matches ``ref``'s: QR's column signs may differ between
+    two runs whose P differ in their last bits."""
+    s = torch.sign((q * ref).sum(dim=-2, keepdim=True))
+    return q * torch.where(s == 0, torch.ones_like(s), s)
+
+
+def leaf_close(got: torch.Tensor, want: torch.Tensor, scale: float) -> bool:
+    """rtol 1e-4, atol 1e-5 of ``scale``."""
+    return torch.allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
+
+
+def phase_powersgd_parity(tr, state, loader, group) -> None:
+    """One PowerSGD step from the trained state on the same gradients,
+    through ``SyncPipeline.execute``: the ``lowrank.matmul`` kernel against
+    ``use_wire_kernel=False`` (``torch.matmul``).  Synced values (``approx``)
+    at rtol 1e-4, atol 1e-5 of the leaf's largest; residuals likewise,
+    against the leaf's largest ``approx``; Q up to the sign of each column,
+    at rtol 1e-4, atol 1e-5 of its largest."""
+    from repro_torch.core import get_compressor
+    from repro_torch.core.comm import world_size
+    from repro_torch.train import loss_and_grads
+
+    batch = loader.make(state["step"])
+    grads, _ = loss_and_grads(tr.model, state["params"], batch, group)
+    counters = kernel_counters()
+    out, launches = {}, {}
+    for form, opts in (("kernel", {}), ("plain", {"use_wire_kernel": False})):
+        comp = get_compressor("powersgd", **opts)
+        sched = comp.plan_phase(tr.plan, 0, world=world_size(group))
+        before = {k: f.launches for k, f in counters.items()}
+        synced, new, _ = comp.execute(sched, grads, state["comp"], step=state["step"],
+                                      group=group)
+        torch.cuda.synchronize()
+        launches[form] = {k: f.launches - before[k] for k, f in counters.items()
+                          if f.launches != before[k]}
+        out[form] = (synced, new)
+    n = 3 * len(lowrank_leaves(tr.plan))
+    check(launches == {"kernel": {MATMUL: n}, "plain": {}},
+          f"powersgd parity: launches {launches}, want {MATMUL} {n} and 0")
+    (ks, kn), (ps, pn) = out["kernel"], out["plain"]
+    worst = {"approx": 0.0, "residual": 0.0, "q": 0.0}
+    for i, (a, b) in enumerate(zip(ks, ps)):
+        scale = float(b.abs().max())
+        worst["approx"] = max(worst["approx"], abs_err(a, b) / max(scale, 1e-30))
+        check(bool(torch.isfinite(a).all()) and leaf_close(a, b, scale),
+              f"powersgd parity: leaf {i} approx, kernel vs plain, max |diff| "
+              f"{abs_err(a, b):.3g} of {scale:.3g}")
+        ra, rb = kn["residual"][i], pn["residual"][i]
+        worst["residual"] = max(worst["residual"], abs_err(ra, rb) / max(scale, 1e-30))
+        check(leaf_close(ra, rb, scale), f"powersgd parity: leaf {i} residual, max "
+              f"|diff| {abs_err(ra, rb):.3g} against approx's {scale:.3g}")
+        qa, qb = kn["q"][i], pn["q"][i]
+        if qb is None:
+            check(qa is None, f"powersgd parity: leaf {i} has a Q in one form only")
+            continue
+        qa = sign_aligned(qa, qb)
+        qscale = float(qb.abs().max())
+        worst["q"] = max(worst["q"], abs_err(qa, qb) / max(qscale, 1e-30))
+        check(leaf_close(qa, qb, qscale), f"powersgd parity: leaf {i} Q up to column "
+              f"sign, max |diff| {abs_err(qa, qb):.3g} of {qscale:.3g}")
+    print(f"[parity] powersgd step {state['step']}, same gradients: lowrank.matmul "
+          f"kernel vs use_wire_kernel=False: approx, residuals and Q (up to column "
+          f"sign) within rtol 1e-4, atol 1e-5 of the leaf's largest (largest "
+          f"|diff| / scale: { {k: float(f'{v:.3g}') for k, v in worst.items()} }); "
+          f"launches {launches}", flush=True)
+
+
+def comp_parts(comp) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """A compressor state as ``(residual-like leaves, PowerSGD's Qs)``: the
+    residual list of the segmented and flat paths (no Q), or PowerSGD's
+    residuals and Qs without the ``None`` entries."""
+    if isinstance(comp, dict):
+        return ([r for r in comp["residual"] if r is not None],
+                [q for q in comp["q"] if q is not None])
+    return list(comp), []
+
+
 def phase_small() -> None:
     """REDUCED gpt2-paper on the card against the port on the CPU, on the
-    defaults and with ``arena=True``."""
+    defaults, with ``arena=True`` and with ``powersgd`` (whose Q is drawn on
+    the CPU for both, and held up to QR's column signs)."""
     from repro_torch.configs import get_reduced
     from repro_torch.data import DataConfig, make_loader
-    from repro_torch.kernels.ef_covap import ef_update
-    from repro_torch.kernels.pack_ef_cast import pack_ef_cast
     from repro_torch.models import build_model
     from repro_torch.optim import sgd
     from repro_torch.train import TrainConfig, Trainer
 
     cfg = get_reduced("gpt2-paper")
     init = build_model(cfg, device="cpu", seed=3).state_dict()
-    for label, opts, kernel in (("defaults", {}, ef_update),
-                                ("arena", {"arena": True}, pack_ef_cast)):
-        other = pack_ef_cast if kernel is ef_update else ef_update
+    counters = kernel_counters()
+    for label, opts, kernel in (("defaults", {}, "ef_update"),
+                                ("arena", {"arena": True}, "pack_ef_cast"),
+                                ("powersgd", {"compressor": "powersgd"}, MATMUL)):
         out = {}
         for dev in ("cpu", "cuda"):
             model = build_model(cfg, device=dev)
@@ -878,27 +1218,54 @@ def phase_small() -> None:
             loader = make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                             global_batch=4, corpus_tokens=1 << 14),
                                  device=dev)
-            before, before_other = kernel.launches, other.launches
+            before = {k: f.launches for k, f in counters.items()}
             state = tr.run(tr.init_state(), loader, log=None)
+            resid, qs = comp_parts(state["comp"])
             out[dev] = ([h["loss"] for h in tr.history],
-                        [p.detach().cpu() for p in state["params"] + state["comp"]],
-                        kernel.launches - before, other.launches - before_other)
-        (l_cpu, t_cpu, n_cpu, o_cpu), (l_gpu, t_gpu, n_gpu, o_gpu) = out["cpu"], out["cuda"]
-        check(n_cpu == 0 and n_gpu == STEPS * tr.plan.num_segments
-              and o_cpu == o_gpu == 0,
-              f"small {label}: launches cpu {n_cpu}, cuda {n_gpu}, other "
-              f"kernel {o_cpu}, {o_gpu}")
+                        [p.detach().cpu() for p in state["params"]],
+                        [r.cpu() for r in resid], [q.cpu() for q in qs],
+                        {k: f.launches - before[k] for k, f in counters.items()})
+        (l_cpu, p_cpu, r_cpu, q_cpu, n_cpu) = out["cpu"]
+        (l_gpu, p_gpu, r_gpu, q_gpu, n_gpu) = out["cuda"]
+        per_step = (3 * len(lowrank_leaves(tr.plan)) if kernel == MATMUL
+                    else tr.plan.num_segments)
+        check(n_cpu == launch_counts() and n_gpu == launch_counts(**{kernel: STEPS * per_step}),
+              f"small {label}: launches cpu {n_cpu}, cuda {n_gpu}")
         check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(l_gpu, l_cpu)),
               f"small {label}: losses cuda {l_gpu} vs cpu {l_cpu}")
         worst = 0.0
-        for a, b in zip(t_gpu, t_cpu):
+        for a, b in zip(p_gpu, p_cpu):
             check(torch.allclose(a, b, rtol=1e-4, atol=1e-6),
-                  f"small {label}: params or residuals differ between cuda and cpu")
-            worst = max(worst, float((a - b).abs().max()))
+                  f"small {label}: params differ between cuda and cpu (max |diff| "
+                  f"{abs_err(a, b):.3g})")
+            worst = max(worst, abs_err(a, b))
+        if label != "powersgd":
+            for a, b in zip(r_gpu, r_cpu):
+                check(torch.allclose(a, b, rtol=1e-4, atol=1e-6),
+                      f"small {label}: EF residuals differ between cuda and cpu")
+                worst = max(worst, abs_err(a, b))
+            how = "params and EF residuals at rtol 1e-4, atol 1e-6"
+        else:
+            # the warm-started Q carries last-bit differences from step to
+            # step: residuals and Q (up to QR's column signs) are held as the
+            # tests hold the port against the reference, rtol 1e-4 and atol
+            # 1e-4 of the part's largest value
+            for part, (got, want) in (("residual", (r_gpu, r_cpu)),
+                                      ("Q", ([sign_aligned(a, b) for a, b in zip(q_gpu, q_cpu)],
+                                             q_cpu))):
+                scale = max(float(b.abs().max()) for b in want)
+                rel = max(abs_err(a, b) for a, b in zip(got, want)) / scale
+                check(all(torch.allclose(a, b, rtol=1e-4, atol=1e-4 * scale)
+                          for a, b in zip(got, want)),
+                      f"small powersgd: {part} differs between cuda and cpu "
+                      f"(max |diff| {rel:.3g} of the largest)")
+                worst = max(worst, rel)
+            how = ("params at rtol 1e-4, atol 1e-6; residuals and Q (up to column "
+                   "signs) at rtol 1e-4, atol 1e-4 of the part's largest; max |diff| "
+                   "of params, or relative to the part's largest")
         print(f"[small] {label}: REDUCED, sgd, 5 steps: cuda losses "
               f"{[round(v, 5) for v in l_gpu]} match the cpu run (rtol 1e-4); "
-              f"params and EF residuals max |diff| {worst:.3g} (rtol 1e-4, atol "
-              f"1e-6); {kernel.__name__} launches {n_gpu}", flush=True)
+              f"{how}: {worst:.3g}; {kernel} launches {n_gpu[kernel]}", flush=True)
 
 
 def main() -> int:
@@ -908,7 +1275,8 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     phase_build()
-    records = [phase_kernels(), phase_pack_kernels(), *phase_wire_kernels()]
+    records = [phase_kernels(), phase_pack_kernels(), *phase_wire_kernels(),
+               phase_lowrank_kernels(), phase_threshold_kernels()]
     by_name = {r["name"]: r for r in records}
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
@@ -952,11 +1320,21 @@ def main() -> int:
             phase_flat_parity(tr, state, loader, group)
             del tr, state, loader
             torch.cuda.empty_cache()
+        tr, state, loader, launches = phase_train(cfg, group=group, label="powersgd",
+                                                  options={"compressor": "powersgd"})
+        n = 3 * len(lowrank_leaves(tr.plan))
+        check(launches == launch_counts(**{MATMUL: STEPS * n}),
+              f"powersgd: launches {launches} in {STEPS} steps; {n} products a step")
+        by_name[MATMUL]["launches"] = launches[MATMUL]
+        phase_powersgd_parity(tr, state, loader, group)
+        del tr, state, loader
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     phase_small()
-    idle = [r["name"] for r in records if not r["launches"]]
-    check(not idle, f"kernels never launched on the main path: {idle}")
+    idle = [r["name"] for r in records if r.get("path", "") is not None
+            and not r["launches"]]
+    check(not idle, f"kernels never launched on their path: {idle}")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,8 +1,9 @@
 """GC scheme registry: COVAP, the ``none``/``fp16`` baselines, the
-block-scaled FP8 wire and EFsignSGD."""
+block-scaled FP8 wire, EFsignSGD and PowerSGD."""
 from .base import Compressor, SyncStats, dense_bytes, get_compressor, register
 from .covap import COVAP
 from .fp8wire import FP8Wire
+from .powersgd import PowerSGD
 from .signsgd import EFSignSGD
 from .simple import HalfPrecision, NoCompression
 
@@ -17,4 +18,5 @@ __all__ = [
     "FP8Wire",
     "HalfPrecision",
     "NoCompression",
+    "PowerSGD",
 ]

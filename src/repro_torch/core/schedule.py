@@ -60,7 +60,7 @@ class CommSchedule:
     compressor: str
     phase: int
     num_phases: int
-    granularity: str                     # "bucket"
+    granularity: str                     # "bucket" | "leaf"
     selected: tuple[int, ...]
     calls: tuple[CollectiveCall, ...]
     dense_bytes: int

@@ -32,10 +32,19 @@ where ``sent`` is this worker's own decoded contribution.  With
 each wire stage runs on its bucket's slot view.  On CUDA tensors the wire
 stages run the ``quantize_fp8`` / ``dequantize_fp8`` and ``sign_compress``
 kernels.
+
+A leaf-granularity wire (``LowRank``, PowerSGD) sees each leaf whole:
+classic EF compensates it (``t = g + r``), a leaf of two or more dimensions
+is reshaped to a batch of matrices ``M`` and synced as its rank-r
+factorisation (``P = M@Q``, all-reduce, QR, ``Q' = M^T@P``, all-reduce,
+``approx = P@Q'^T``; the three products run the ``lowrank.matmul`` kernel
+on CUDA tensors), a smaller leaf is all-reduced densely, and the residual
+is ``t - approx``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Sequence
 
 import torch
@@ -60,6 +69,7 @@ from .schedule import CollectiveCall, CommSchedule
 from ..kernels.ref import (
     FP8_BLOCK,
     dequantize_fp8_ref,
+    matmul_ref,
     pack_ef_cast_ref,
     quantize_fp8_ref,
     sign_compress_ref,
@@ -233,6 +243,80 @@ class FP8Block(WireStage):
         return f"FP8Block({self.block})"
 
 
+def _as_batched_matrix(x: torch.Tensor) -> torch.Tensor:
+    """A leaf of two or more dimensions as a batch of matrices over its last
+    two axes: ``(a, b) -> (1, a, b)``, ``(L, a, b) -> (L, a, b)``."""
+    return x.reshape((-1,) + tuple(x.shape[-2:]))
+
+
+class LowRank:
+    """PowerSGD's rank-r factorised all-reduce, per leaf of two or more
+    dimensions (batched over its leading stack axes); smaller leaves are
+    all-reduced densely.  Communication per matrix: ``(a + b) * r`` words
+    by all-reduce."""
+
+    granularity = "leaf"
+    op = "all_reduce"
+
+    def __init__(self, rank: int = 2, seed: int = 0):
+        self.rank = int(rank)
+        self.seed = int(seed)
+
+    def init_state(self, params: Sequence[torch.Tensor], plan: BucketPlan, *,
+                   use_ef: bool) -> dict:
+        """``{"q": [...], "residual": [...]}`` in leaf order: a normal
+        ``(B, b, rank)`` starting Q for each leaf of two or more dimensions
+        (``None`` for the rest), drawn on the CPU from one ``torch.Generator``
+        seeded with ``seed``, in leaf order, so every device starts from the
+        same Q; zero residuals with EF on, ``None`` without.  The reference
+        draws its Q from ``jax.random``: ``interop.compressor_state_from_jax``
+        carries it over where two runs must start alike."""
+        gen = torch.Generator().manual_seed(self.seed)
+        qs, resid = [], []
+        for leaf in params:
+            if leaf.dim() >= 2:
+                shape = (math.prod(leaf.shape[:-2]), leaf.shape[-1], self.rank)
+                qs.append(torch.randn(shape, generator=gen, dtype=leaf.dtype)
+                          .to(leaf.device))
+            else:
+                qs.append(None)
+            resid.append(torch.zeros_like(leaf) if use_ef else None)
+        return {"q": qs, "residual": resid}
+
+    def plan_leaf(self, leaf_idx: int, shape: tuple[int, ...], dtype: torch.dtype
+                  ) -> CollectiveCall:
+        if len(shape) >= 2:
+            B = math.prod(shape[:-2])
+            a, b = shape[-2], shape[-1]
+            payload = B * (a + b) * self.rank * _itemsize(dtype)
+        else:
+            payload = math.prod(shape) * _itemsize(dtype)
+        return CollectiveCall(f"leaf:{leaf_idx}", "all_reduce", _dtype_name(dtype),
+                              payload)
+
+    def execute_leaf(self, t: torch.Tensor, q: torch.Tensor | None, group, *,
+                     use_kernel: bool = False):
+        """-> ``(approx, new_q)``; a dense mean for a leaf without a Q.  The
+        three products run the ``lowrank.matmul`` CUDA kernel when
+        ``use_kernel``, else :func:`~repro_torch.kernels.ref.matmul_ref`;
+        the QR is ``torch.linalg.qr`` either way.  ``t`` is not modified."""
+        if q is None:
+            return pmean(t.clone(), group), None
+        if use_kernel:
+            from ..kernels.lowrank import matmul
+        else:
+            matmul = matmul_ref
+        m = _as_batched_matrix(t)
+        p = pmean(matmul(m, q), group)
+        p, _ = torch.linalg.qr(p)                 # orthonormal columns
+        qn = pmean(matmul(m, p, trans_a=True), group)
+        approx = matmul(p, qn, trans_b=True).reshape(t.shape)
+        return approx, qn
+
+    def __repr__(self):
+        return f"LowRank(rank={self.rank})"
+
+
 def _split_like(slices: Sequence[torch.Tensor], flat: torch.Tensor
                 ) -> list[torch.Tensor]:
     """Split a flat bucket vector into views shaped like ``slices``."""
@@ -252,29 +336,40 @@ class SyncPipeline(Compressor):
     """filter ∘ error-feedback ∘ wire, with the plan/execute split.
 
     Options: ``use_ef_kernel``, ``use_pack_kernel`` and
-    ``use_wire_kernel`` (the flat wires' kernels) (``None``: the CUDA
-    kernel on CUDA tensors, the plain form on CPU tensors; ``False``: the
-    plain form everywhere; ``True`` on CPU tensors raises), ``use_arena``
-    and ``sync`` (``"allreduce"`` or ``"sharded"``; a flat wire takes only
-    ``"allreduce"``)."""
+    ``use_wire_kernel`` (the wire stage's kernels: the flat wires' encode
+    and decode, ``LowRank``'s products) (``None``: the CUDA kernel on CUDA
+    tensors, the plain form on CPU tensors; ``False``: the plain form
+    everywhere; ``True`` on CPU tensors raises), ``use_arena`` and ``sync``
+    (``"allreduce"`` or ``"sharded"``; only a segmented bucket wire takes
+    ``"sharded"``)."""
 
     name = "pipeline"
 
-    def __init__(self, *, wire: WireCast, filter: CoarseFilter | None = None,
+    def __init__(self, *, wire: WireStage | LowRank,
+                 filter: CoarseFilter | None = None,
                  ef: ErrorFeedback | None = None, **opts):
         super().__init__(**opts)
         self.wire = wire
         self.filter = filter
         self.ef = ef
         self._layouts: dict = {}
+        if self.granularity == "leaf" and filter is not None:
+            raise ValueError("CoarseFilter requires bucket granularity")
         sync = self.options.get("sync", "allreduce") or "allreduce"
         if sync not in ("allreduce", "sharded"):
             raise ValueError(f"sync must be 'allreduce' or 'sharded', got {sync!r}")
-        if sync == "sharded" and not getattr(self.wire, "segmented", False):
+        if sync == "sharded" and not (self.granularity == "bucket"
+                                      and getattr(self.wire, "segmented", False)):
             raise ValueError(
                 "sync='sharded' requires a segmented bucket pipeline "
                 f"(covap / none / fp16); {self.wire!r} must use sync='allreduce'"
             )
+
+    @property
+    def granularity(self) -> str:
+        """``"bucket"``, or ``"leaf"`` for a wire that syncs whole leaves
+        (``LowRank``)."""
+        return getattr(self.wire, "granularity", "bucket")
 
     @property
     def sync_mode(self) -> str:
@@ -296,6 +391,8 @@ class SyncPipeline(Compressor):
         return self.filter.num_phases() if self.filter is not None else 1
 
     def init_state(self, params: list[torch.Tensor], plan: BucketPlan) -> Any:
+        if self.granularity == "leaf":
+            return self.wire.init_state(params, plan, use_ef=self.ef is not None)
         if self.ef is None:
             return ()
         return init_residual(params)
@@ -334,20 +431,25 @@ class SyncPipeline(Compressor):
         n = self.num_phases()
         ph = int(phase) % max(n, 1)
         sharded = self.sync_mode == "sharded"
-        sel = (
-            self.filter.select(plan, ph) if self.filter is not None
-            else tuple(range(plan.num_buckets))
-        )
-        calls = tuple(
-            self._plan_bucket_sharded(plan, plan.buckets[b], world) if sharded
-            else self.wire.plan_bucket(plan, plan.buckets[b], world)
-            for b in sel
-        )
+        if self.granularity == "leaf":
+            sel = tuple(range(len(plan.leaf_shapes)))
+            calls = tuple(self.wire.plan_leaf(i, plan.leaf_shapes[i],
+                                              plan.leaf_dtypes[i]) for i in sel)
+        else:
+            sel = (
+                self.filter.select(plan, ph) if self.filter is not None
+                else tuple(range(plan.num_buckets))
+            )
+            calls = tuple(
+                self._plan_bucket_sharded(plan, plan.buckets[b], world) if sharded
+                else self.wire.plan_bucket(plan, plan.buckets[b], world)
+                for b in sel
+            )
         return CommSchedule(
             compressor=self.name,
             phase=ph,
             num_phases=max(n, 1),
-            granularity="bucket",
+            granularity=self.granularity,
             selected=tuple(sel),
             calls=calls,
             dense_bytes=dense_bytes(plan),
@@ -366,7 +468,9 @@ class SyncPipeline(Compressor):
         in ``state`` are lists of tensors in leaf order; neither is
         modified."""
         stats = SyncStats(schedule.bytes_per_worker, schedule.dense_bytes)
-        if getattr(self.wire, "segmented", False):
+        if self.granularity == "leaf":
+            out, new_state = self._execute_leaf(grads, state, group)
+        elif getattr(self.wire, "segmented", False):
             out, new_state = self._execute_segmented(schedule, grads, state,
                                                      step, group)
         else:
@@ -685,3 +789,27 @@ class SyncPipeline(Compressor):
         if not ef_on:
             return out, state
         return out, [a - s for a, s in zip(t, sent)]
+
+    # ---- leaf-granularity path (PowerSGD) ---------------------------------
+    def execute_leaf_one(self, leaf_idx: int, t: torch.Tensor, q, group):
+        """Sync one compensated leaf through the leaf wire ->
+        ``(approx, new_q)``."""
+        return self.wire.execute_leaf(
+            t, q, group, use_kernel=self._engage("use_wire_kernel", t))
+
+    @torch.no_grad()
+    def _execute_leaf(self, grads, state, group):
+        """Leaf-granularity path: classic EF (``t = g + r``) folded into the
+        per-leaf loop; ``residual' = t - approx`` (zeros for a densely
+        all-reduced leaf)."""
+        out, new_qs, new_resid = [], [], []
+        for li, (g, q, r) in enumerate(zip(grads, state["q"], state["residual"])):
+            t = g + r.to(g.dtype) if r is not None else g
+            approx, qn = self.execute_leaf_one(li, t, q, group)
+            out.append(approx)
+            new_qs.append(qn)
+            if r is None:
+                new_resid.append(None)
+            else:
+                new_resid.append(torch.zeros_like(t) if qn is None else t - approx)
+        return out, {"q": new_qs, "residual": new_resid}

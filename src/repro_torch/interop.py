@@ -5,7 +5,9 @@ The reference keeps parameters as nested dicts of arrays
 :func:`params_from_jax` turns such a tree, with numpy arrays as leaves, into
 the port's ``{dotted path: tensor}`` state dict, which
 ``DecoderLM.load_state_dict`` takes; :func:`params_to_numpy` is its inverse.
-Neither imports JAX: the caller converts arrays with ``numpy.asarray``.
+:func:`compressor_state_from_jax` carries a leaf-granularity compressor's
+state (PowerSGD's ``{"q": [...], "residual": [...]}``) over the same way.
+None imports JAX: the caller converts arrays with ``numpy.asarray``.
 """
 from __future__ import annotations
 
@@ -50,3 +52,17 @@ def params_to_numpy(params: nn.Module | Mapping[str, torch.Tensor]) -> dict[str,
             node = node.setdefault(h, {})
         node[leaf] = t.detach().cpu().numpy()
     return tree
+
+
+def compressor_state_from_jax(state: Mapping[str, Any], *, device="cuda"
+                              ) -> dict[str, list[torch.Tensor | None]]:
+    """The reference's PowerSGD state, ``{"q": [...], "residual": [...]}``
+    with numpy arrays (or ``None``) in leaf order, as the port's: the same
+    keys and lists, each array a tensor on ``device``, each ``None`` kept."""
+    dev = resolve_device(device)
+    return {
+        key: [None if v is None else torch.from_numpy(np.array(v, copy=True)).to(dev)
+              for v in values]
+        for key, values in state.items()
+    }
+

@@ -112,3 +112,48 @@ def sign_compress_partials_ref(x: torch.Tensor, block: int = SIGN_BLOCK
 
 def sign_decompress(signs: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return signs.float() * scale
+
+
+# ---- PowerSGD's low-rank products and the Top-k threshold filter -----------
+
+THRESHOLD_BLOCK = 32768   # elements per survivor count (the TPU kernel's block)
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
+               trans_b: bool = False) -> torch.Tensor:
+    """``A @ B`` in float32 (one ``torch.matmul``), batched over a leading
+    axis when the operands are 3-D.  ``trans_a``: ``a`` holds ``A``
+    transposed in its last two axes, and is read as such through a view;
+    ``trans_b`` likewise for ``b``.  The function of
+    ``repro.kernels.ref.matmul_ref`` (which is 2-D) with float32 output."""
+    A = a.transpose(-1, -2) if trans_a else a
+    B = b.transpose(-1, -2) if trans_b else b
+    return torch.matmul(A.float(), B.float())
+
+
+def threshold_filter_ref(x: torch.Tensor, threshold, block: int = THRESHOLD_BLOCK
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat ``(N,)`` -> ``(y, counts int32 (ceil(N / block),))``: ``y = x``
+    where ``|x| >= threshold`` and ``+0.0`` elsewhere (NaN gives 0), and the
+    survivors of each ``block`` elements from element 0, padding never
+    counted.  The function of ``repro.kernels.ref.threshold_filter_ref``
+    run eagerly, bit for bit."""
+    keep = x.abs() >= threshold
+    y = torch.where(keep, x, torch.zeros_like(x))
+    n = x.numel()
+    nb = -(-n // block)
+    kp = torch.nn.functional.pad(keep.reshape(-1).to(torch.int32), (0, nb * block - n))
+    return y, kp.view(nb, block).sum(dim=1, dtype=torch.int32)
+
+
+def sample_threshold(x: torch.Tensor, ratio: float, sample: int = 4096
+                     ) -> torch.Tensor:
+    """The ``(1 - ratio)`` quantile of ``|x|`` over a strided sample of
+    about ``sample`` elements, as a 0-d tensor on ``x``'s device (the index
+    is computed from shapes on the host, so nothing waits for the device).
+    ``repro.kernels.topk_threshold.sample_threshold`` bit for bit."""
+    n = x.shape[0]
+    stride = max(n // sample, 1)
+    s = x[::stride].abs()
+    k = min(max(int(s.shape[0] * (1.0 - ratio)), 0), s.shape[0] - 1)
+    return torch.sort(s).values[k]

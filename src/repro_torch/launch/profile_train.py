@@ -8,9 +8,11 @@ trace of ``Trainer.run`` on the ``TrainConfig()`` defaults (or another
 
 Runs ``--warmup`` steps unprofiled, then profiles ``--steps`` more and
 prints, for the profiled window: the host wall time per step, the share of
-that wall time in which some kernel ran (the device's busy share), and the
-device milliseconds per step by kernel group and for the top kernels.
-Needs a GPU; with none it raises.
+that wall time in which some kernel ran (the device's busy share), the
+device milliseconds per step by kernel group and for the top kernels, and
+the host calls per step of QR (``powersgd``) and of the CUDA runtime's
+synchronising calls, with their host time.  Needs a GPU; with none it
+raises.
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ GROUPS = (
     ("dequantize_fp8", ("dequantize_fp8_kernel",)),   # before its substring
     ("quantize_fp8", ("quantize_fp8_kernel",)),
     ("sign_compress", ("sign_compress_kernel",)),
+    ("lowrank.matmul", ("lowrank_matmul_kernel", "lowrank_splitk_reduce_kernel")),
+    ("threshold_filter", ("threshold_filter_kernel",)),
+    ("qr", ("geqr", "orgqr", "ungqr", "larf", "householder", "cusolver", "magma")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")),
     ("softmax/logsumexp", ("softmax", "logsumexp")),
@@ -72,7 +77,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="gpt2-paper")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--compressor", default="covap",
-                    choices=["covap", "none", "fp16", "fp8wire", "efsignsgd"])
+                    choices=["covap", "none", "fp16", "fp8wire", "efsignsgd",
+                             "powersgd"])
     ap.add_argument("--seq-len", type=int, default=1024)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=3)
@@ -133,6 +139,15 @@ def main(argv=None):
               f"{100 * us / 1e3 / n / kernel_ms:5.1f}%")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]:
         print(f"[profile] kernel {us / 1e3 / n:9.3f} ms/step  {name[:110]}")
+    # host side: QR (does it wait for the device, or loop over the batch?)
+    # and every runtime call that synchronises or copies
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.key.startswith("aten::linalg_qr") or (
+                e.key.startswith("cuda") and ("Synchronize" in e.key or "Memcpy" in e.key)):
+            print(f"[profile] host {e.key}: {e.count / n:.1f} calls/step, "
+                  f"{e.cpu_time_total / 1e3 / n:.3f} ms/step host time (with children)")
 
 
 if __name__ == "__main__":

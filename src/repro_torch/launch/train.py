@@ -5,8 +5,9 @@
 
 Prints the same ``[plan]``, ``[schedule]``, ``[model]``, per-step loss and
 ``[done]`` lines as ``repro.launch.train``.  ``--compressor`` picks covap,
-none, fp16, fp8wire or efsignsgd, ``--arena`` the zero-copy arena and ``--sync sharded`` the
-reduce-scatter + deferred all-gather decomposition.  Runs on the GPU unless
+none, fp16, fp8wire, efsignsgd or powersgd (rank 2; like the reference's
+CLI this one has no rank flag), ``--arena`` the zero-copy arena and
+``--sync sharded`` the reduce-scatter + deferred all-gather decomposition.  Runs on the GPU unless
 ``--device cpu`` is given.  ``--interval auto`` is not ported and raises.
 """
 from __future__ import annotations
@@ -38,7 +39,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-test REDUCED variant")
     ap.add_argument("--compressor", default="covap",
-                    choices=["covap", "none", "fp16", "fp8wire", "efsignsgd"])
+                    choices=["covap", "none", "fp16", "fp8wire", "efsignsgd",
+                             "powersgd"])
     ap.add_argument("--interval", default="4")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)

@@ -10,7 +10,8 @@
   un-reduced gradients, and the compressor decides exactly which bytes
   cross the process group (one ``all_reduce`` per selected segment, or
   the all-gathers of each bucket's codes on the flat path of ``fp8wire``
-  and ``efsignsgd``).
+  and ``efsignsgd``, or two all-reduces of each leaf's low-rank factors
+  under ``powersgd``, options through ``compressor_options``).
 * Loss metrics are averaged over the process group.
 * ``arena=True`` runs the zero-copy arena form of the sync
   (``core.arena``); ``sync="sharded"`` reduce-scatters each selected

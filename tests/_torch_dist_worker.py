@@ -8,15 +8,29 @@ without JAX.  Each rank trains the REDUCED gpt2-paper once per entry of
 reference's data axis makes), in one gloo group.  It writes every run's
 losses, grad norms, params, EF residuals and params-shaped optimizer state
 (SGD's ``mu``, Adam's ``m`` and ``v``; after ``run``'s flush) to
-``<out_prefix><rank>.npz`` under ``<name>/...`` keys.
+``<out_prefix><rank>.npz`` under ``<name>/...`` keys.  A run whose
+compressor state is PowerSGD's (``{"q", "residual"}``) starts from the Q in
+``init_comp_npz`` (``<name>/q:<leaf index>`` keys) and writes its residuals
+and Q under ``<name>/resid:<leaf index>`` and ``<name>/q:<leaf index>``.
 """
 import numpy as np
 import torch
 import torch.distributed as dist
 
 
+def _leaf_state(name, init_comp_npz, n_leaves):
+    """The starting Q of run ``name``, in leaf order (``None`` where a leaf
+    has none), as PowerSGD's state takes it."""
+    from repro_torch.interop import compressor_state_from_jax
+
+    with np.load(init_comp_npz) as init:
+        qs = [init[f"{name}/q:{i}"] if f"{name}/q:{i}" in init.files else None
+              for i in range(n_leaves)]
+    return compressor_state_from_jax({"q": qs}, device="cpu")["q"]
+
+
 def train_worker(rank, world, init_file, init_npz, out_prefix, runs, data_kw,
-                 optimizer, lr, steps):
+                 optimizer, lr, steps, init_comp_npz=None):
     from repro_torch import optim
     from repro_torch.configs import get_reduced
     from repro_torch.data import DataConfig, make_loader
@@ -41,10 +55,22 @@ def train_worker(rank, world, init_file, init_npz, out_prefix, runs, data_kw,
             tr = Trainer(model, opt, TrainConfig(**tc_kw), group=dist.group.WORLD)
             batches = ({k: v[rows] for k, v in loader.make(s).items()}
                        for s in range(steps))
-            state = tr.run(tr.init_state(), batches, steps=steps, log=None)
+            state = tr.init_state()
+            leaf_state = isinstance(state["comp"], dict)
+            if leaf_state:
+                state["comp"]["q"] = _leaf_state(name, init_comp_npz,
+                                                 len(state["params"]))
+            state = tr.run(state, batches, steps=steps, log=None)
             out[f"{name}/losses"] = np.array([h["loss"] for h in tr.history])
             out[f"{name}/grad_norm"] = np.array([h["grad_norm"] for h in tr.history])
-            parts = {"params": state["params"], "resid": state["comp"]}
+            parts = {"params": state["params"]}
+            if leaf_state:
+                for part, key in (("resid", "residual"), ("q", "q")):
+                    for i, x in enumerate(state["comp"][key]):
+                        if x is not None:
+                            out[f"{name}/{part}:{i}"] = x.numpy().copy()
+            else:
+                parts["resid"] = state["comp"]
             parts.update((k, v) for k, v in state["opt"].items()
                          if isinstance(v, list) and len(v) == len(state["params"]))
             for part, leaves in parts.items():

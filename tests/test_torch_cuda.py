@@ -10,16 +10,21 @@ import pytest
 import torch
 
 from repro_torch.kernels.ef_covap import ef_update
+from repro_torch.kernels.lowrank import matmul
 from repro_torch.kernels.pack_ef_cast import pack_ef_cast, pack_ef_cast_into
 from repro_torch.kernels.quantize import dequantize_fp8, quantize_fp8
 from repro_torch.kernels.ref import (
     dequantize_fp8_ref,
     ef_update_ref,
+    matmul_ref,
     pack_ef_cast_ref,
     quantize_fp8_ref,
+    sample_threshold,
     sign_compress_partials_ref,
+    threshold_filter_ref,
 )
 from repro_torch.kernels.sign_compress import sign_compress, sign_compress_partials
+from repro_torch.kernels.topk_threshold import threshold_filter
 
 
 @pytest.mark.cuda
@@ -148,3 +153,93 @@ def test_sign_compress_kernel_matches_plain_version(n, offset):
     _, partials = sign_compress_partials(x)
     torch.testing.assert_close(partials, rpartials, rtol=1e-6, atol=0)
     torch.testing.assert_close(scale, x.abs().mean(), rtol=1e-6, atol=0)
+
+
+def _assert_matmul_close(got, a, b, trans_a=False, trans_b=False):
+    """Within 1e-5 of ``|A| @ |B|`` elementwise of ``matmul_ref`` (cuBLAS in
+    float32, TF32 off): the two sum in another order."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = matmul_ref(a, b, trans_a=trans_a, trans_b=trans_b)
+    scale = matmul_ref(a.abs(), b.abs(), trans_a=trans_a, trans_b=trans_b)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,a,b", [(1, 50304, 768), (1, 768, 50304), (12, 768, 768),
+                                   (12, 3072, 768), (12, 768, 3072), (1, 12, 768),
+                                   (3, 1001, 517)])
+def test_lowrank_matmul_kernel_matches_plain_version(B, a, b):
+    """PowerSGD's three products of an (B, a, b) matrix at rank 2, each fed
+    the plain version's result of the one before: P = M@Q (split-k where
+    the output is small), Q' = M^T@P (M read through its transpose) and
+    P@Q'^T (k = 2, write-bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(a * b)
+    M = torch.randn(B, a, b, generator=gen, device="cuda")
+    Q = torch.randn(B, b, 2, generator=gen, device="cuda")
+    before = matmul.launches
+    _assert_matmul_close(matmul(M, Q), M, Q)
+    P, _ = torch.linalg.qr(matmul_ref(M, Q))
+    _assert_matmul_close(matmul(M, P, trans_a=True), M, P, trans_a=True)
+    Qn = matmul_ref(M, P, trans_a=True)
+    _assert_matmul_close(matmul(P, Qn, trans_b=True), P, Qn, trans_b=True)
+    assert matmul.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_lowrank_matmul_zero_strided_wide_and_deterministic():
+    """An all-zero M gives exact zeros; strided views read the same matrices
+    as their contiguous copies; n = 3 (the skinny tile padded to 4), n = 5
+    and 129 (the wide tile) with 2-D operands;
+    a split-k product is the same from run to run, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(11)
+    Z = torch.zeros(1, 50304, 768, device="cuda")
+    q = torch.randn(1, 768, 2, generator=gen, device="cuda")
+    assert not matmul(Z, q).any()
+    big = torch.randn(2, 700, 1802, generator=gen, device="cuda")
+    view = big[:, :, ::2]
+    p = torch.randn(2, 700, 2, generator=gen, device="cuda")
+    assert torch.equal(matmul(view, p, trans_a=True),
+                       matmul(view.contiguous(), p, trans_a=True))
+    _assert_matmul_close(matmul(view, p, trans_a=True), view, p, trans_a=True)
+    a = torch.randn(1001, 517, generator=gen, device="cuda")
+    for n in (3, 5, 129):                 # the padded skinny tile, the wide one
+        w = torch.randn(517, n, generator=gen, device="cuda")
+        _assert_matmul_close(matmul(a, w), a, w)
+    M = torch.randn(1, 768, 50304, generator=gen, device="cuda")
+    Q = torch.randn(1, 50304, 2, generator=gen, device="cuda")
+    assert torch.equal(matmul(M, Q), matmul(M, Q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset,threshold,block",
+                         [(1_000_003, 0, 0.01, 32768), (70_001, 0, 0.0, 32768),
+                          (5000, 0, 0.0, 4096), (100_003, 1, 0.5, 32768),
+                          (6_553_344, 0, 0.001, 32768)])
+def test_threshold_filter_kernel_matches_plain_version(n, offset, threshold, block):
+    """y and counts bit for bit against ``threshold_filter_ref`` (a
+    ``sample_threshold`` ratio below 0.1, else the threshold itself): NaN
+    gives 0 and is not counted, +-inf survive, -0.0 survives t = 0 as -0.0,
+    the ragged last block counts its real elements only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(n)
+    x = torch.randn(n + offset, generator=gen, device="cuda")[offset:]
+    x[:6] = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, 0.0, 1e-45],
+                         device="cuda")
+    t = (sample_threshold(x, threshold) if 0 < threshold < 0.1
+         else torch.tensor(threshold, device="cuda"))
+    before = threshold_filter.launches
+    y, c = threshold_filter(x, t, block=block)
+    torch.cuda.synchronize()
+    assert threshold_filter.launches == before + 1
+    ry, rc = threshold_filter_ref(x, t, block)
+    assert torch.equal(y.view(torch.int32), ry.view(torch.int32))
+    assert torch.equal(c, rc) and c.dtype == torch.int32
+    if threshold == 0.0:
+        assert int(c.sum()) == n - 1 and int(c[-1]) == n - (c.numel() - 1) * block
+

@@ -1,6 +1,7 @@
 """The port's ``Trainer.run`` against ``repro.train.Trainer.run`` on the
 REDUCED gpt2-paper (f32 compute), one worker, from the same parameters and
-the same batches, over a full COVAP cycle plus one step; and the CLI.
+the same batches, over a full COVAP cycle plus one step (COVAP, the flat
+wires and PowerSGD); and the CLI.
 
 The reference runs its ``overlap="post"``, ``arena=False`` path (the
 default), not the fused/arena/sharded equalities it fails on this tree."""
@@ -25,7 +26,7 @@ from repro.train.trainer import Trainer as RTrainer
 
 import repro_torch.configs as tconfigs
 from repro_torch.data import DataConfig, make_loader
-from repro_torch.interop import params_from_jax
+from repro_torch.interop import compressor_state_from_jax, params_from_jax
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, cosine_warmup, sgd
 from repro_torch.train import TrainConfig, Trainer
@@ -167,6 +168,74 @@ def test_trainer_flat_wire_matches_reference(name):
                for a, b in zip(plain[part], arena[part]))
 
 
+def _powersgd_runs(compressor_options):
+    """The reference trainer and the port's over 5 SGD steps of
+    ``compressor="powersgd"`` from the same parameters and the same
+    starting Q (the reference's, carried over by
+    ``interop.compressor_state_from_jax``).  -> ``(reference trainer, port
+    trainer, {part: (port leaves, reference leaves)})`` for params, SGD's
+    momenta, residuals and Q, as numpy arrays."""
+    tc = dict(TC, compressor="powersgd", compressor_options=compressor_options)
+    rtr = RTrainer(r_build_model(rconfigs.get_reduced("gpt2-paper")),
+                   r_sgd(LR, momentum=0.9), RTrainConfig(**tc))
+    rstate = rtr.init_state(jax.random.PRNGKey(0))
+    init = jax.tree.map(np.asarray, rstate["params"])
+    comp0 = {k: [None if v is None else np.asarray(v) for v in vs]
+             for k, vs in rstate["comp"].items()}
+    rstate = rtr.run(rstate, iter(r_make_loader(RDataConfig(**DATA))), log=None)
+    model = build_model(tconfigs.get_reduced("gpt2-paper"), device="cpu")
+    model.load_state_dict(params_from_jax(init, device="cpu"))
+    tr = Trainer(model, sgd(LR, momentum=0.9), TrainConfig(**tc))
+    state = tr.init_state()
+    state["comp"] = compressor_state_from_jax(comp0, device="cpu")
+    state = tr.run(state, make_loader(DataConfig(**DATA), device="cpu"), log=None)
+    assert state["step"] == STEPS
+
+    def present(xs):
+        return [np.asarray(x) for x in xs if x is not None]
+
+    parts = {
+        "params": ([p.detach().numpy() for p in state["params"]],
+                   present(jax.tree_util.tree_leaves(rstate["params"]))),
+        "mu": ([m.numpy() for m in state["opt"]["mu"]],
+               present(jax.tree_util.tree_leaves(rstate["opt"]["mu"]))),
+        "resid": (present(state["comp"]["residual"]), present(rstate["comp"]["residual"])),
+        "q": (present(state["comp"]["q"]), present(rstate["comp"]["q"])),
+    }
+    return rtr, tr, parts
+
+
+@pytest.mark.parametrize("options", [{}, {"ef": False}, {"rank": 4}],
+                         ids=["defaults", "no-ef", "rank-4"])
+def test_trainer_powersgd_matches_reference(options):
+    """``TrainConfig(compressor="powersgd")`` through ``Trainer.run`` against
+    the reference trainer over 5 SGD steps.  Q is warm-started from step to
+    step, so the frameworks' last-bit differences in P pass through QR into
+    the next step: after 5 steps momenta, residuals and Q differ by up to 8e-6
+    of their largest values (``python tests/test_torch_trainer.py`` prints
+    the drift).  Held at: losses and grad norms rtol 1e-5; params at the
+    float32 bound (rtol 1e-4, atol 1e-6); momenta, residuals and Q at rtol
+    1e-4, atol 1e-4 of the part's largest reference value."""
+    rtr, tr, parts = _powersgd_runs(options)
+    assert tr.num_phases == 1 and tr.compressor.name == "powersgd"
+    assert tr.schedule_report() == rtr.schedule_report()
+    np.testing.assert_allclose([h["loss"] for h in tr.history],
+                               [h["loss"] for h in rtr.history], rtol=1e-5)
+    np.testing.assert_allclose([h["grad_norm"] for h in tr.history],
+                               [h["grad_norm"] for h in rtr.history], rtol=1e-5)
+    n_resid = 0 if options.get("ef") is False else 12
+    assert len(parts["resid"][0]) == len(parts["resid"][1]) == n_resid
+    for part, (got, want) in parts.items():
+        assert len(got) == len(want)
+        if not want:
+            continue
+        scale = max(float(np.max(np.abs(w))) for w in want)
+        rtol, atol = (1e-4, 1e-6) if part == "params" else (1e-4, 1e-4 * scale)
+        for i, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                       err_msg=f"{part} {i}")
+
+
 @pytest.mark.parametrize("step", [0, 1, 5, 9, 10, 11, 50])
 def test_cosine_warmup_matches_reference(step):
     assert float(cosine_warmup(1.5e-4, 2, 10)(step)) == pytest.approx(
@@ -200,6 +269,22 @@ def test_cli_runs_on_cpu():
     assert r.returncode == 0, r.stderr[-3000:]
     out = r.stdout
     for tag in ("[plan] 1 buckets", "[schedule] mean", "[model] gpt2-paper",
+                "step     1  loss", "step     2  loss", "[done]"):
+        assert tag in out, out
+
+
+def test_cli_runs_powersgd_on_cpu():
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--compressor", "powersgd", "--steps", "2", "--seq-len", "16",
+         "--global-batch", "4", "--device", "cpu", "--log-every", "1"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = r.stdout
+    # 47,648 bytes a step at REDUCED: 12 leaf all-reduces of rank-2 factors
+    for tag in ("1 phase executable(s)", "[schedule] mean 0.048 MB/step",
                 "step     1  loss", "step     2  loss", "[done]"):
         assert tag in out, out
 
@@ -238,3 +323,8 @@ if __name__ == "__main__":
         _, want, runs = _flat_wire_runs(wire)
         for part in ("params", "mu", "resid"):
             print(wire, part, wire_drift(runs[0][1][part], want[part]))
+    # PowerSGD's drift, each part's largest difference over its largest value
+    _, _, parts = _powersgd_runs({})
+    for part, (got, want) in parts.items():
+        drift = wire_drift(got, want)
+        print("powersgd", part, drift, drift["max"] / drift["max_want"])
