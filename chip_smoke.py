@@ -20,23 +20,31 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            partials and scale at rtol 1e-6), each timed over one full-width
            step's buckets; ``lowrank.matmul`` within 1e-5 (|A|@|B|) of
            ``matmul_ref`` (every full-width leaf's three PowerSGD products,
-           an all-zero M, odd sizes, strided views) and timed over one
-           step's 33 products beside ``torch.bmm``; ``threshold_filter`` bit
+           each on its streaming route and the same bits twice, an
+           all-zero M, odd sizes and strided views on the tiled kernel) and
+           timed over one step's 33 products, in all and by product kind,
+           beside ``torch.bmm`` and the tiled kernel; ``threshold_filter`` bit
            for bit in y and counts (ragged, t = 0, NaN and +-inf, offset 1,
            the largest bucket) and timed over one step's buckets at
            ``sample_threshold`` ratios 0.01 and 0.001
+  adamw    one AdamW update on the card against the CPU: moments and
+           divisions bit for bit, ``torch.sqrt`` at 1 ulp, the update bit
+           for bit where the roots agree
   train    full-width gpt2-paper (190,532,352 parameters), AdamW, seq 1024,
            global batch 8, 5 steps in a one-rank NCCL process group, seven
            times: COVAP I=4 on the ``TrainConfig`` defaults (every loss
            finite, ``ef_update.launches`` == segments x steps), then
            ``arena=True``, ``arena=True`` with a bf16 wire, and
            ``sync="sharded"`` (``pack_ef_cast.launches`` == segments x
-           steps and ``ef_update.launches`` == 0 on each); then the
+           steps and ``ef_update.launches`` == 0 on each; sharded prints
+           the order of its head all-gather's issues and waits against the
+           layers, and checks it); then the
            flat-bucket path, ``fp8wire`` (``quantize_fp8.launches`` ==
            buckets x steps, ``dequantize_fp8.launches`` == 2 x buckets x
            steps) and ``efsignsgd`` (``sign_compress.launches`` == buckets x
            steps); then the leaf path, ``powersgd`` (rank 2,
-           ``lowrank.matmul.launches`` == 33 x steps); every other kernel's
+           ``lowrank.matmul.launches`` == 33 x steps, 11 x steps on each
+           streaming route); every other kernel's
            count must be 0 on each run (``threshold_filter``, which no path
            runs, on all of them)
   parity   one step from the trained state on the same gradients: each
@@ -709,14 +717,61 @@ def matmul_within_bound(got, want, a, b, trans_a, trans_b) -> float:
     return float((diff / scale.clamp_min(1e-30)).max())
 
 
+def product_bytes(a, b, trans_a, trans_b) -> tuple[int, int]:
+    """Bytes a product must move (each operand read once, C written once)
+    and its flops."""
+    B, m, kk = a.shape[0], a.shape[2 if trans_a else 1], a.shape[1 if trans_a else 2]
+    n = b.shape[1 if trans_b else 2]
+    return 4 * (a.numel() + b.numel() + B * m * n), 2 * B * m * n * kk
+
+
+def launch_fit(products, matmul, launches: int = 10) -> tuple[float, float]:
+    """Each product's device time, over ``launches`` back-to-back launches
+    of it, fitted by least squares as ``fixed + bytes / rate`` over the
+    products: -> (rate in TB/s, fixed microseconds a launch).  The rate is
+    what a kernel streams at once running; the fixed part is what a launch
+    costs besides (ramp-up, tail, a split's second pass)."""
+    xs, ys = [], []
+    for _, a, b, ta, tb in products:
+        t = device_timed(lambda: [matmul(a, b, trans_a=ta, trans_b=tb)
+                                  for _ in range(launches)], reps=10) / launches
+        xs.append(product_bytes(a, b, ta, tb)[0])
+        ys.append(t * 1e-3)
+    n = len(xs)
+    mx, my = sum(xs) / n, sum(ys) / n
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    return 1 / slope / 1e12, (my - slope * mx) * 1e6
+
+
+def tiled_matmul(a, b, trans_a, trans_b):
+    """The same product through the general tiled kernel of
+    ``csrc/lowrank_matmul.cu``, launched directly, for its time beside the
+    streaming routes'."""
+    from repro_torch.kernels import lowrank
+
+    Ba, m, n, k, sa, sb = lowrank._operands(a, b, trans_a, trans_b)
+    workspace, launch = lowrank._launchers()["tiled"]
+    need = workspace(Ba, m, n, k)
+    out = torch.empty((Ba, m, n), device=a.device)
+    ws = torch.empty(max(need, 1), device=a.device)
+    err = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), need,
+                 Ba, m, n, k, *sa, *sb, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"tiled lowrank kernel launch failed: cudaError {err}")
+    return out
+
+
 def phase_lowrank_kernels() -> dict:
     """``lowrank.matmul`` against ``matmul_ref`` on the card, within
-    ``1e-5 (|A| @ |B|)`` elementwise: every full-width leaf's three products,
-    an all-zero M, odd sizes on both tile shapes, and operands that are
-    strided views; an all-zero leaf through ``LowRank.execute_leaf`` stays
-    finite.  Then the 33 products of one full-width step, timed."""
+    ``1e-5 (|A| @ |B|)`` elementwise: every full-width leaf's three products
+    (each must take its streaming route, and give the same bits twice), an
+    all-zero M, odd sizes on both tile shapes, and operands that are
+    strided views (the tiled kernel); an all-zero leaf through
+    ``LowRank.execute_leaf`` stays finite.  Then the 33 products of one
+    full-width step, timed, in all and by product kind, beside the tiled
+    kernel on the same products."""
     from repro_torch.core.stages import LowRank
-    from repro_torch.kernels.lowrank import matmul
+    from repro_torch.kernels.lowrank import ROUTES, matmul
     from repro_torch.kernels.ref import matmul_ref
 
     products = leaf_products(6)
@@ -742,12 +797,32 @@ def phase_lowrank_kernels() -> dict:
          view.transpose(1, 2)[:, :, :2], False, True),
     ]
     worst = max_err = 0.0
+    taken = []
     for name, a, b, ta, tb in cases:
+        before = dict(matmul.launches_by_route)
         got = matmul(a, b, trans_a=ta, trans_b=tb)
         want = matmul_ref(a, b, trans_a=ta, trans_b=tb)
         torch.cuda.synchronize()
+        moved = [r for r in ROUTES if matmul.launches_by_route[r] != before[r]]
+        check(len(moved) == 1 and matmul.launches_by_route[moved[0]] == before[moved[0]] + 1,
+              f"lowrank.matmul {name}: launches by route moved {moved}")
+        taken.append(moved[0])
         worst = max(worst, matmul_within_bound(got, want, a, b, ta, tb))
         max_err = max(max_err, abs_err(got, want))
+        if len(taken) <= len(products):
+            check(torch.equal(got, matmul(a, b, trans_a=ta, trans_b=tb)),
+                  f"lowrank.matmul {name}: two runs gave other bits")
+    kinds = {"P=M@Q": "rowdot", "Q'=M^T@P": "colacc", "P@Q'^T": "outer"}
+    for (name, *_), r in zip(products, taken):
+        check(r == kinds[name.rsplit(" ", 1)[1]],
+              f"lowrank.matmul {name} took the {r} route, not its streaming one")
+    check(taken[len(products):len(products) + 2] == ["rowdot", "colacc"],
+          f"lowrank.matmul: the all-zero M took {taken[len(products):len(products) + 2]}")
+    check(all(r == "tiled" for r in taken[len(products) + 2:]),
+          f"lowrank.matmul: odd and strided cases took {taken[len(products) + 2:]}")
+    print(f"[kernels] lowrank.matmul routes of the {len(products)} full-width "
+          f"products: " + "; ".join(f"{name}: {r}" for (name, *_), r
+                                    in zip(products, taken)), flush=True)
     check(not matmul(Z, Zq).any(), "lowrank.matmul: an all-zero M gave nonzero P")
     approx, qn = LowRank(2).execute_leaf(Z[0], Zq, None, use_kernel=True)
     torch.cuda.synchronize()
@@ -770,21 +845,31 @@ def phase_lowrank_kernels() -> dict:
     plain_ms = device_timed(runner(
         lambda a, b, ta, tb: matmul_ref(a, b, trans_a=ta, trans_b=tb)))
     library_ms = device_timed(runner(library))
+    tiled_ms = device_timed(runner(tiled_matmul))
     kernel_wall_ms = wall_timed(run_kernel)
-    by_kind = {}
-    for k, kind in enumerate(("P=M@Q", "Q'=M^T@P", "P@Q'^T")):
+    by_kind, tiled_by_kind, kind_lines, fits = {}, {}, [], {}
+    for k, (kind, r) in enumerate(kinds.items()):
         sub = products[k::3]
         by_kind[kind] = device_timed(lambda sub=sub: [
             matmul(a, b, trans_a=ta, trans_b=tb) for _, a, b, ta, tb in sub])
-    nbytes = flops = 0
-    for _, a, b, ta, tb in products:
-        B, m, kk = a.shape[0], a.shape[2 if ta else 1], a.shape[1 if ta else 2]
-        n = b.shape[1 if tb else 2]
-        nbytes += 4 * (a.numel() + b.numel() + B * m * n)
-        flops += 2 * B * m * n * kk
+        tiled_by_kind[kind] = device_timed(lambda sub=sub: [
+            tiled_matmul(a, b, ta, tb) for _, a, b, ta, tb in sub])
+        kb = sum(product_bytes(a, b, ta, tb)[0] for _, a, b, ta, tb in sub)
+        kbound = kb / HBM_BYTES_PER_S * 1e3
+        rate, fixed = launch_fit(sub, matmul)
+        fits[r] = {"rate_tb_s": rate, "fixed_us": fixed}
+        kind_lines.append(
+            f"{kind} ({r}, {len(sub)} products, {kb} B): {by_kind[kind]:.4f} ms, "
+            f"{kb / by_kind[kind] / 1e6:.1f} GB/s, {kbound / by_kind[kind]:.1%} of its "
+            f"bound {kbound:.4f} ms (tiled kernel {tiled_by_kind[kind]:.4f} ms); "
+            f"per product, least squares: {rate:.3f} TB/s + {fixed:.2f} us a launch")
+    nbytes = sum(product_bytes(a, b, ta, tb)[0] for _, a, b, ta, tb in products)
+    flops = sum(product_bytes(a, b, ta, tb)[1] for _, a, b, ta, tb in products)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / F32_FLOPS_PER_S * 1e3
     bound_ms = max(bytes_ms, flops_ms)
+    print("[kernels] lowrank.matmul by product kind: " + "; ".join(kind_lines),
+          flush=True)
     print(f"[kernels] lowrank.matmul within 1e-5 (|A|@|B|) of matmul_ref on "
           f"{len(cases)} cases (largest ratio {worst:.3g}, max |err| {max_err:.3g}); "
           f"an all-zero leaf through execute_leaf gives 0 and a finite Q; one "
@@ -792,9 +877,8 @@ def phase_lowrank_kernels() -> dict:
           f"kernel_ms {kernel_ms:.4f}  bound_ms {bound_ms:.4f} (bytes at 3.35 "
           f"TB/s; flops at 67 TFLOP/s f32 {flops_ms:.4f}; {bound_ms / kernel_ms:.1%} "
           f"of the HBM rate)  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f} "
-          f"(torch.bmm, TF32 off)  by product "
-          f"{ {k: round(v, 4) for k, v in by_kind.items()} }  kernel wall ms with "
-          f"host dispatch {kernel_wall_ms:.4f}", flush=True)
+          f"(torch.bmm, TF32 off)  tiled kernel {tiled_ms:.4f}  kernel wall ms "
+          f"with host dispatch {kernel_wall_ms:.4f}", flush=True)
     return {
         "name": MATMUL,
         "route": "cuda",
@@ -811,6 +895,10 @@ def phase_lowrank_kernels() -> dict:
         "timed_work": f"{len(products)} products of one full-width PowerSGD step",
         "wall_ms": kernel_wall_ms,
         "ms_by_product": by_kind,
+        "ms_by_route": {r: by_kind[kind] for kind, r in kinds.items()},
+        "tiled_ms": tiled_ms,
+        "launch_fit_by_route": fits,
+        "tiled_ms_by_product": tiled_by_kind,
         "max_err_over_abs_product": worst,
     }
 
@@ -902,6 +990,103 @@ def phase_threshold_kernels() -> dict:
     }
 
 
+def phase_adamw() -> None:
+    """One AdamW update, as the main path's optimizer makes it, on the card
+    and on the CPU from the same moments, gradients and params (leaves of
+    full-width shapes): m, v and the bias-corrected divisions bit for bit;
+    ``torch.sqrt`` in float32, which may differ by one ulp between the two
+    (``ROADMAP.md`` queue 3), held at 1 ulp, each against the correctly
+    rounded root; the update bit for bit where the roots agree, elsewhere
+    within 4 ulps of ``lr * m_hat / (sqrt(v_hat) + eps)``."""
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.optim.optimizers import bias_corrections
+
+    gen = torch.Generator().manual_seed(9)
+    shapes = [(12, 768, 3072), (768, 50304), (12, 768), (768,)]
+    g, m, p = ([torch.randn(s, generator=gen) for s in shapes] for _ in range(3))
+    v = [torch.rand(s, generator=gen) * 1e-3 for s in shapes]
+    step, lr_fn = 3, cosine_warmup(1.5e-4, STEPS // 10 + 1, STEPS)
+    opt = adamw(lr_fn)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        on = lambda xs: [x.to(dev) for x in xs]   # noqa: E731
+        upd, new = opt.update(on(g), {"step": step, "m": on(m), "v": on(v)}, on(p))
+        out[dev] = [[x.cpu() for x in part] for part in (upd, new["m"], new["v"])]
+    (u_gpu, m_gpu, v_gpu), (u_cpu, m_cpu, v_cpu) = out["cuda"], out["cpu"]
+    check(all(torch.equal(a, b) for a, b in zip(m_gpu + v_gpu, m_cpu + v_cpu)),
+          "adamw: m or v differ between the card and the CPU")
+    bc1, bc2 = bias_corrections(step + 1, 0.9, 0.999, torch.device("cpu"))
+    lr = float(lr_fn(step + 1))
+    n = off = off_cpu = off_gpu = bitwise = 0
+    worst = 0.0
+    for ug, uc, mm, vv in zip(u_gpu, u_cpu, m_cpu, v_cpu):
+        vh = vv / bc2
+        check(torch.equal((mm / bc1), (mm.cuda() / bc1.cuda()).cpu()),
+              "adamw: m / bc1 differs between the card and the CPU")
+        root_cpu, root_gpu = torch.sqrt(vh), torch.sqrt(vh.cuda()).cpu()
+        exact = torch.sqrt(vh.double()).float()
+        ulps = (root_cpu.view(torch.int32).long() - root_gpu.view(torch.int32).long()).abs()
+        check(int(ulps.max()) <= 1, f"adamw: sqrt differs by {int(ulps.max())} ulps")
+        agree = ulps == 0
+        check(torch.equal(ug[agree], uc[agree]),
+              "adamw: the update differs where the square roots agree")
+        term = (lr * (mm / bc1) / (root_cpu + 1e-8)).abs()
+        diff = (ug - uc).abs()
+        check(bool((diff <= 2.0 ** -21 * term).all()),
+              "adamw: the update differs by more than 4 ulps of lr * m_hat / denominator")
+        n += vh.numel()
+        off += int((~agree).sum())
+        off_cpu += int((root_cpu != exact).sum())
+        off_gpu += int((root_gpu != exact).sum())
+        bitwise += int((ug == uc).sum())
+        worst = max(worst, float((diff / term.clamp_min(1e-30)).max()))
+    print(f"[adamw] one update (step {step + 1}, lr {lr:.6g}) of {n} elements on the "
+          f"card vs the CPU: m, v and m / bc1 bitwise; torch.sqrt differs by 1 ulp on "
+          f"{off} elements ({off / n:.4%}; the CPU's root is not the correctly rounded "
+          f"one on {off_cpu}, the card's on {off_gpu}); the update bitwise on {bitwise} "
+          f"elements ({bitwise / n:.4%}), elsewhere within {worst * 2 ** 23:.3g} ulps of "
+          f"lr * m_hat / denominator (held at 4)", flush=True)
+
+
+def gather_order(tr) -> str:
+    """The last sharded step's head all-gather, from the trainer's events:
+    the issue order, then the buckets settled before each layer (``E`` the
+    embedding, ``L<i>`` layer i, ``H`` the final norm and head).  Checks
+    that every issue precedes layer 0, issues follow the first use, and each
+    bucket is settled just before the stage that first reads it."""
+    from repro_torch.core.overlap import EMBED_STAGE, bucket_first_use
+
+    L = tr.model.cfg.num_layers
+    stages = bucket_first_use(tr.plan, L)
+    events = tr.gather_events
+    issues = [i for k, i in events if k == "issue"]
+    check(issues == sorted(range(len(stages)), key=lambda b: (stages[b], b)),
+          f"sharded: gathers issued in the order {issues}")
+    check(events[:len(issues)] == [("issue", b) for b in issues],
+          "sharded: a gather was issued after the forward pass began")
+    parts, pending, seen = [], [], []
+    for k, i in events[len(issues):]:
+        if k == "settle":
+            pending.append(i)
+            continue
+        want = sorted(b for b, f in enumerate(stages)
+                      if f == i or (i == 0 and f == EMBED_STAGE))
+        check(sorted(pending) == want, f"sharded: settled {pending} before stage "
+              f"{i}, want {want}")
+        if i == 0:
+            embed = [b for b in pending if stages[b] == EMBED_STAGE]
+            check(pending[:len(embed)] == embed, "sharded: the embedding's buckets "
+                  "were not settled first")
+            parts.append(f"E<-{embed}")
+            pending = pending[len(embed):]
+        parts.append(f"{'H' if i == L else f'L{i}'}<-{pending}")
+        seen.append(i)
+        pending = []
+    check(seen == list(range(L + 1)) and not pending,
+          f"sharded: stages {seen}, buckets left {pending}")
+    return f"issue {issues}; settle " + " ".join(parts)
+
+
 def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -951,6 +1136,8 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    by_route = counters[MATMUL].launches_by_route
+    by_route.update(dict.fromkeys(by_route, 0))
     state = tr.run(state, loader, steps=STEPS, log=lines.append)
     launches = {name: fn.launches for name, fn in counters.items()}
     if device != "cpu":
@@ -975,6 +1162,9 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
           f"{1e3 * hist[0]['wall_s']:.1f} ms, steps 1-{STEPS - 1} ms "
           f"{[round(v, 2) for v in step_ms]}  {tok_s:.0f} tok/s after step 0  "
           f"peak {peak:.2f} GiB  launches {launches}", flush=True)
+    if tr.gather_events:
+        print(f"[train] {label}: head all-gather of step {STEPS}, by bucket: "
+              f"{gather_order(tr)}", flush=True)
     return tr, state, loader, launches
 
 
@@ -1277,6 +1467,7 @@ def main() -> int:
     phase_build()
     records = [phase_kernels(), phase_pack_kernels(), *phase_wire_kernels(),
                phase_lowrank_kernels(), phase_threshold_kernels()]
+    phase_adamw()
     by_name = {r["name"]: r for r in records}
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
@@ -1326,6 +1517,14 @@ def main() -> int:
         check(launches == launch_counts(**{MATMUL: STEPS * n}),
               f"powersgd: launches {launches} in {STEPS} steps; {n} products a step")
         by_name[MATMUL]["launches"] = launches[MATMUL]
+        from repro_torch.kernels.lowrank import matmul
+        per_route = STEPS * len(lowrank_leaves(tr.plan))
+        check(matmul.launches_by_route == {"rowdot": per_route, "colacc": per_route,
+                                           "outer": per_route, "tiled": 0},
+              f"powersgd: launches by route {matmul.launches_by_route}")
+        by_name[MATMUL]["launches_by_route"] = dict(matmul.launches_by_route)
+        print(f"[train] powersgd: lowrank.matmul launches by route "
+              f"{matmul.launches_by_route}", flush=True)
         phase_powersgd_parity(tr, state, loader, group)
         del tr, state, loader
         torch.cuda.empty_cache()

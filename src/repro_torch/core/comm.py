@@ -85,16 +85,15 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return out.view(x.dtype).view(-1, *x.shape)
 
 
-def all_gather_tiled(shard: torch.Tensor, group) -> torch.Tensor:
-    """Concatenating all-gather of per-worker shards (worker order = rank,
-    the inverse of :func:`reduce_scatter`'s scatter).  The identity with no
-    group."""
-    if group is None:
-        return shard
+def start_all_gather_tiled(shard: torch.Tensor, group):
+    """Start a concatenating all-gather of per-worker shards (worker order =
+    rank, the inverse of :func:`reduce_scatter`'s scatter) and return
+    ``(out, work)``: ``out`` holds the gathered vector once ``work.wait()``
+    returns (on NCCL the wait orders the current stream after the gather
+    and does not block the host)."""
     out = torch.empty(dist.get_world_size(group) * shard.numel(),
                       dtype=shard.dtype, device=shard.device)
-    dist.all_gather_into_tensor(out, shard, group=group)
-    return out
+    return out, dist.all_gather_into_tensor(out, shard, group=group, async_op=True)
 
 
 class Compressor:

@@ -80,6 +80,10 @@ def main(argv=None):
           f"per worker (dense {sr['dense_bytes']/1e6:.3f} MB, "
           f"volume ratio {sr['volume_ratio']:.2f}x) — static plan, no tracing")
     if args.sync == "sharded":
+        # the gathers start at the step's head, one per bucket, and the
+        # forward pass waits for each where it first reads it: before the
+        # embedding, before layer i (ParamGather.before_layer), or before
+        # the final norm and head
         print(f"[schedule] sharded: "
               f"{sr['mean_exposed_wire_bytes_per_step']/1e6:.3f} MB/step "
               f"exposed wire (RS), "

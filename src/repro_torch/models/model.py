@@ -114,14 +114,16 @@ class DecoderLM(nn.Module):
                 v = truncated_normal_init(p.shape, p.dtype, gen, device=dev)
             p.copy_(v)
 
-    def loss_fn(self, batch: dict[str, torch.Tensor]):
+    def loss_fn(self, batch: dict[str, torch.Tensor], before_layer=None):
         """-> (total_loss, {"loss", "aux_loss"}), as the reference's
-        ``loss_fn`` returns them (the dense family has no aux loss)."""
+        ``loss_fn`` returns them (the dense family has no aux loss).
+        ``before_layer`` goes to :func:`transformer.stack_train`: it is
+        called before each layer and before the final norm and head."""
         cfg = self.cfg
         cd = getattr(torch, cfg.compute_dtype)
         x = embed(self.embed["table"], batch["tokens"], cd)
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=x.device)
-        x = transformer.stack_train(self.stack, x, cfg)
+        x = transformer.stack_train(self.stack, x, cfg, before_layer)
         loss = _xent_chunked(self.head["w"], x, batch["labels"], cfg)
         aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"loss": loss, "aux_loss": aux}

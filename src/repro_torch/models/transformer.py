@@ -44,10 +44,15 @@ def _attn_block_train(p, x, cfg):
     return x + mlp(p["mlp"], h, cfg.mlp_act, getattr(torch, cfg.compute_dtype))
 
 
-def stack_train(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+def stack_train(params, x: torch.Tensor, cfg, before_layer=None) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  ``before_layer(i)``, when given, is
+    called before layer ``i`` reads its rows, and once more with ``i =
+    num_layers`` before the final norm; it runs outside the checkpointed
+    layer, so the backward pass's recompute does not call it again."""
     blocks = params["blocks"]["b0"]
     for i in range(cfg.num_layers):
+        if before_layer is not None:
+            before_layer(i)
         if cfg.remat:
             x = checkpoint(
                 lambda x_, i_=i: _attn_block_train(_layer(blocks, i_), x_, cfg),
@@ -55,4 +60,6 @@ def stack_train(params, x: torch.Tensor, cfg) -> torch.Tensor:
             )
         else:
             x = _attn_block_train(_layer(blocks, i), x, cfg)
+    if before_layer is not None:
+        before_layer(cfg.num_layers)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)

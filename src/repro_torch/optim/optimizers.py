@@ -7,9 +7,11 @@ Adam/AdamW, the counterparts of ``repro.optim.optimizers``.
     updates, state = opt.update(grads, state, params)
     apply_updates(params, updates)
 
-Step counts, bias corrections and learning rates are host-side float32
-scalars (``numpy.float32`` arithmetic, the reference's f32 scalar math), so
-an update issues no device-to-host synchronisation.  ``apply_updates``
+Step counts, bias corrections and learning rates are computed on the host
+in float32 (``numpy.float32`` arithmetic, the reference's f32 scalar math),
+so an update issues no device-to-host synchronisation.  AdamW's bias
+corrections then go to the parameters' device as 0-dim float32 tensors, so
+that the card divides by them as the reference does.  ``apply_updates``
 writes into the parameters in place; the arithmetic is the reference's
 ``p + u``.
 """
@@ -60,6 +62,21 @@ def sgd(lr, momentum: float = 0.9, nesterov: bool = False) -> Optimizer:
     return Optimizer(init, update)
 
 
+def bias_corrections(step: int, b1: float, b2: float, device
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Adam's ``1 - b1**t`` and ``1 - b2**t`` at ``t = step``, computed in
+    numpy float32 as the reference computes them, as 0-dim float32 tensors
+    on ``device``.  On CUDA, division by a CPU scalar (a Python float or a
+    0-dim CPU tensor) becomes a multiplication by its reciprocal, which can
+    differ from the reference's division by an ulp; a device tensor is
+    divided by.  Each is a fill, not a host-to-device copy, so the host
+    does not wait for the device."""
+    t = np.float32(step)
+    return tuple(torch.full((), float(np.float32(1) - np.float32(b) ** t),
+                            dtype=torch.float32, device=device)
+                 for b in (b1, b2))
+
+
 def adamw(
     lr,
     b1: float = 0.9,
@@ -79,7 +96,6 @@ def adamw(
     @torch.no_grad()
     def update(grads, state, params):
         step = state["step"] + 1
-        t = np.float32(step)
         m = [
             (b1 * m_.float() + (1 - b1) * g.float()).to(m_.dtype)
             for m_, g in zip(state["m"], grads)
@@ -88,8 +104,7 @@ def adamw(
             (b2 * v_.float() + (1 - b2) * torch.square(g.float())).to(v_.dtype)
             for v_, g in zip(state["v"], grads)
         ]
-        bc1 = float(np.float32(1) - np.float32(b1) ** t)
-        bc2 = float(np.float32(1) - np.float32(b2) ** t)
+        bc1, bc2 = bias_corrections(step, b1, b2, m[0].device if m else None)
         lr = float(lr_fn(step))
 
         def upd(m_, v_, p):

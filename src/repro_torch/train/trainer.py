@@ -16,8 +16,10 @@
 * ``arena=True`` runs the zero-copy arena form of the sync
   (``core.arena``); ``sync="sharded"`` reduce-scatters each selected
   bucket, clips on the all-reduced sum of the local squared norms, and
-  all-gathers the updated params at the head of the next step (and once
-  more in :meth:`Trainer.flush_sync` when ``run`` ends).
+  all-gathers the updated params at the head of the next step: every
+  bucket's gather starts there, and the forward pass waits for each one
+  before the first layer that reads it (once more, blocking, in
+  :meth:`Trainer.flush_sync` when ``run`` ends).
 
 Not ported yet (they raise): ``overlap="fused"``, hierarchical pods,
 ``interval="auto"``.
@@ -34,7 +36,12 @@ import torch.distributed as dist
 from ..core import build_plan, get_compressor
 from ..core.bucketing import BucketPlan
 from ..core.comm import Compressor, world_size
-from ..core.overlap import sharded_param_allgather
+from ..core.overlap import (
+    EMBED_STAGE,
+    bucket_first_use,
+    issue_param_allgather,
+    sharded_param_allgather,
+)
 from ..core.schedule import CommSchedule, mean_bytes_per_step
 from ..optim import Optimizer, apply_updates, clip_by_global_norm, global_norm
 
@@ -91,15 +98,17 @@ def _pmean_metrics(metrics: dict[str, torch.Tensor], group) -> dict[str, torch.T
     return dict(zip(keys, packed.unbind(0)))
 
 
-def loss_and_grads(model, params: list[torch.Tensor], batch, group=None):
-    """Forward + ``backward()`` on this worker's batch.
+def loss_and_grads(model, params: list[torch.Tensor], batch, group=None, *,
+                   before_layer=None):
+    """Forward + ``backward()`` on this worker's batch; ``before_layer``
+    (``None``: no callback) goes to ``model.loss_fn``.
 
     -> ``(grads, metrics)``: the raw (un-synced) gradients in leaf order, and
     the loss metrics averaged over the group.  The parameters' ``.grad``
     fields are cleared again before returning."""
     for p in params:
         p.grad = None
-    total, metrics = model.loss_fn(batch)
+    total, metrics = model.loss_fn(batch, before_layer=before_layer)
     total.backward()
     grads = [p.grad for p in params]
     for p in params:
@@ -127,10 +136,15 @@ def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
     this phase's static schedule, optional global-norm clip, optimizer update
     in place.
 
-    Sharded sync with a group: every step begins with the deferred param
-    all-gather of the previous step (``overlap.sharded_param_allgather``),
-    before the forward pass reads any parameter; it covers every bucket
-    and rewrites values that already agree, so it runs from step 0.
+    Sharded sync with a group: every step begins by starting the deferred
+    param all-gather of the previous step (``overlap.issue_param_allgather``,
+    one asynchronous gather per bucket, in order of first use); the buckets
+    the embedding reads are waited for before the forward pass, every other
+    bucket in ``model.loss_fn``'s ``before_layer`` callback, before the
+    first layer that reads it, or before the final norm and head.  It
+    covers every bucket and rewrites values that already agree, so it runs
+    from step 0.  ``step_fn.gather_events`` holds the last step's
+    ``("issue", b)``, ``("settle", b)`` and ``("layer", i)`` events.
 
     ``step_fn(state, batch) -> (state, metrics)``; ``state`` is
     ``{"params", "opt", "comp", "step"}`` as :func:`make_train_state`
@@ -140,6 +154,8 @@ def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
     comm_schedule = compressor.plan_phase(plan, phase, world=world_size(group))
     sharded = (getattr(compressor, "sync_mode", "allreduce") == "sharded"
                and group is not None)
+    first_use = (bucket_first_use(plan, model.cfg.num_layers) if sharded
+                 else None)
 
     def update(state, grads):
         params = state["params"]
@@ -162,14 +178,26 @@ def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
         return new_state, gnorm
 
     def step_fn(state, batch):
+        before_layer = None
         if sharded:
-            sharded_param_allgather(compressor, comm_schedule, state["params"],
-                                    group=group)
-        grads, metrics = loss_and_grads(model, state["params"], batch, group)
+            gather = issue_param_allgather(compressor, comm_schedule,
+                                           state["params"], group=group,
+                                           first_use=first_use)
+            gather.settle_through(EMBED_STAGE)
+            before_layer = gather.before_layer
+            step_fn.gather_events = gather.events
+        grads, metrics = loss_and_grads(model, state["params"], batch, group,
+                                        before_layer=before_layer)
+        if sharded and gather.pending:
+            raise RuntimeError(
+                f"sharded sync: buckets {sorted(gather.pending)} were never "
+                "waited for: the model did not call before_layer for every "
+                "stage")
         new_state, metrics["grad_norm"] = update(state, grads)
         return new_state, metrics
 
     step_fn.comm_schedule = comm_schedule
+    step_fn.gather_events = []
     step_fn.update = update
     return step_fn
 
@@ -207,6 +235,7 @@ class Trainer:
         self._steps: dict[int, Callable] = {}
         self.history: list[dict] = []
         self._pending_sync = False
+        self.gather_events: list[tuple[str, int]] = []
 
     @property
     def num_phases(self) -> int:
@@ -294,8 +323,13 @@ class Trainer:
         return make_train_state(self.model, self.optimizer, self.compressor, self.plan)
 
     def step(self, state: dict, batch: dict) -> tuple[dict, dict]:
-        """One training step of the phase ``state["step"] % num_phases``."""
-        return self._phase_fn(state["step"] % self.num_phases)(state, batch)
+        """One training step of the phase ``state["step"] % num_phases``;
+        ``gather_events`` then holds its head all-gather's events (sharded
+        sync with a group; empty otherwise)."""
+        fn = self._phase_fn(state["step"] % self.num_phases)
+        out = fn(state, batch)
+        self.gather_events = fn.gather_events
+        return out
 
     def run(self, state: dict, batches: Iterable[dict], steps: int | None = None,
             log=print) -> dict:

@@ -1,4 +1,4 @@
-"""Worker of the port's two-process gloo tests (``test_torch_multiworker.py``,
+"""Workers of the port's two-process gloo tests (``test_torch_multiworker.py``,
 ``test_torch_sharded.py``).
 
 It imports only torch, numpy and ``repro_torch``, so spawned processes start
@@ -76,6 +76,86 @@ def train_worker(rank, world, init_file, init_npz, out_prefix, runs, data_kw,
             for part, leaves in parts.items():
                 for (path, _), x in zip(model.named_leaves(), leaves):
                     out[f"{name}/{part}:{path}"] = x.detach().numpy().copy()
+        np.savez(f"{out_prefix}{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+EVENT_KINDS = ("issue", "settle", "layer")
+
+
+def gather_worker(rank, world, init_file, init_npz, out_prefix, tc_kw, data_kw, lr,
+                  steps):
+    """Sharded sync two ways from the same parameters, ``steps`` AdamW steps
+    each: ``async/`` through ``Trainer.step`` (the head all-gather started
+    per bucket and waited for where the forward pass first reads the
+    bucket), ``blocking/`` through the same per-phase step functions' parts
+    with the blocking ``sharded_param_allgather`` before the forward pass.
+    Writes each run's losses, and its params, Adam moments and residuals
+    before (``<run>/pre/...``) and after (``<run>/post/...``) a final
+    blocking gather of params and moments, and every step's head-gather
+    events of the async run as ``events:<step>``, ``(kind, index)`` rows
+    with ``kind`` an index of ``EVENT_KINDS``."""
+    from repro_torch import optim
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.overlap import sharded_param_allgather
+    from repro_torch.data import DataConfig, make_loader
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer, build_step_fn, loss_and_grads
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        group = dist.group.WORLD
+        loader = make_loader(DataConfig(**data_kw), device="cpu")
+        local = data_kw["global_batch"] // world
+        rows = slice(rank * local, (rank + 1) * local)
+        batches = [{k: v[rows] for k, v in loader.make(s).items()} for s in range(steps)]
+
+        def trainer():
+            model = build_model(get_reduced("gpt2-paper"), device="cpu")
+            with np.load(init_npz) as init:
+                model.load_state_dict({k: torch.from_numpy(init[k]) for k in init.files})
+            tr = Trainer(model, optim.adamw(lr), TrainConfig(**tc_kw), group=group)
+            return tr, tr.init_state()
+
+        out = {}
+        tr, state = trainer()
+        losses = []
+        for s, batch in enumerate(batches):
+            state, metrics = tr.step(state, batch)
+            losses.append(float(metrics["loss"]))
+            out[f"events:{s}"] = np.array(
+                [(EVENT_KINDS.index(k), i) for k, i in tr.gather_events], np.int64)
+        runs = {"async": (tr, state, losses)}
+
+        tr_b, state_b = trainer()
+        fns, losses_b = {}, []
+        for s, batch in enumerate(batches):
+            phase = s % tr_b.num_phases
+            if phase not in fns:
+                fns[phase] = build_step_fn(tr_b.model, tr_b.optimizer, tr_b.compressor,
+                                           tr_b.plan, phase=phase, group=group)
+            sharded_param_allgather(tr_b.compressor, fns[phase].comm_schedule,
+                                    state_b["params"], group=group)
+            grads, metrics = loss_and_grads(tr_b.model, state_b["params"], batch, group)
+            losses_b.append(float(metrics["loss"]))
+            state_b, _ = fns[phase].update(state_b, grads)
+        runs["blocking"] = (tr_b, state_b, losses_b)
+
+        for name, (t, st, ls) in runs.items():
+            out[f"{name}/losses"] = np.array(ls)
+            sched = t.compressor.plan_phase(t.plan, 0, world=world)
+            for when in ("pre", "post"):
+                if when == "post":
+                    for tree in (st["params"], st["opt"]["m"], st["opt"]["v"]):
+                        sharded_param_allgather(t.compressor, sched, tree, group=group)
+                parts = {"params": st["params"], "m": st["opt"]["m"],
+                         "v": st["opt"]["v"], "resid": st["comp"]}
+                for part, leaves in parts.items():
+                    for (path, _), x in zip(t.model.named_leaves(), leaves):
+                        out[f"{name}/{when}/{part}:{path}"] = x.detach().numpy().copy()
         np.savez(f"{out_prefix}{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

@@ -188,31 +188,117 @@ def test_lowrank_matmul_kernel_matches_plain_version(B, a, b):
     assert matmul.launches == before + 3
 
 
+def _routed(route, fn):
+    """``fn()``, checking that it launched exactly one kernel, on ``route``."""
+    before = dict(matmul.launches_by_route)
+    out = fn()
+    torch.cuda.synchronize()
+    after = matmul.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}, route
+    return out
+
+
 @pytest.mark.cuda
 def test_lowrank_matmul_zero_strided_wide_and_deterministic():
     """An all-zero M gives exact zeros; strided views read the same matrices
     as their contiguous copies; n = 3 (the skinny tile padded to 4), n = 5
-    and 129 (the wide tile) with 2-D operands;
+    and 129 (the wide tile) with 2-D operands; each of these takes the
+    tiled kernel, the contiguous full-width ones their streaming routes;
     a split-k product is the same from run to run, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
     gen = torch.Generator("cuda").manual_seed(11)
     Z = torch.zeros(1, 50304, 768, device="cuda")
     q = torch.randn(1, 768, 2, generator=gen, device="cuda")
-    assert not matmul(Z, q).any()
+    assert not _routed("rowdot", lambda: matmul(Z, q)).any()
+    pz = torch.randn(1, 50304, 2, generator=gen, device="cuda")
+    assert not _routed("colacc", lambda: matmul(Z, pz, trans_a=True)).any()
     big = torch.randn(2, 700, 1802, generator=gen, device="cuda")
     view = big[:, :, ::2]
     p = torch.randn(2, 700, 2, generator=gen, device="cuda")
-    assert torch.equal(matmul(view, p, trans_a=True),
-                       matmul(view.contiguous(), p, trans_a=True))
-    _assert_matmul_close(matmul(view, p, trans_a=True), view, p, trans_a=True)
+    got = _routed("tiled", lambda: matmul(view, p, trans_a=True))
+    assert torch.equal(got, _routed("tiled", lambda: matmul(view.contiguous(), p,
+                                                            trans_a=True)))
+    _assert_matmul_close(got, view, p, trans_a=True)
     a = torch.randn(1001, 517, generator=gen, device="cuda")
     for n in (3, 5, 129):                 # the padded skinny tile, the wide one
         w = torch.randn(517, n, generator=gen, device="cuda")
-        _assert_matmul_close(matmul(a, w), a, w)
+        _assert_matmul_close(_routed("tiled", lambda: matmul(a, w)), a, w)
     M = torch.randn(1, 768, 50304, generator=gen, device="cuda")
     Q = torch.randn(1, 50304, 2, generator=gen, device="cuda")
-    assert torch.equal(matmul(M, Q), matmul(M, Q))
+    assert torch.equal(_routed("rowdot", lambda: matmul(M, Q)), matmul(M, Q))
+    P = torch.randn(1, 768, 2, generator=gen, device="cuda")
+    assert torch.equal(_routed("colacc", lambda: matmul(M, P, trans_a=True)),
+                       matmul(M, P, trans_a=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,a,b", [(1, 5000, 768), (1, 768, 5000), (12, 768, 3072),
+                                   (12, 3072, 768)])
+@pytest.mark.parametrize("zero", [False, True])
+def test_lowrank_matmul_streaming_routes_match_plain_version(B, a, b, zero):
+    """Each streaming route at reduced sizes, as PowerSGD chains them (P
+    from the QR, column-major): within 1e-5 (|A| @ |B|) of ``matmul_ref``,
+    exact zeros from an all-zero M, and the same bits on a second run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(a + b)
+    M = torch.randn(B, a, b, generator=gen, device="cuda")
+    if zero:
+        M.zero_()
+    Q = torch.randn(B, b, 2, generator=gen, device="cuda")
+    P, _ = torch.linalg.qr(torch.randn(B, a, 2, generator=gen, device="cuda"))
+    Qn = matmul_ref(M, P, trans_a=True)
+    for route, x, y, ta, tb in (("rowdot", M, Q, False, False),
+                                ("colacc", M, P, True, False),
+                                ("outer", P, Qn, False, True)):
+        got = _routed(route, lambda: matmul(x, y, trans_a=ta, trans_b=tb))
+        _assert_matmul_close(got, x, y, trans_a=ta, trans_b=tb)
+        assert torch.equal(got, matmul(x, y, trans_a=ta, trans_b=tb))
+        if zero:
+            assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [0, 9, 999])
+def test_adamw_update_on_cuda_matches_the_cpu_update(step):
+    """One AdamW update (weight decay on) on the card and on the CPU from the
+    same moments, gradients and params.  The bias corrections are device
+    tensors, so both divide, and m, v and the divisions are bitwise equal.
+    ``torch.sqrt`` in float32 differs between the two by one ulp on some
+    elements (``ROADMAP.md`` queue 3): it is held at 1 ulp, and the update
+    bitwise wherever the two square roots agree, elsewhere within 4 ulps of
+    ``lr * m_hat / (sqrt(v_hat) + eps)`` (one ulp of the root moves the
+    quotient by one ulp, and each later rounding by half of one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import bias_corrections
+
+    gen = torch.Generator().manual_seed(step)
+    shapes = [(768, 2304), (12, 768), (50304,), ()]
+    g, m, p = ([torch.randn(s, generator=gen) for s in shapes] for _ in range(3))
+    v = [torch.rand(s, generator=gen) * 1e-3 for s in shapes]
+    lr, wd = 3e-4, 0.01
+    opt = adamw(lr, weight_decay=wd)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        on = lambda xs: [x.to(dev) for x in xs]   # noqa: E731
+        upd, new = opt.update(on(g), {"step": step, "m": on(m), "v": on(v)}, on(p))
+        out[dev] = [[x.cpu() for x in part] for part in (upd, new["m"], new["v"])]
+    (u_gpu, m_gpu, v_gpu), (u_cpu, m_cpu, v_cpu) = out["cuda"], out["cpu"]
+    assert all(torch.equal(a, b) for a, b in zip(m_gpu + v_gpu, m_cpu + v_cpu))
+    bc1, bc2 = bias_corrections(step + 1, 0.9, 0.999, torch.device("cpu"))
+    for ug, uc, mm, vv in zip(u_gpu, u_cpu, m_cpu, v_cpu):
+        vh = vv / bc2
+        root_cpu, root_gpu = torch.sqrt(vh), torch.sqrt(vh.cuda()).cpu()
+        ulps = (root_cpu.view(torch.int32).long() - root_gpu.view(torch.int32).long()).abs()
+        assert int(ulps.max()) <= 1
+        agree = ulps == 0
+        assert torch.equal(ug[agree], uc[agree])
+        term = (lr * (mm / bc1) / (root_cpu + 1e-8)).abs()
+        assert bool(((ug - uc).abs() <= 2.0 ** -21 * term).all())
 
 
 @pytest.mark.cuda

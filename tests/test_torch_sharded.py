@@ -1,7 +1,9 @@
 """Sharded sync in the port: its static schedules against the reference's,
-and two gloo workers running ``sync="sharded"`` against ``sync="allreduce"``
+two gloo workers running ``sync="sharded"`` against ``sync="allreduce"``
 through ``Trainer.run`` (params, EF residuals and Adam moments after the
-run's flush)."""
+run's flush), the asynchronous head all-gather against the blocking one
+(bitwise, and the order of its waits against the layers), and the model's
+``before_layer`` callback on one worker."""
 import os
 
 import jax
@@ -18,9 +20,14 @@ from repro.models import build_model as r_build_model
 import repro_torch.configs as tconfigs
 from repro_torch.core import build_plan, get_compressor
 from repro_torch.core.overlap import supports_sharded_sync
+from repro_torch.data import DataConfig, make_loader
 from repro_torch.models import build_model
+from repro_torch.models import transformer
+from repro_torch.models.layers import embed
+from repro_torch.optim import adamw
+from repro_torch.train import TrainConfig, Trainer
 
-from _torch_dist_worker import train_worker
+from _torch_dist_worker import EVENT_KINDS, gather_worker, train_worker
 
 WORLD = 2
 STEPS = 5
@@ -185,3 +192,165 @@ def test_two_worker_sharded_clip_matches_allreduce(ranks):
             assert any(np.max(np.abs(got[f"allreduce/{k}"]
                                      - got[f"allreduce-clip/{k}"])) > 100 * atol
                        for k in keys), part
+
+
+# ---- the asynchronous head all-gather ----------------------------------------
+
+def _spawn(worker, tmp, args, what):
+    ctx = mp.start_processes(worker, args=(WORLD, str(tmp / "rendezvous"), *args),
+                             nprocs=WORLD, join=False, start_method="spawn")
+    for _ in range(600):
+        if ctx.join(timeout=1):
+            break
+    else:
+        for p in ctx.processes:
+            p.kill()
+        raise AssertionError(f"{what}: gloo workers did not finish within 600 s")
+    assert not any(p.is_alive() for p in ctx.processes)
+
+
+@pytest.fixture(scope="module")
+def gathers(tmp_path_factory):
+    """Two gloo workers, sharded sync, AdamW: the async head gather through
+    ``Trainer.step`` and the blocking one -> [rank 0, rank 1]."""
+    tmp = tmp_path_factory.mktemp("gather")
+    init = str(tmp / "init.npz")
+    model = build_model(tconfigs.get_reduced("gpt2-paper"), device="cpu", seed=1)
+    np.savez(init, **{k: v.numpy() for k, v in model.state_dict().items()})
+    _spawn(gather_worker, tmp, (init, str(tmp / "out"), dict(TC, sync="sharded"),
+                                DATA, 1e-3, STEPS), "gather")
+    return [dict(np.load(tmp / f"out{r}.npz")) for r in range(WORLD)]
+
+
+def _stages():
+    """Each bucket's first-use stage, from its segments: -1 (before the
+    embedding) for ``embed.*``, row r (before layer r) for a stacked leaf,
+    the layer count for the final norm and the head."""
+    cfg = tconfigs.get_reduced("gpt2-paper")
+    plan = build_plan(build_model(cfg, device="meta").named_leaves(),
+                      bucket_bytes=TC["bucket_bytes"], max_buckets=TC["max_buckets"],
+                      interval=TC["interval"])
+    L = cfg.num_layers
+
+    def stage(seg):
+        path = plan.leaf_paths[seg.leaf_idx]
+        if path.startswith("embed."):
+            return -1
+        if path.startswith("stack.blocks."):
+            return seg.row_lo
+        assert path in ("head.w", "stack.final_norm.scale"), path
+        return L
+
+    return [min(stage(s) for s in b.segments) for b in plan.buckets], L
+
+
+def test_async_head_gather_is_bitwise_the_blocking_gather(gathers):
+    """Every step's losses, and params, Adam moments and EF residuals after
+    a COVAP cycle plus one step, before and after a final blocking gather,
+    on both ranks."""
+    for got in gathers:
+        np.testing.assert_array_equal(got["async/losses"], got["blocking/losses"])
+        keys = [k[len("blocking/"):] for k in got if k.startswith("blocking/")
+                and k != "blocking/losses"]
+        assert any(k.startswith("pre/m:") for k in keys)
+        assert any(k.startswith("post/resid:") for k in keys)
+        for k in keys:
+            np.testing.assert_array_equal(got[f"async/{k}"], got[f"blocking/{k}"],
+                                          err_msg=k)
+    # the gather moves values: the workers disagree before it, agree after
+    assert any(not np.array_equal(gathers[0][k], gathers[1][k])
+               for k in gathers[0] if k.startswith("async/pre/params:"))
+    for k in gathers[0]:
+        if k.startswith("async/post/") and "resid:" not in k:
+            np.testing.assert_array_equal(gathers[0][k], gathers[1][k], err_msg=k)
+
+
+def test_async_head_gather_waits_where_each_bucket_is_first_read(gathers):
+    """Every step: all buckets issued, in order of first use, before the
+    forward pass reaches layer 0; each bucket waited for once, before the
+    first layer that reads it and after the layer before that one, so a
+    bucket of later rows is not waited for before layer 0."""
+    stages, L = _stages()
+    assert sorted(set(stages)) == [-1, *range(L + 1)]
+    for got in gathers:
+        for s in range(STEPS):
+            events = [(EVENT_KINDS[k], i) for k, i in got[f"events:{s}"]]
+            pos = {e: n for n, e in enumerate(events)}
+            assert len(pos) == len(events)
+            issues = [i for k, i in events if k == "issue"]
+            assert issues == sorted(range(len(stages)), key=lambda b: (stages[b], b))
+            layers = [i for k, i in events if k == "layer"]
+            assert layers == list(range(L + 1))
+            assert max(pos[("issue", b)] for b in issues) < pos[("layer", 0)]
+            for b, f in enumerate(stages):
+                at = pos[("settle", b)]
+                assert at > max(pos[("issue", c)] for c in issues)
+                assert at < pos[("layer", max(f, 0))], (s, b, f)
+                if f >= 1:
+                    assert at > pos[("layer", f - 1)], (s, b, f)
+
+
+def _batch(cfg, seed=0):
+    loader = make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                    global_batch=2, corpus_tokens=1 << 14), device="cpu")
+    return loader.make(seed)
+
+
+def _todays_loss(model, batch):
+    """``DecoderLM.loss_fn`` with no callback, written out: the layer loop
+    over ``transformer._attn_block_train``."""
+    import math
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import _xent_chunked
+
+    cfg = model.cfg
+    cd = getattr(torch, cfg.compute_dtype)
+    x = embed(model.embed["table"], batch["tokens"], cd)
+    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=x.device)
+    blocks = model.stack["blocks"]["b0"]
+    for i in range(cfg.num_layers):
+        if cfg.remat:
+            x = checkpoint(lambda x_, i_=i: transformer._attn_block_train(
+                transformer._layer(blocks, i_), x_, cfg), x, use_reentrant=False)
+        else:
+            x = transformer._attn_block_train(transformer._layer(blocks, i), x, cfg)
+    x = rmsnorm(model.stack["final_norm"], x, cfg.norm_eps)
+    return _xent_chunked(model.head["w"], x, batch["labels"], cfg)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_before_layer_callback_changes_nothing_on_one_worker(remat):
+    """With no group: the model without a callback is bitwise the
+    written-out loop (loss and every gradient), with a callback the same
+    again, and the callback runs once per stage, in order, also under the
+    backward pass's recompute of checkpointed layers."""
+    cfg = tconfigs.get_reduced("gpt2-paper").with_(remat=remat)
+    model = build_model(cfg, device="cpu", seed=2)
+    batch = _batch(cfg)
+    params = [p for _, p in model.named_leaves()]
+
+    def run(fn):
+        for p in params:
+            p.grad = None
+        loss = fn()
+        loss.backward()
+        return loss.detach(), [p.grad.clone() for p in params]
+
+    calls = []
+    want = run(lambda: _todays_loss(model, batch))
+    plain = run(lambda: model.loss_fn(batch)[0])
+    hooked = run(lambda: model.loss_fn(batch, before_layer=calls.append)[0])
+    assert calls == list(range(cfg.num_layers + 1))
+    for got in (plain, hooked):
+        assert torch.equal(got[0], want[0])
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
+def test_sharded_trainer_without_a_group_records_no_gather():
+    model = build_model(tconfigs.get_reduced("gpt2-paper"), device="cpu", seed=0)
+    tr = Trainer(model, adamw(1e-3), TrainConfig(**dict(TC, sync="sharded")))
+    state = tr.init_state()
+    state, _ = tr.step(state, _batch(model.cfg))
+    assert tr.gather_events == []
