@@ -44,9 +44,17 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            steps) and ``efsignsgd`` (``sign_compress.launches`` == buckets x
            steps); then the leaf path, ``powersgd`` (rank 2,
            ``lowrank.matmul.launches`` == 33 x steps, 11 x steps on each
-           streaming route); every other kernel's
-           count must be 0 on each run (``threshold_filter``, which no path
-           runs, on all of them)
+           streaming route); then the fused overlap (``overlap="fused"``:
+           each bucket's collective started inside the backward pass) on
+           the defaults (``ef_update.launches`` == segments x steps), with
+           ``arena=True`` and with ``sync="sharded"``
+           (``pack_ef_cast.launches`` == segments x steps), each printed
+           beside its post run (step ms, tok/s, peak memory), with every
+           hook's backward on the forward's stream and the hooks fired in
+           ``ReadyOrder``; every other kernel's count must be 0 on each run
+           (``threshold_filter``, which no path runs, on all of them).  Each
+           run's peak memory is taken after a garbage collection, so that
+           it counts the run's own memory
   parity   one step from the trained state on the same gradients: each
            kernel against its plain version, arena against per-segment
            (f32 and bf16 wires) and sharded against allreduce, bit for bit;
@@ -54,7 +62,21 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            (fp8wire bit for bit; efsignsgd signs bit for bit, values at rtol
            1e-6) and the arena against the per-bucket form, bit for bit;
            for powersgd, the matmul kernel against ``use_wire_kernel=False``:
-           approx and residuals at allclose, Q up to QR's column signs
+           approx and residuals at allclose, Q up to QR's column signs;
+           ``[parity] fused``: from one state and one batch, each fused
+           form (defaults, arena, sharded) against its post form, in synced
+           gradients, residuals, and the params, Adam moments and residuals
+           after the step, by ``torch.equal`` (a difference is printed with
+           its ulps and held at ``FUSED_PARITY_ULPS``)
+  overlap  last of the card runs (the steps after a profiled one run
+           slower), after a fresh fused run of 5 steps: one post and one
+           fused step under ``torch.profiler``: the host
+           order of the ``covap_bucket_*`` spans follows ``ReadyOrder`` up
+           to ties, and under fused at least one bucket's ``ef_update``
+           kernels start on the device before layer 0's last backward GEMM,
+           under post none (the counterpart of
+           ``launch/hlo_analysis.check_interleaving``; one card shows where
+           each bucket is issued, not overlap across cards)
   small    REDUCED gpt2-paper trained 5 steps on the card and on the CPU
            from the same parameters and batches, on the defaults, with
            ``arena=True`` and with ``powersgd`` (the CPU run is the path the
@@ -65,6 +87,7 @@ The line before the last is the kernels' JSON record, the last line
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import socket
@@ -113,6 +136,17 @@ PACK_RUNS = (
                     "compressor_options": {"wire_dtype": "bfloat16"}}),
     ("sharded", {"sync": "sharded"}),
 )
+# the fused overlap on the three segmented forms, each one full-width run:
+# (label, options, the post run it is held against, the EF kernel it runs)
+FUSED_RUNS = (
+    ("fused", {"overlap": "fused"}, "defaults", "ef_update"),
+    ("fused+arena", {"overlap": "fused", "arena": True}, "arena", "pack_ef_cast"),
+    ("fused+sharded", {"overlap": "fused", "sync": "sharded"}, "sharded",
+     "pack_ef_cast"),
+)
+# [parity] fused: the largest float32 ulp distance allowed between a fused
+# form and its post form on one step from one state (PERF.md states it)
+FUSED_PARITY_ULPS = 0
 
 
 class PhaseError(RuntimeError):
@@ -424,6 +458,10 @@ def phase_pack_kernels() -> dict:
         for g, r, sel, *_ in segs:
             pack_ef_cast_ref(g, r, c, selected=sel)
 
+    def run_plain_bf16():
+        for g, r, sel, *_ in segs:
+            pack_ef_cast_ref(g, r, c, selected=sel, wire_dtype=torch.bfloat16)
+
     def run_library():
         for g, r, *_ in segs:
             torch.add(g, r, alpha=c)
@@ -432,6 +470,7 @@ def phase_pack_kernels() -> dict:
     kernel_ms = device_timed(run_kernel)
     kernel_bf16_ms = device_timed(kernel_fn(torch.bfloat16))
     plain_ms = device_timed(run_plain)
+    plain_bf16_ms = device_timed(run_plain_bf16)
     library_ms = device_timed(run_library)
     kernel_wall_ms = wall_timed(run_kernel)
     bytes_f32 = (EF_BYTES_PER_ELEM * sel_elems + PACK_BYTES_UNSELECTED * unsel_elems)
@@ -448,7 +487,8 @@ def phase_pack_kernels() -> dict:
           f"HBM rate)  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f} "
           f"(torch.add(g, r, alpha=c), computes t only)  bf16 wire: "
           f"kernel_ms {kernel_bf16_ms:.4f}  bound_ms {bound_bf16_ms:.4f}  "
-          f"kernel wall ms with host dispatch {kernel_wall_ms:.4f}",
+          f"plain_ms {plain_bf16_ms:.4f}  library: no single call (EF, a cast "
+          f"and a subtraction)  kernel wall ms with host dispatch {kernel_wall_ms:.4f}",
           flush=True)
     check(checks == len(cases) * len(specs), "pack_ef_cast: checks skipped")
     return {
@@ -470,6 +510,7 @@ def phase_pack_kernels() -> dict:
         "wall_ms": kernel_wall_ms,
         "bf16_wire_ms": kernel_bf16_ms,
         "bf16_wire_bound_ms": bound_bf16_ms,
+        "bf16_wire_plain_ms": plain_bf16_ms,
     }
 
 
@@ -1108,12 +1149,21 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
     """Full-width training through ``Trainer.run`` on the ``TrainConfig``
     defaults updated with ``options``.  Returns the trainer, its state and
     the loader, and the launches of each kernel in the run
-    (``{"ef_update": n, "pack_ef_cast": m, ...}``, every kernel)."""
+    (``{"ef_update": n, "pack_ef_cast": m, ...}``, every kernel).  The
+    trainer's ``run_stats`` holds steps 1-4's ms, tok/s after step 0 and
+    the peak GiB."""
     from repro_torch.data import DataConfig, make_loader
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.train import TrainConfig, Trainer
 
+    base = 0.0
+    if device != "cpu":
+        # earlier runs' trainers sit in reference cycles until a collection:
+        # free them, so that each run's peak counts its own memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() / 2**30
     model = build_model(cfg, device=device, seed=0)
     opt = adamw(cosine_warmup(1.5e-4, STEPS // 10 + 1, STEPS))
     tc = TrainConfig(steps=STEPS, log_every=1)
@@ -1153,6 +1203,7 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
     tok_s = (STEPS - 1) * global_batch * seq_len / (hist[-1]["wall_s"] - hist[0]["wall_s"])
     peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0
     wire = tc.compressor_options.get("wire_dtype") or "f32"
+    tr.run_stats = (step_ms, tok_s, peak)
     print(f"[train] {label}: {cfg.name} {n_params} params, {tr.plan.num_buckets} "
           f"buckets / {tr.plan.num_segments} segments, {tc.compressor} "
           f"{tr.num_phases} phase(s) {tc.overlap} {tc.sync} "
@@ -1161,7 +1212,8 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
           f"{tr.dp_world}: losses {[round(v, 4) for v in losses]}  step 0 "
           f"{1e3 * hist[0]['wall_s']:.1f} ms, steps 1-{STEPS - 1} ms "
           f"{[round(v, 2) for v in step_ms]}  {tok_s:.0f} tok/s after step 0  "
-          f"peak {peak:.2f} GiB  launches {launches}", flush=True)
+          f"peak {peak:.2f} GiB (of which {base:.2f} GiB held before the "
+          f"run)  launches {launches}", flush=True)
     if tr.gather_events:
         print(f"[train] {label}: head all-gather of step {STEPS}, by bucket: "
               f"{gather_order(tr)}", flush=True)
@@ -1372,6 +1424,196 @@ def phase_powersgd_parity(tr, state, loader, group) -> None:
           f"launches {launches}", flush=True)
 
 
+def ordered_ints(x: torch.Tensor) -> torch.Tensor:
+    """float32 bits as integers in the order of the values (-0 and +0 both
+    0), so that a difference counts ulps."""
+    i = x.float().contiguous().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def check_same_leaves(what: str, got, want) -> int:
+    """``torch.equal`` leaf by leaf; where a leaf differs, print it and its
+    largest ulp distance, held at ``FUSED_PARITY_ULPS``.  -> the largest."""
+    worst = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if torch.equal(a, b):
+            continue
+        ulps = int((ordered_ints(a) - ordered_ints(b)).abs().max())
+        print(f"[parity] fused: {what} leaf {i} differs by up to {ulps} ulp(s)",
+              flush=True)
+        check(ulps <= FUSED_PARITY_ULPS, f"parity fused: {what} leaf {i}: {ulps} "
+              f"ulps beyond the bound of {FUSED_PARITY_ULPS}")
+        worst = max(worst, ulps)
+    check(len(got) == len(want), f"parity fused: {what}: {len(got)} leaves, "
+          f"want {len(want)}")
+    return worst
+
+
+def check_fused_run(tr, label: str) -> str:
+    """The last fused step's records: every hook's backward ran on the
+    stream the forward pass ran on, and the hooks fired in
+    ``ReadyOrder.order()`` up to ties of equal ``bucket_layer``."""
+    from repro_torch.core import build_ready_order
+
+    fwd, streams = tr.last_step_fn.hook_streams
+    check(streams and all(x == fwd for x in streams),
+          f"{label}: hook streams {sorted(set(streams))}, forward stream {fwd}")
+    fired = list(tr.last_step_fn.fired)
+    check_ready_order(fired, tr.plan, label)
+    return (f"{len(fired)} hooks on the forward's stream {fwd}; fired in "
+            f"ReadyOrder up to ties (first {fired[:6]}, last {fired[-3:]}), "
+            f"ReadyOrder {list(build_ready_order(tr.plan).order[:6])}...")
+
+
+def check_ready_order(order, plan, what: str) -> None:
+    from repro_torch.core import build_ready_order
+
+    ready = build_ready_order(plan)
+    check(sorted(order) == list(range(plan.num_buckets)),
+          f"{what}: buckets {order} are not each bucket once")
+    layers = [ready.bucket_layer[b] for b in order]
+    check(layers == sorted(layers, reverse=True),
+          f"{what}: bucket layers {layers} not in ReadyOrder")
+
+
+def phase_fused_parity(tr, state, loader, group) -> None:
+    """From one state and one batch, each fused form against its post form
+    (``torch.equal``): the synced gradients and residuals of
+    ``overlapped_loss_and_grads`` against ``loss_and_grads`` +
+    ``execute``, then the params, Adam moments and residuals after one step
+    of ``build_overlapped_step`` against ``build_step_fn(...).update``."""
+    from repro_torch.core import get_compressor
+    from repro_torch.core.overlap import overlapped_loss_and_grads
+    from repro_torch.kernels.ef_covap import ef_update
+    from repro_torch.kernels.pack_ef_cast import pack_ef_cast
+    from repro_torch.train import build_overlapped_step, build_step_fn, loss_and_grads
+
+    batch = loader.make(state["step"])
+    phase = state["step"] % tr.num_phases
+    forms = {"defaults": {}, "arena": {"use_arena": True},
+             "sharded": {"sync": "sharded"}}
+    n = tr.plan.num_segments
+    notes = []
+    worst = 0
+    for name, opts in forms.items():
+        comp = get_compressor("covap", interval=tr.tc.interval, **opts)
+        post = build_step_fn(tr.model, tr.optimizer, comp, tr.plan, phase=phase,
+                             group=group)
+        fused = build_overlapped_step(tr.model, tr.optimizer, comp, tr.plan,
+                                      phase=phase, group=group)
+        sched = post.comm_schedule
+        grads, _ = loss_and_grads(tr.model, state["params"], batch, group)
+        want = comp.execute(sched, grads, state["comp"], step=state["step"],
+                            group=group)[:2]
+        del grads
+        e0, p0 = ef_update.launches, pack_ef_cast.launches
+        got = overlapped_loss_and_grads(tr.model, comp, sched, state["params"],
+                                        state["comp"], batch, state["step"],
+                                        group=group)[2:4]
+        torch.cuda.synchronize()
+        launched = (ef_update.launches - e0, pack_ef_cast.launches - p0)
+        check(launched == ((n, 0) if name == "defaults" else (0, n)),
+              f"parity fused {name}: launched (ef_update, pack_ef_cast) {launched}")
+        worst = max(worst, check_same_leaves(f"{name} synced", got[0], want[0]),
+                    check_same_leaves(f"{name} residuals", got[1], want[1]))
+        del got, want
+        grads, _ = loss_and_grads(tr.model, state["params"], batch, group)
+        sp, _ = post.update(clone_tree(state), grads)
+        del grads
+        sf, _ = fused(clone_tree(state), batch)
+        torch.cuda.synchronize()
+        for part, a, b in (("params", sf["params"], sp["params"]),
+                           ("adam m", sf["opt"]["m"], sp["opt"]["m"]),
+                           ("adam v", sf["opt"]["v"], sp["opt"]["v"]),
+                           ("residuals", sf["comp"], sp["comp"])):
+            worst = max(worst, check_same_leaves(f"{name} updated {part}", a, b))
+        notes.append(name)
+        del sp, sf
+        torch.cuda.empty_cache()
+    print(f"[parity] fused step {state['step']} (phase {phase}), one state and one "
+          f"batch: {', '.join(notes)}: fused == post in synced gradients, "
+          f"residuals, and the params, Adam moments and residuals after the step "
+          f"(largest ulp distance {worst}, bound {FUSED_PARITY_ULPS})", flush=True)
+
+
+def _bucket_of_span(name: str) -> int:
+    return int(name.split("/")[0].removeprefix("covap_bucket_"))
+
+
+def overlap_counts(prof, plan, issue_order) -> tuple[list[int], int, int]:
+    """From one profiled step: the host order of the ``covap_bucket_*``
+    spans, and how many buckets' ``ef_update`` kernels start on the device
+    before the step's last GEMM (layer 0's last backward GEMM: nothing
+    after layer 0's backward runs a matrix product), out of how many.
+    ``issue_order`` is the order the buckets' kernels were launched in."""
+    from repro_torch.launch.profile_train import kernel_group
+
+    # the CPU side of each span (the profiler also records its device range)
+    spans = sorted((e for e in prof.events() if e.name.startswith("covap_bucket_")
+                    and e.device_type == torch.autograd.DeviceType.CPU),
+                   key=lambda e: e.time_range.start)
+    host = [_bucket_of_span(e.name) for e in spans]
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    check(bool(kernels), "overlap: the profiler recorded no device events")
+    gemms = [e for e in kernels if kernel_group(e.name) == "matmul"]
+    check(bool(gemms), "overlap: no matrix product in the trace")
+    efs = [e for e in kernels if kernel_group(e.name) == "ef_update"]
+    owners = [b for b in issue_order for _ in plan.buckets[b].segments]
+    check(len(efs) == len(owners), f"overlap: {len(efs)} ef_update kernels in the "
+          f"trace, {len(owners)} segments")
+    last_gemm = gemms[-1].time_range.start
+    early = {b for b, e in zip(owners, efs) if e.time_range.start < last_gemm}
+    return host, len(early), len(set(owners))
+
+
+def phase_overlap(tr, state, loader, group) -> None:
+    """One post step and one fused step of the defaults form under
+    ``torch.profiler``: the fused step's host order of its
+    ``covap_bucket_*`` spans must follow ``ReadyOrder`` up to ties, and at
+    least one bucket's ``ef_update`` kernels must start on the device before
+    layer 0's last backward GEMM; under post none may.  With one card this
+    shows where each bucket is issued, not overlap across cards."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import build_ready_order
+    from repro_torch.train import build_step_fn
+
+    phase = state["step"] % tr.num_phases
+    post = build_step_fn(tr.model, tr.optimizer, tr.compressor, tr.plan, phase=phase,
+                         group=group)
+    out = {}
+    for overlap in ("post", "fused"):
+        batch = loader.make(state["step"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if overlap == "post":
+                state, _ = post(state, batch)
+            else:
+                state, _ = tr.step(state, batch)
+            torch.cuda.synchronize()
+        order = (list(range(tr.plan.num_buckets)) if overlap == "post"
+                 else list(tr.last_step_fn.fired))
+        out[overlap] = overlap_counts(prof, tr.plan, order)
+    host, early, total = out["fused"]
+    check(host == list(tr.last_step_fn.fired), "overlap: the covap_bucket spans "
+          f"{host} differ from the hooks' firing order {tr.last_step_fn.fired}")
+    check_ready_order(host, tr.plan, "overlap: covap_bucket spans")
+    check(not out["post"][0], "overlap: the post step recorded covap_bucket spans")
+    check(early >= 1, f"overlap: no fused bucket started before layer 0's last GEMM")
+    check(out["post"][1] == 0, f"overlap: {out['post'][1]} post buckets started "
+          "before layer 0's last GEMM")
+    ready = build_ready_order(tr.plan)
+    print(f"[overlap] one full-width step each, one card: fused covap_bucket spans "
+          f"in host order {host} (ReadyOrder {list(ready.order)}, equal up to ties "
+          f"of equal bucket_layer); buckets whose ef_update kernels start on the "
+          f"device before layer 0's last backward GEMM: fused {early} of {total}, "
+          f"post {out['post'][1]} of {out['post'][2]}.  One card and a one-rank "
+          f"group: this shows where each bucket is issued, not overlap across "
+          f"cards", flush=True)
+
+
 def comp_parts(comp) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """A compressor state as ``(residual-like leaves, PowerSGD's Qs)``: the
     residual list of the segmented and flat paths (no Q), or PowerSGD's
@@ -1476,6 +1718,7 @@ def main() -> int:
         group = dist.group.WORLD
         cfg = get_config("gpt2-paper")
         tr, state, loader, launches = phase_train(cfg, group=group)
+        stats = {"defaults": tr.run_stats}
         segs = tr.plan.num_segments
         check(launches == launch_counts(ef_update=STEPS * segs),
               f"defaults: launches {launches} in {STEPS} steps; the plan has "
@@ -1488,11 +1731,34 @@ def main() -> int:
         for label, options in PACK_RUNS:
             tr, state, _, launches = phase_train(cfg, group=group, label=label,
                                                  options=options)
+            stats[label] = tr.run_stats
             check(launches == launch_counts(pack_ef_cast=STEPS * segs),
                   f"{label}: launches {launches} in {STEPS} steps; the plan has "
                   f"{segs} segments")
             pack_launches[label] = launches["pack_ef_cast"]
             del tr, state
+            torch.cuda.empty_cache()
+        for label, options, post_label, kernel in FUSED_RUNS:
+            tr, state, loader, launches = phase_train(cfg, group=group, label=label,
+                                                      options=options)
+            check(launches == launch_counts(**{kernel: STEPS * segs}),
+                  f"{label}: launches {launches} in {STEPS} steps; the plan has "
+                  f"{segs} segments")
+            if kernel == "ef_update":
+                records[0]["launches"] += launches[kernel]
+                records[0]["launches_by_run"] = {"defaults": STEPS * segs,
+                                                 label: launches[kernel]}
+            else:
+                pack_launches[label] = launches[kernel]
+            (ms_p, tok_p, peak_p), (ms_f, tok_f, peak_f) = (stats[post_label],
+                                                            tr.run_stats)
+            print(f"[train] {label} vs {post_label}: steps 1-{STEPS - 1} ms "
+                  f"{[round(v, 2) for v in ms_f]} vs {[round(v, 2) for v in ms_p]}; "
+                  f"{tok_f:.0f} vs {tok_p:.0f} tok/s; peak {peak_f:.2f} vs "
+                  f"{peak_p:.2f} GiB; {check_fused_run(tr, label)}", flush=True)
+            if label == "fused":
+                phase_fused_parity(tr, state, loader, group)
+            del tr, state, loader
             torch.cuda.empty_cache()
         records[1]["launches"] = sum(pack_launches.values())
         records[1]["launches_by_run"] = pack_launches
@@ -1526,6 +1792,15 @@ def main() -> int:
         print(f"[train] powersgd: lowrank.matmul launches by route "
               f"{matmul.launches_by_route}", flush=True)
         phase_powersgd_parity(tr, state, loader, group)
+        del tr, state, loader
+        torch.cuda.empty_cache()
+        # last, since the steps that follow a profiled one run slower: a
+        # fresh fused run, then one profiled post and fused step
+        tr, state, loader, launches = phase_train(
+            cfg, group=group, label="fused, for [overlap]", options={"overlap": "fused"})
+        check(launches == launch_counts(ef_update=STEPS * segs),
+              f"fused, for [overlap]: launches {launches}")
+        phase_overlap(tr, state, loader, group)
         del tr, state, loader
         torch.cuda.empty_cache()
     finally:

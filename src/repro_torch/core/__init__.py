@@ -1,9 +1,11 @@
 """COVAP core in PyTorch: bucket plans, the coarse filter, error feedback,
 static comm schedules, the zero-copy arena, the segmented and flat-bucket
-sync pipelines and the deferred param all-gather of sharded sync."""
+sync pipelines, the overlap engine (the fused overlap and the deferred
+param all-gather of sharded sync) and the analytic CCR."""
 from . import (
     arena,
     bucketing,
+    ccr,
     comm,
     compressors,
     error_feedback,
@@ -12,7 +14,7 @@ from . import (
     schedule,
     stages,
 )
-from .bucketing import BucketPlan, build_plan
+from .bucketing import BucketPlan, ReadyOrder, build_plan, build_ready_order
 from .comm import Compressor, SyncStats
 from .compressors import get_compressor
 from .error_feedback import EFSchedule
@@ -23,6 +25,7 @@ from .stages import SyncPipeline
 __all__ = [
     "arena",
     "bucketing",
+    "ccr",
     "comm",
     "compressors",
     "error_feedback",
@@ -31,7 +34,9 @@ __all__ = [
     "schedule",
     "stages",
     "BucketPlan",
+    "ReadyOrder",
     "build_plan",
+    "build_ready_order",
     "Compressor",
     "SyncStats",
     "get_compressor",

@@ -1,6 +1,6 @@
 """Gradient bucketing + COVAP tensor sharding (paper SS III.A / SS III.C),
-the counterpart of ``repro.core.bucketing`` (plan building and segment
-slicing; the overlap engine's ``ReadyOrder`` is not ported yet).
+the counterpart of ``repro.core.bucketing`` (plan building, segment
+slicing and the overlap engine's :class:`ReadyOrder`).
 
 A ``BucketPlan`` partitions the gradient leaves into communication
 buckets, the granularity at which COVAP's coarse filter selects or skips
@@ -238,3 +238,110 @@ def _update_segment(leaf: torch.Tensor, seg: Segment, val: torch.Tensor) -> None
     """Write ``val`` into ``seg`` of ``leaf`` in place (cast to its dtype)."""
     dst = _slice_segment(leaf, seg)
     dst.copy_(val.reshape(dst.shape))
+
+
+def segment_slices(plan: BucketPlan, leaves: Sequence[torch.Tensor], bucket: Bucket
+                   ) -> list[tuple[Segment, torch.Tensor]]:
+    """``(segment, view)`` pairs of a bucket, in segment order."""
+    return [(seg, _slice_segment(leaves[seg.leaf_idx], seg)) for seg in bucket.segments]
+
+
+# ---------------------------------------------------------------------------
+# ReadyOrder: reverse-topological bucket readiness (overlap engine)
+# ---------------------------------------------------------------------------
+#
+# The backward pass produces gradients in reverse forward order: the head's
+# first, the embedding's last.  A bucket's collective can start when its
+# LAST gradient lands, i.e. after the backward of the shallowest layer it
+# touches.  Forward depth comes from leaf paths: a leaf under a stacked
+# stage (``blocks`` / ``encoder`` / ``decoder``) puts row ``r`` at depth
+# ``stage_base + r``; every other stage takes one depth slot (embed ->
+# encoder -> enc_norm -> decoder -> blocks -> shared -> final_norm -> head).
+# A tree with no known marker gets one slot per leaf in parameter order.
+
+# (stage id, path markers, stacked over rows)
+_STAGE_MARKERS = (
+    (0, ("embed", "projector"), False),
+    (1, ("encoder",), True),
+    (2, ("enc_norm",), False),
+    (3, ("decoder",), True),
+    (4, ("blocks",), True),
+    # a weight-shared block runs inside every layer, so its gradient is
+    # complete with blocks row 0: it shares the blocks base
+    (4, ("shared",), False),
+    (7, ("final_norm",), False),
+    (8, ("head",), False),
+)
+_UNKNOWN_STAGE = 6  # mid-network: between the stacks and final_norm
+
+
+def _leaf_stage(path: str) -> tuple[int, bool]:
+    for sid, markers, stacked in _STAGE_MARKERS:
+        if any(m in path for m in markers):
+            return sid, stacked
+    return _UNKNOWN_STAGE, False
+
+
+@dataclasses.dataclass(frozen=True)
+class ReadyOrder:
+    """Static backward readiness of a plan's buckets.
+
+    ``bucket_layer[b]`` is the forward depth of the layer whose backward
+    produces bucket ``b``'s last gradient; ``ranks[b]`` its issue rank (0 =
+    the first bucket whose collective can start); ``order`` the buckets in
+    issue order; ``num_layers`` the depth span."""
+
+    bucket_layer: tuple[int, ...]
+    ranks: tuple[int, ...]
+    num_layers: int
+
+    @property
+    def order(self) -> tuple[int, ...]:
+        return tuple(sorted(range(len(self.ranks)), key=lambda b: self.ranks[b]))
+
+    def rank_of(self, bucket: int) -> int:
+        return self.ranks[bucket]
+
+
+def leaf_row_depth(plan: BucketPlan) -> list[Any]:
+    """Per-leaf forward depth: an ``int`` for a whole-leaf stage, or a
+    callable ``row -> depth`` for a leaf stacked over layers."""
+    stages = [_leaf_stage(p) for p in plan.leaf_paths]
+    known = any(sid != _UNKNOWN_STAGE for sid, _ in stages)
+    slots: dict[int, int] = {}
+    for li, (sid, stacked) in enumerate(stages):
+        if not known:
+            slots[li] = 1
+            continue
+        rows = _row_count(plan.leaf_shapes[li]) if stacked else 1
+        slots[sid] = max(slots.get(sid, 1), rows)
+    base: dict[int, int] = {}
+    off = 0
+    for sid in sorted(slots):
+        base[sid] = off
+        off += slots[sid]
+    depths: list[Any] = []
+    for li, (sid, stacked) in enumerate(stages):
+        b = base[sid if known else li]
+        depths.append((lambda r, _b=b: _b + r) if stacked and known else b)
+    return depths
+
+
+def build_ready_order(plan: BucketPlan) -> ReadyOrder:
+    """Buckets ranked by descending shallowest forward depth; ties (several
+    buckets of one layer) go to the higher bucket index first, the reverse
+    of the plan's forward packing order."""
+    depths = leaf_row_depth(plan)
+    layer: list[int] = []
+    for bucket in plan.buckets:
+        d = None
+        for seg in bucket.segments:
+            dl = depths[seg.leaf_idx]
+            v = dl(seg.row_lo) if callable(dl) else dl
+            d = v if d is None else min(d, v)
+        layer.append(int(d if d is not None else 0))
+    order = sorted(range(len(layer)), key=lambda b: (-layer[b], -b))
+    ranks = [0] * len(order)
+    for rank, b in enumerate(order):
+        ranks[b] = rank
+    return ReadyOrder(tuple(layer), tuple(ranks), max(layer) + 1 if layer else 0)

@@ -1,0 +1,113 @@
+"""CCR (communication-to-computation ratio) estimation and interval
+selection (paper SS III.B): the analytic half of ``repro.core.ccr``.
+
+The analytic profiler takes the communication volume and the FLOPs of a
+step from the configuration, before anything runs.  The adaptive rule is
+the paper's: ``I = ceil(CCR)``, a little more compression than strictly
+needed, so that the remaining communication fits under the backward pass.
+
+:class:`HardwareSpec` carries no accelerator default: the paper's
+environment (V100 + 30 Gbps Ethernet, :meth:`HardwareSpec.cloud_v100_30gbps`)
+is the port's named spec and the fallback wherever the caller passes none.
+The measured profiler (``measure_ccr``, ``align_comm_times``) is not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """Per-device rates of the analytic model.
+
+    ``peak_flops`` (FLOP/s at the compute dtype), ``hbm_bw`` (device memory,
+    bytes/s), ``ici_bw`` (bytes/s of the link the data-parallel collectives
+    cross, the reference's name for it) and ``mfu`` (the model-FLOPs
+    utilisation assumed)."""
+
+    peak_flops: float
+    hbm_bw: float
+    ici_bw: float
+    mfu: float
+
+    @staticmethod
+    def cloud_v100_30gbps() -> "HardwareSpec":
+        """The paper's environment: V100 + 30 Gbps Ethernet."""
+        return HardwareSpec(peak_flops=125e12, hbm_bw=900e9, ici_bw=30e9 / 8,
+                            mfu=0.35)
+
+
+def allreduce_bytes_on_wire(payload_bytes: float, world: int) -> float:
+    """Ring all-reduce: each worker moves ``2 (W-1)/W`` of the payload."""
+    if world <= 1:
+        return 0.0
+    return 2.0 * (world - 1) / world * payload_bytes
+
+
+def analytic_times(*, step_flops_per_chip: float, grad_bytes: float, dp_world: int,
+                   hw: HardwareSpec, fwd_fraction: float = 1.0 / 3.0) -> dict:
+    """Analytic ``T_before`` / ``T_comp`` / ``T_comm`` of one DP step (paper
+    Table I): ``step_flops_per_chip`` is the forward + backward model FLOPs a
+    device runs; the forward pass (``T_before``) takes ``fwd_fraction`` of
+    the compute, the backward pass (``T_comp``) the rest."""
+    t_total_compute = step_flops_per_chip / (hw.peak_flops * hw.mfu)
+    t_before = t_total_compute * fwd_fraction
+    t_comp = t_total_compute * (1.0 - fwd_fraction)
+    t_comm = allreduce_bytes_on_wire(grad_bytes, dp_world) / hw.ici_bw
+    return {"t_before": t_before, "t_comp": t_comp, "t_comm": t_comm,
+            "ccr": t_comm / max(t_comp, 1e-12)}
+
+
+def analytic_ccr(*, step_flops_per_chip: float, grad_bytes: float, dp_world: int,
+                 hw: HardwareSpec | None = None, fwd_fraction: float = 1.0 / 3.0
+                 ) -> float:
+    """The analytic profiler's CCR; ``interval="auto"`` is ``I =
+    ceil(analytic_ccr(...))``.  ``hw`` defaults to the paper's environment."""
+    return analytic_times(
+        step_flops_per_chip=step_flops_per_chip, grad_bytes=grad_bytes,
+        dp_world=dp_world, hw=hw or HardwareSpec.cloud_v100_30gbps(),
+        fwd_fraction=fwd_fraction,
+    )["ccr"]
+
+
+def select_interval(ccr: float, max_interval: int = 64) -> int:
+    """The paper's adaptive compression ratio: ``I = ceil(CCR)``, at least 1
+    and at most ``max_interval``."""
+    return int(min(max(1, math.ceil(ccr)), max_interval))
+
+
+def schedule_comm_seconds(schedules: Sequence, *, world: int,
+                          hw: HardwareSpec | None = None,
+                          link_bw: float | None = None) -> float:
+    """Mean communication seconds a step over a compressor's phase cycle,
+    from its static ``CommSchedule``s: the executed-volume counterpart of
+    :func:`analytic_times`'s dense estimate."""
+    hw = hw or HardwareSpec.cloud_v100_30gbps()
+    bw = link_bw or hw.ici_bw
+    schedules = tuple(schedules)
+    if not schedules:
+        return 0.0
+    return sum(s.wire_bytes(world) for s in schedules) / len(schedules) / bw
+
+
+def compressed_ccr(schedules: Sequence, *, t_comp: float, world: int,
+                   hw: HardwareSpec | None = None,
+                   link_bw: float | None = None) -> float:
+    """The CCR left after compression: planned wire seconds over backward
+    seconds.  COVAP aims below 1, communication hidden entirely."""
+    t_comm = schedule_comm_seconds(schedules, world=world, hw=hw, link_bw=link_bw)
+    return t_comm / max(t_comp, 1e-12)
+
+
+__all__ = [
+    "HardwareSpec",
+    "allreduce_bytes_on_wire",
+    "analytic_ccr",
+    "analytic_times",
+    "compressed_ccr",
+    "schedule_comm_seconds",
+    "select_interval",
+]

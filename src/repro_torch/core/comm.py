@@ -44,6 +44,16 @@ def pmean(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+def start_pmean(x: torch.Tensor, group):
+    """Start :func:`pmean` without waiting: ``x`` is reduced in place, and
+    holds the mean once the returned work's ``wait()`` returns (on NCCL the
+    wait orders the current stream after the collective and does not block
+    the host).  ``None`` with no group: ``x`` already is the mean."""
+    if group is None:
+        return None
+    return dist.all_reduce(x, op=dist.ReduceOp.AVG, group=group, async_op=True)
+
+
 def flat_axis_index(group) -> int:
     """This worker's rank in ``group`` (0 with no group): the index of the
     shard it owns on the sharded sync path."""
@@ -59,14 +69,22 @@ def reduce_scatter(x: torch.Tensor, group, *, out: torch.Tensor | None = None
     identity with no group."""
     if group is None:
         return x
+    if out is None:
+        out = torch.empty(x.numel() // dist.get_world_size(group), dtype=x.dtype,
+                          device=x.device)
+    start_reduce_scatter(x, group, out=out).wait()
+    return out
+
+
+def start_reduce_scatter(x: torch.Tensor, group, *, out: torch.Tensor):
+    """Start :func:`reduce_scatter` over ``group`` into ``out`` without
+    waiting; returns the work."""
     W = dist.get_world_size(group)
     if x.numel() % W:
         raise ValueError(f"reduce_scatter: {x.numel()} elements do not split "
                          f"into {W} shards")
-    if out is None:
-        out = torch.empty(x.numel() // W, dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.AVG, group=group)
-    return out
+    return dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.AVG, group=group,
+                                      async_op=True)
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:

@@ -66,6 +66,9 @@ class CommSchedule:
     dense_bytes: int
     world: int = 1
     plan: BucketPlan | None = None
+    # each call's issue rank in the backward pass (``ReadyOrder``): rank 0
+    # is the first collective whose gradients land; empty on the leaf path
+    ready_ranks: tuple[int, ...] = ()
     # "allreduce" (one all-reduce per selected bucket) or "sharded" (a
     # reduce-scatter per selected bucket, the optimizer on the local shard,
     # and the param all-gathers of ``deferred_calls`` at the next step's
@@ -110,6 +113,14 @@ class CommSchedule:
         w = self.world if world is None else world
         return sum(c.wire_bytes(w) for c in self.calls)
 
+    def issue_order(self) -> tuple[int, ...]:
+        """Indices into ``calls`` in backward readiness order, the order the
+        fused overlap issues this phase's collectives; plan order without
+        ranks."""
+        if len(self.ready_ranks) != len(self.calls):
+            return tuple(range(len(self.calls)))
+        return tuple(sorted(range(len(self.calls)), key=lambda i: self.ready_ranks[i]))
+
     def segments(self, index: int) -> tuple[Segment, ...]:
         """Segments of selected entry ``index``."""
         if self.plan is None:
@@ -138,6 +149,13 @@ class CommSchedule:
             out["deferred_bytes_per_worker"] = self.deferred_bytes_per_worker
             out["total_bytes_per_worker"] = self.total_bytes_per_worker
         return out
+
+
+def plan_all_phases(compressor, plan: BucketPlan, *, world: int = 1
+                    ) -> tuple[CommSchedule, ...]:
+    """Every phase's schedule: one training cycle's static comm plan."""
+    n = max(compressor.num_phases(), 1)
+    return tuple(compressor.plan_phase(plan, p, world=world) for p in range(n))
 
 
 def mean_bytes_per_step(schedules: Sequence[CommSchedule]) -> float:

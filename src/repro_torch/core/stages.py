@@ -23,6 +23,13 @@ forms, as in the reference:
   the shard it owns and zeros elsewhere, and the trainer all-gathers the
   updated params at the next step's head (``core.overlap``).
 
+Each form syncs one bucket in two halves (:class:`StepSync`): the start runs
+EF (and the pack in the arena forms), writes the new residual, which needs
+no wire, and starts the collective without waiting; the finish waits and
+writes the synced values.  The post path finishes each bucket right after
+its start; the fused overlap (``core.overlap``) starts each bucket inside
+the backward pass and finishes them all after it.
+
 A flat wire (``FP8Block``, ``SignCompress``) sees each selected bucket as
 one flat vector: classic EF compensates the whole tree (``t = g + r``), each
 selected bucket's compensated slices are concatenated, the wire stage
@@ -45,7 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -60,7 +67,8 @@ from .comm import (
     dense_bytes,
     flat_axis_index,
     pmean,
-    reduce_scatter,
+    start_pmean,
+    start_reduce_scatter,
     world_size,
 )
 from .error_feedback import EFSchedule, init_residual
@@ -122,7 +130,7 @@ class WireStage:
     """How one selected bucket crosses the network.
 
     ``plan_bucket`` is the static half (exact per-worker bytes, collective
-    op, wire dtype); ``execute_bucket`` / ``execute_segment`` the executed
+    op, wire dtype); ``execute_bucket`` / ``start_segment`` the executed
     half.  ``segmented=True`` stages work on segment slices; the rest see
     the flat bucket vector."""
 
@@ -165,14 +173,16 @@ class WireCast(WireStage):
             name = _dtype_name(bucket_dtype(plan, bucket))
         return CollectiveCall(f"bucket:{bucket.index}", "all_reduce", name, payload)
 
-    def execute_segment(self, x: torch.Tensor, group):
-        """-> (synced_segment, residual_segment).  ``x`` is a fresh tensor
-        that the all-reduce may overwrite."""
+    def start_segment(self, x: torch.Tensor, group):
+        """Start one segment's all-reduce -> ``(buffer, residual, work)``:
+        the mean lands in ``buffer`` (``x`` itself, or its wire cast) once
+        ``work`` has waited (``work`` is ``None`` with no group).  ``x`` is a
+        fresh tensor that the all-reduce may overwrite."""
         if self.wire_dtype is not None and x.dtype != self.wire_dtype:
             xw = x.to(self.wire_dtype)
             resid = x - xw.to(x.dtype)       # before the in-place reduce
-            return pmean(xw, group).to(x.dtype), resid
-        return pmean(x, group), torch.zeros_like(x)
+            return xw, resid, start_pmean(xw, group)
+        return x, torch.zeros_like(x), start_pmean(x, group)
 
     def __repr__(self):
         return f"WireCast({_dtype_name(self.wire_dtype) if self.wire_dtype else None})"
@@ -431,6 +441,7 @@ class SyncPipeline(Compressor):
         n = self.num_phases()
         ph = int(phase) % max(n, 1)
         sharded = self.sync_mode == "sharded"
+        ready_ranks: tuple[int, ...] = ()
         if self.granularity == "leaf":
             sel = tuple(range(len(plan.leaf_shapes)))
             calls = tuple(self.wire.plan_leaf(i, plan.leaf_shapes[i],
@@ -445,6 +456,8 @@ class SyncPipeline(Compressor):
                 else self.wire.plan_bucket(plan, plan.buckets[b], world)
                 for b in sel
             )
+            ready = bk.build_ready_order(plan)
+            ready_ranks = tuple(ready.rank_of(b) for b in sel)
         return CommSchedule(
             compressor=self.name,
             phase=ph,
@@ -455,6 +468,7 @@ class SyncPipeline(Compressor):
             dense_bytes=dense_bytes(plan),
             world=world,
             plan=plan,
+            ready_ranks=ready_ranks,
             sync="sharded" if sharded else "allreduce",
             deferred_calls=(
                 self._plan_deferred_allgather(plan, world) if sharded else ()
@@ -525,10 +539,11 @@ class SyncPipeline(Compressor):
             return False
         return self._engage("use_pack_kernel", g)
 
-    def _ef_segment(self, g, r, coeff, *, selected: bool, group):
-        """One segment through EF ∘ filter-decision ∘ wire.  Returns
-        ``(synced, resid)``: the synced value (``None`` for an unselected
-        bucket) and the new residual (``None`` when EF is off)."""
+    def _start_segment(self, g, r, coeff, *, selected: bool, group):
+        """One segment through EF ∘ filter-decision, its all-reduce started.
+        Returns ``(buffer, resid, work)``: the buffer the mean lands in once
+        ``work`` has waited (``None`` for an unselected bucket) and the new
+        residual (``None`` when EF is off)."""
         if self._use_ef_kernel(g, r, coeff):
             from ..kernels.ef_covap import ef_update
 
@@ -537,16 +552,17 @@ class SyncPipeline(Compressor):
             )
             rnew = rnew.view(g.shape)
             if not selected:
-                return None, rnew
-            return pmean(send.view(g.shape), group), rnew
+                return None, rnew, None
+            buf = send.view(g.shape)
+            return buf, rnew, start_pmean(buf, group)
         if r is None:
             t = g.clone() if selected else g
         else:
             t = g + coeff * r.to(g.dtype)
         if not selected:
-            return None, (t if r is not None else None)
-        xm, resid = self.wire.execute_segment(t, group)
-        return xm, (resid if r is not None else None)
+            return None, (t if r is not None else None), None
+        buf, resid, work = self.wire.start_segment(t, group)
+        return buf, (resid if r is not None else None), work
 
     # ---- zero-copy arena and sharded sync ---------------------------------
     def layout(self, plan: BucketPlan, selected: tuple[int, ...] | None = None,
@@ -605,20 +621,78 @@ class SyncPipeline(Compressor):
             dst.copy_(flat.view(dst.shape))
         return dst
 
-    def _reduce_scatter_slot(self, view: torch.Tensor, group) -> torch.Tensor:
-        """One W-aligned slot view through the sharded collective: the
-        reduce-scatter (mean) writes this worker's shard at its owner offset
-        of an otherwise ZERO slot-sized vector, which is returned.  The
-        zeros are the sharded contract: the optimizer's updates off the
-        owned shard are overwritten by the next step's head all-gather.
-        The identity with no group."""
+    def _start_reduce_scatter_slot(self, view: torch.Tensor, group):
+        """Start one W-aligned slot view's sharded collective -> ``(full,
+        work)``: the reduce-scatter (mean) writes this worker's shard at its
+        owner offset of the otherwise ZERO slot-sized ``full``.  The zeros
+        are the sharded contract: the optimizer's updates off the owned
+        shard are overwritten by the next step's head all-gather.  ``(view,
+        None)`` with no group."""
         if group is None:
-            return view
+            return view, None
         S = view.numel() // world_size(group)
         full = torch.zeros_like(view)
         start = flat_axis_index(group) * S
-        reduce_scatter(view, group, out=full[start:start + S])
-        return full
+        return full, start_reduce_scatter(view, group, out=full[start:start + S])
+
+    def start_bucket(self, schedule: CommSchedule, b: int,
+                     g_slices: Sequence[torch.Tensor],
+                     r_slices: Sequence[torch.Tensor] | None = None, *,
+                     coeff=None, group=None, layout: ar.ArenaLayout | None = None,
+                     planes: Sequence[torch.Tensor] | None = None,
+                     r_out: Sequence[torch.Tensor] | None = None) -> "PendingBucket":
+        """The start of ONE segmented bucket's sync: EF on every segment,
+        the new residuals written, and the bucket's collective started
+        without waiting.
+
+        * per-segment form: the ``ef_update`` kernel (or the plain form)
+          and one all-reduce per segment;
+        * arena form (``use_arena``): the ``pack_ef_cast`` pass writes the
+          segments into the bucket's slot of ``planes`` (``layout``'s; a
+          one-bucket layout when ``None``), and one all-reduce runs in place
+          on the slot view;
+        * sharded form (``sync="sharded"``): as the arena form, with a
+          W-aligned slot and a reduce-scatter into the owner's shard.
+
+        ``r_out`` (arena forms) are the residual slices to write into;
+        otherwise the residuals are fresh tensors."""
+        if not getattr(self.wire, "segmented", False):
+            raise ValueError(f"{self.wire!r} is not a segmented wire: its buckets "
+                             "go through execute_bucket whole")
+        selected = b in schedule.selected
+        ef_on = r_slices is not None
+        rs = r_slices if ef_on else (None,) * len(g_slices)
+        sharded = schedule.sync == "sharded"
+        if not (sharded or self._arena_on()):
+            bufs, resids, works = [], [], []
+            for g, r in zip(g_slices, rs):
+                buf, rr, work = self._start_segment(g, r, coeff, selected=selected,
+                                                    group=group)
+                bufs.append(buf)
+                resids.append(rr)
+                works.append(work)
+            return PendingBucket(b, works, (lambda: bufs) if selected else None,
+                                 resids if ef_on else None)
+        if layout is None:
+            layout = self.layout(schedule.plan, (b,), wire_dtype=self.wire.wire_dtype,
+                                 align=world_size(group) if sharded else 1)
+            planes = layout.empty_planes(g_slices[0].device) if selected else None
+        outs = r_out if r_out is not None else (None,) * len(g_slices)
+        resids = [
+            self._pack_segment(g, r, coeff, selected=selected,
+                               wire_out=layout.segment_view(planes, b, si) if selected else None,
+                               r_out=ro)
+            for si, (g, r, ro) in enumerate(zip(g_slices, rs, outs))
+        ]
+        if not selected:
+            return PendingBucket(b, [], None, resids if ef_on else None)
+        view = layout.bucket_view(planes, b)
+        if sharded:
+            full, work = self._start_reduce_scatter_slot(view, group)
+        else:
+            full, work = view, start_pmean(view, group)
+        return PendingBucket(b, [work], lambda: layout.unpack_bucket(b, full),
+                             resids if ef_on else None)
 
     def execute_bucket(self, schedule: CommSchedule, b: int,
                        g_slices: Sequence[torch.Tensor],
@@ -629,9 +703,10 @@ class SyncPipeline(Compressor):
 
         Segmented wire: returns ``(synced_slices, resid_slices)``;
         ``synced_slices`` is ``None`` for an unselected bucket,
-        ``resid_slices`` is ``None`` without EF.  The per-segment form only:
-        the arena and sharded forms run over the whole tree
-        (:meth:`_execute_segmented_arena`).
+        ``resid_slices`` is ``None`` without EF: :meth:`start_bucket` in the
+        form the options pick (per-segment, arena or sharded, the last two
+        over a one-bucket slot), then the wait.  Under sharded sync a synced
+        slice holds the mean on this worker's shard and zeros elsewhere.
 
         Flat wire: ``g_slices`` are already compensated; returns
         ``(synced_slices, sent_slices)``, ``(None, None)`` for an unselected
@@ -645,95 +720,23 @@ class SyncPipeline(Compressor):
             synced_flat, sent_flat = self.wire.execute_bucket(
                 flat, key, group, use_kernel=self._engage("use_wire_kernel", flat))
             return _split_like(g_slices, synced_flat), _split_like(g_slices, sent_flat)
-        synced, resids = [], []
-        rs = r_slices if r_slices is not None else (None,) * len(g_slices)
-        for g, r in zip(g_slices, rs):
-            xm, rr = self._ef_segment(g, r, coeff, selected=selected, group=group)
-            synced.append(xm)
-            resids.append(rr)
-        return (
-            synced if selected else None,
-            resids if r_slices is not None else None,
-        )
-
-    @torch.no_grad()
-    def _execute_segmented_arena(self, schedule, grads, state, step, group):
-        """Arena form of :meth:`_execute_segmented`.  ONE pack pass writes
-        every selected bucket's compensated, wire-cast payload into its
-        static slot and every bucket's residual into the new residual leaf
-        (the ``pack_ef_cast`` kernel where it applies); each selected
-        bucket's collective runs in place on its slot view (a
-        reduce-scatter of the W-aligned slot under sharded sync); the
-        results go back to the leaves through static slices.  Unselected
-        buckets have no slot: their pack writes only the residual."""
-        plan = schedule.plan
-        ef_on = self.ef is not None and _state_present(state)
-        coeff = self.ef_coefficient(step) if ef_on else None
-        sel = dict.fromkeys(schedule.selected)
-        sharded = schedule.sync == "sharded"
-        layout = self.layout(plan, tuple(sel), wire_dtype=self.wire.wire_dtype,
-                             align=world_size(group) if sharded else 1)
-        planes = layout.empty_planes(grads[0].device)
-        resid = ar.empty_leaves(plan, grads) if ef_on else None
-
-        # ---- pack pass: one streaming traversal of the gradient ----------
-        for b in (range(plan.num_buckets) if ef_on else sel):
-            selected = b in sel
-            for si, seg in enumerate(plan.buckets[b].segments):
-                self._pack_segment(
-                    bk._slice_segment(grads[seg.leaf_idx], seg),
-                    bk._slice_segment(state[seg.leaf_idx], seg) if ef_on else None,
-                    coeff, selected=selected,
-                    wire_out=layout.segment_view(planes, b, si) if selected else None,
-                    r_out=bk._slice_segment(resid[seg.leaf_idx], seg) if ef_on else None,
-                )
-
-        # ---- wire pass: one collective per bucket, over a slot view -------
-        synced = {}
-        for b in sel:
-            view = layout.bucket_view(planes, b)
-            wired = (self._reduce_scatter_slot(view, group) if sharded
-                     else pmean(view, group))
-            synced[b] = layout.unpack_bucket(b, wired)
-
-        # ---- reassembly: one write per segment ---------------------------
-        out = ar.gather_leaves(
-            plan, lambda b, si, seg: synced[b][si] if b in synced else None, grads,
-        )
-        return out, (resid if ef_on else state)
+        pending = self.start_bucket(schedule, b, g_slices, r_slices, coeff=coeff,
+                                    group=group)
+        synced = pending.finish()
+        if synced is not None:
+            synced = [x.to(g.dtype) for x, g in zip(synced, g_slices)]
+        return synced, pending.resids
 
     @torch.no_grad()
     def _execute_segmented(self, schedule, grads, state, step, group):
-        """Per-segment slices of every bucket.  With EF on, every bucket
-        (selected or not) goes through :meth:`execute_bucket`, so the
-        residual update fuses with the compensation.  The arena and sharded
-        sync run :meth:`_execute_segmented_arena` instead."""
-        if self._arena_on() or schedule.sync == "sharded":
-            return self._execute_segmented_arena(schedule, grads, state, step, group)
-        plan = schedule.plan
-        ef_on = self.ef is not None and _state_present(state)
-        coeff = self.ef_coefficient(step) if ef_on else None
-        out = [torch.zeros_like(g) for g in grads]
-        resid = [torch.zeros_like(g) for g in grads] if ef_on else None
-
-        todo = range(plan.num_buckets) if ef_on else dict.fromkeys(schedule.selected)
-        for b in todo:
-            segs = plan.buckets[b].segments
-            g_slices = [bk._slice_segment(grads[s.leaf_idx], s) for s in segs]
-            r_slices = (
-                [bk._slice_segment(state[s.leaf_idx], s) for s in segs]
-                if ef_on else None
-            )
-            synced, resids = self.execute_bucket(
-                schedule, b, g_slices, r_slices, coeff=coeff, group=group,
-            )
-            if synced is not None:
-                for seg, xm in zip(segs, synced):
-                    bk._update_segment(out[seg.leaf_idx], seg, xm)
-            if resids is not None:
-                for seg, rr in zip(segs, resids):
-                    bk._update_segment(resid[seg.leaf_idx], seg, rr)
-        return out, (resid if ef_on else state)
+        """Every bucket through :class:`StepSync`, each started and finished
+        in turn (with EF on every bucket, selected or not, so the residual
+        update fuses with the compensation; without EF the selected ones)."""
+        sync = StepSync(self, schedule, grads, state, step=step, group=group)
+        for b in sync.todo():
+            sync.start(b, sync.grad_slices(b, grads))
+            sync.finish(b)
+        return sync.close()
 
     # ---- flat-bucket path (fp8wire, efsignsgd) ----------------------------
     @torch.no_grad()
@@ -813,3 +816,129 @@ class SyncPipeline(Compressor):
             else:
                 new_resid.append(torch.zeros_like(t) if qn is None else t - approx)
         return out, {"q": new_qs, "residual": new_resid}
+
+
+@dataclasses.dataclass
+class PendingBucket:
+    """One segmented bucket's sync, started (:meth:`SyncPipeline.start_bucket`).
+
+    ``resids`` are its new residual slices (``None`` without EF), already
+    written.  :meth:`finish` waits for its collectives and returns its synced
+    slices at the wire dtype, segment-shaped (``None`` for an unselected
+    bucket, which sends nothing)."""
+
+    b: int
+    works: list
+    synced: Callable[[], list] | None
+    resids: list | None
+
+    def finish(self) -> list | None:
+        for work in self.works:
+            if work is not None:
+                work.wait()
+        self.works = []
+        return self.synced() if self.synced is not None else None
+
+
+class StepSync:
+    """One step's sync of a segmented pipeline, one bucket at a time.
+
+    :meth:`start` runs bucket ``b``'s EF (the ``ef_update`` kernel, or the
+    ``pack_ef_cast`` kernel writing into the bucket's slot of the step's
+    arena planes in the arena and sharded forms), writes its new residual
+    and starts its collective; :meth:`finish` waits for it and writes its
+    synced values into the output leaves; :meth:`close` zeros every segment
+    no selected bucket wrote and returns ``(synced leaves, new state)``.
+    The post path finishes each bucket right after its start; the fused
+    overlap starts them inside the backward pass, in the order their
+    gradients land, and finishes them all after it.  Either way each
+    bucket runs the same operations on the same values.
+
+    ``like`` gives the gradients' shapes and dtypes; ``events`` records
+    ``("start", b)`` and ``("wait", b)`` in the order they happen."""
+
+    def __init__(self, pipeline: SyncPipeline, schedule: CommSchedule,
+                 like: Sequence[torch.Tensor], state, *, step: int, group):
+        self.pipeline, self.schedule, self.group = pipeline, schedule, group
+        self.plan = plan = schedule.plan
+        self.state = state
+        self.ef_on = pipeline.ef is not None and _state_present(state)
+        self.coeff = pipeline.ef_coefficient(step) if self.ef_on else None
+        self.selected = dict.fromkeys(schedule.selected)
+        sharded = schedule.sync == "sharded"
+        self.arena = sharded or pipeline._arena_on()
+        self.layout = (pipeline.layout(plan, tuple(self.selected),
+                                       wire_dtype=pipeline.wire.wire_dtype,
+                                       align=world_size(group) if sharded else 1)
+                       if self.arena else None)
+        # allocated at the first start (planes, residuals) and the first
+        # finish (outputs): under the fused overlap, not before the forward
+        self.like = like
+        self.planes = self.out = self.resid = None
+        self.pending: dict[int, PendingBucket] = {}
+        self.started: list[int] = []
+        self.written: set[int] = set()
+        self.events: list[tuple[str, int]] = []
+
+    def _outputs(self) -> None:
+        if self.out is None:
+            self.out = ar.empty_leaves(self.plan, self.like)
+
+    def todo(self) -> tuple[int, ...]:
+        """The buckets to start: every bucket with EF on, else the selected."""
+        return tuple(range(self.plan.num_buckets)) if self.ef_on else tuple(self.selected)
+
+    def grad_slices(self, b: int, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        return [bk._slice_segment(grads[s.leaf_idx], s)
+                for s in self.plan.buckets[b].segments]
+
+    @torch.no_grad()
+    def start(self, b: int, g_slices: Sequence[torch.Tensor]) -> None:
+        if not self.started:
+            if self.arena:
+                self.planes = self.layout.empty_planes(self.like[0].device)
+            if self.ef_on:
+                self.resid = ar.empty_leaves(self.plan, self.like)
+        segs = self.plan.buckets[b].segments
+        r_slices = r_out = None
+        if self.ef_on:
+            r_slices = [bk._slice_segment(self.state[s.leaf_idx], s) for s in segs]
+            if self.arena:
+                r_out = [bk._slice_segment(self.resid[s.leaf_idx], s) for s in segs]
+        pending = self.pipeline.start_bucket(
+            self.schedule, b, g_slices, r_slices, coeff=self.coeff, group=self.group,
+            layout=self.layout, planes=self.planes, r_out=r_out)
+        if self.ef_on and not self.arena:
+            for seg, rr in zip(segs, pending.resids):
+                bk._update_segment(self.resid[seg.leaf_idx], seg, rr)
+        pending.resids = None               # written into the residual leaves
+        self.pending[b] = pending
+        self.started.append(b)
+        self.events.append(("start", b))
+
+    @torch.no_grad()
+    def finish(self, b: int) -> None:
+        pending = self.pending.pop(b)
+        self.events.append(("wait", b))
+        synced = pending.finish()
+        if synced is None:
+            return
+        self._outputs()
+        for seg, x in zip(self.plan.buckets[b].segments, synced):
+            bk._update_segment(self.out[seg.leaf_idx], seg, x)
+        self.written.add(b)
+
+    @torch.no_grad()
+    def close(self):
+        if self.pending:
+            raise RuntimeError(f"buckets {sorted(self.pending)} were started and "
+                               "never finished")
+        missing = sorted(set(self.todo()) - set(self.started))
+        if missing:
+            raise RuntimeError(f"buckets {missing} were never started")
+        self._outputs()
+        for b, bucket in enumerate(self.plan.buckets):
+            if b not in self.written:
+                for seg in bucket.segments:
+                    bk._slice_segment(self.out[seg.leaf_idx], seg).zero_()
+        return self.out, (self.resid if self.ef_on else self.state)

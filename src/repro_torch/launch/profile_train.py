@@ -1,6 +1,6 @@
 """Where a training step's time goes on the GPU, from a ``torch.profiler``
 trace of ``Trainer.run`` on the ``TrainConfig()`` defaults (or another
-``--compressor``).
+``--compressor``, or ``--overlap fused``, ``--arena``, ``--sync sharded``).
 
     python -m repro_torch.launch.profile_train --arch gpt2-paper \
         --seq-len 1024 --global-batch 8 --warmup 3 --steps 4 \
@@ -79,6 +79,9 @@ def main(argv=None):
     ap.add_argument("--compressor", default="covap",
                     choices=["covap", "none", "fp16", "fp8wire", "efsignsgd",
                              "powersgd"])
+    ap.add_argument("--overlap", default="post", choices=["post", "fused"])
+    ap.add_argument("--arena", action="store_true")
+    ap.add_argument("--sync", default="allreduce", choices=["allreduce", "sharded"])
     ap.add_argument("--seq-len", type=int, default=1024)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=3)
@@ -100,7 +103,8 @@ def main(argv=None):
     total_steps = args.warmup + args.steps
     model = build_model(cfg, device="cuda", seed=0)
     tr = Trainer(model, adamw(cosine_warmup(1.5e-4, total_steps // 10 + 1, total_steps)),
-                 TrainConfig(compressor=args.compressor, steps=total_steps))
+                 TrainConfig(compressor=args.compressor, steps=total_steps,
+                             overlap=args.overlap, arena=args.arena, sync=args.sync))
     it = iter(make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                                      global_batch=args.global_batch), device="cuda"))
     state = tr.run(tr.init_state(), it, steps=args.warmup, log=None)
@@ -128,7 +132,8 @@ def main(argv=None):
     n = args.steps
     kernel_ms = sum(by_group.values()) / 1e3 / n
     busy = busy_us(spans) / 1e3 / n
-    print(f"[profile] {smi} | {cfg.name} {args.compressor} seq {args.seq_len} x batch "
+    print(f"[profile] {smi} | {cfg.name} {args.compressor} {args.overlap} "
+          f"arena={'on' if args.arena else 'off'} {args.sync} seq {args.seq_len} x batch "
           f"{args.global_batch}, {n} steps after {args.warmup}: wall "
           f"{wall_ms / n:.3f} ms/step, device busy {busy:.3f} ms/step "
           f"({100 * busy / (wall_ms / n):.1f}% of wall, idle "

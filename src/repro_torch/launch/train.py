@@ -1,14 +1,18 @@
 """End-to-end training driver of the port (one worker).
 
     python -m repro_torch.launch.train --arch gpt2-paper --reduced \
-        --interval 4 --steps 20 --seq-len 128 --global-batch 8 --device cpu
+        --interval auto --steps 20 --seq-len 128 --global-batch 8 --device cpu
 
-Prints the same ``[plan]``, ``[schedule]``, ``[model]``, per-step loss and
-``[done]`` lines as ``repro.launch.train``.  ``--compressor`` picks covap,
+Prints the same ``[ccr]`` (with ``--interval auto``, the default),
+``[plan]``, ``[schedule]``, ``[model]``, per-step loss and ``[done]`` lines
+as ``repro.launch.train``.  ``--interval auto`` is the paper's ``I =
+ceil(CCR)`` from the analytic CCR of a ``--dp-workers``-worker run on the
+paper's environment (V100 + 30 Gbps Ethernet).  ``--compressor`` picks covap,
 none, fp16, fp8wire, efsignsgd or powersgd (rank 2; like the reference's
 CLI this one has no rank flag), ``--arena`` the zero-copy arena and
-``--sync sharded`` the reduce-scatter + deferred all-gather decomposition.  Runs on the GPU unless
-``--device cpu`` is given.  ``--interval auto`` is not ported and raises.
+``--sync sharded`` the reduce-scatter + deferred all-gather decomposition,
+``--overlap fused`` each bucket's collective started inside the backward
+pass.  Runs on the GPU unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import time
 
 import torch
 
+from ..api import resolve_interval
 from ..configs import get_config, get_reduced
 from ..data import DataConfig, make_loader
 from ..models import build_model
@@ -24,13 +29,17 @@ from ..optim import adamw, cosine_warmup, sgd
 from ..train.trainer import TrainConfig, Trainer
 
 
-def parse_interval(value: str) -> int:
-    if value == "auto":
-        raise NotImplementedError(
-            "--interval auto needs the analytic CCR, which is not ported; "
-            "pass an integer"
-        )
-    return int(value)
+def pick_interval(args, cfg) -> int:
+    """``api.resolve_interval``: ``I = ceil(analytic_ccr)`` for ``auto``,
+    modelled on the paper's environment for a ``--dp-workers`` run."""
+    choice = resolve_interval(
+        args.interval if args.interval == "auto" else int(args.interval), cfg,
+        global_batch=args.global_batch, seq_len=args.seq_len,
+        dp_world=max(args.dp_workers, 1),
+    )
+    if choice.auto:
+        print(f"[ccr] analytic CCR={choice.ccr:.2f} -> interval I={choice.interval}")
+    return choice.interval
 
 
 def main(argv=None):
@@ -41,10 +50,12 @@ def main(argv=None):
     ap.add_argument("--compressor", default="covap",
                     choices=["covap", "none", "fp16", "fp8wire", "efsignsgd",
                              "powersgd"])
-    ap.add_argument("--interval", default="4")
+    ap.add_argument("--interval", default="auto")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--dp-workers", type=int, default=8,
+                    help="modelled DP world size for CCR selection")
     ap.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     ap.add_argument("--lr", type=float, default=1.5e-4)
     ap.add_argument("--log-every", type=int, default=10)
@@ -56,12 +67,15 @@ def main(argv=None):
                     help="collective decomposition: all-reduce per bucket "
                          "(default) or reduce-scatter + deferred param "
                          "all-gather at the next step's head")
+    ap.add_argument("--overlap", default="post", choices=["post", "fused"],
+                    help="gradient-sync placement: after the backward pass "
+                         "(default) or each bucket started inside it")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    interval = parse_interval(args.interval)
+    interval = pick_interval(args, cfg)
     model = build_model(cfg, device=args.device, seed=args.seed)
     if args.optimizer == "adam":
         opt = adamw(cosine_warmup(args.lr, args.steps // 10 + 1, args.steps))
@@ -70,7 +84,7 @@ def main(argv=None):
 
     tc = TrainConfig(compressor=args.compressor, interval=interval,
                      log_every=args.log_every, steps=args.steps,
-                     arena=args.arena, sync=args.sync)
+                     arena=args.arena, sync=args.sync, overlap=args.overlap)
     tr = Trainer(model, opt, tc)
     print(f"[plan] {tr.plan.num_buckets} buckets, "
           f"target {tr.plan.bucket_bytes_target/1e6:.1f} MB, "

@@ -2,6 +2,7 @@
 from .model import (
     DecoderLM,
     build_model,
+    count_params,
     padded_vocab,
     param_shapes,
 )
@@ -9,6 +10,7 @@ from .model import (
 __all__ = [
     "DecoderLM",
     "build_model",
+    "count_params",
     "padded_vocab",
     "param_shapes",
 ]

@@ -37,6 +37,12 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     return dict(sorted(shapes.items(), key=lambda kv: kv[0].split(".")))
 
 
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """The parameter count of ``cfg`` (the dense family: every parameter is
+    active, so ``active_only`` changes nothing)."""
+    return sum(math.prod(s) for s in param_shapes(cfg).values())
+
+
 def _nest(flat: dict[str, nn.Parameter]) -> nn.Module:
     """Nested ``ModuleDict``/``ParameterDict`` containers for dotted paths."""
     groups: dict[str, dict[str, nn.Parameter]] = {}
@@ -114,17 +120,24 @@ class DecoderLM(nn.Module):
                 v = truncated_normal_init(p.shape, p.dtype, gen, device=dev)
             p.copy_(v)
 
-    def loss_fn(self, batch: dict[str, torch.Tensor], before_layer=None):
+    def loss_fn(self, batch: dict[str, torch.Tensor], before_layer=None,
+                params: dict | None = None):
         """-> (total_loss, {"loss", "aux_loss"}), as the reference's
         ``loss_fn`` returns them (the dense family has no aux loss).
         ``before_layer`` goes to :func:`transformer.stack_train`: it is
-        called before each layer and before the final norm and head."""
+        called before each layer and before the final norm and head.
+        ``params`` replaces the module's parameters: a nested dict by path
+        (``core.overlap.install_hooks``) whose leaves :mod:`.transformer` describes; a
+        deferred leaf is assembled where the forward pass first reads it."""
         cfg = self.cfg
         cd = getattr(torch, cfg.compute_dtype)
-        x = embed(self.embed["table"], batch["tokens"], cd)
+        tree = params if params is not None else {
+            "embed": self.embed, "stack": self.stack, "head": self.head}
+        x = embed(transformer.resolve(tree["embed"]["table"], cd), batch["tokens"], cd)
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=x.device)
-        x = transformer.stack_train(self.stack, x, cfg, before_layer)
-        loss = _xent_chunked(self.head["w"], x, batch["labels"], cfg)
+        x = transformer.stack_train(tree["stack"], x, cfg, before_layer)
+        loss = _xent_chunked(transformer.resolve(tree["head"]["w"], cd), x,
+                             batch["labels"], cfg)
         aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"loss": loss, "aux_loss": aux}
 

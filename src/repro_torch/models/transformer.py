@@ -2,6 +2,12 @@
 leading ``(num_layers,)`` axis and consumed by a loop over the layer index
 (the reference scans over the same stacked leaves).  ``cfg.remat`` wraps
 each layer in ``torch.utils.checkpoint``, which changes memory, not values.
+
+The parameters come as a nested container whose leaves are tensors, as the
+module holds them, or as a replacement tree (``core.overlap.install_hooks``):
+a stacked leaf may be a sequence of per-row tensors, and any leaf or row may
+be *deferred*, a zero-argument callable that assembles it when it is first
+read (:func:`resolve`).
 """
 from __future__ import annotations
 
@@ -30,11 +36,22 @@ def stack_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
     }
 
 
+def resolve(x, dtype=None):
+    """A parameter as a tensor: a deferred one is assembled now.  With a
+    ``dtype``, a deferred parameter is assembled from pieces cast to it
+    (the same values as casting the whole); a tensor is returned as it is,
+    for the caller to cast."""
+    if callable(x):
+        return x(dtype)
+    return x
+
+
 def _layer(tree, i: int):
-    """Row ``i`` of every stacked leaf of a nested parameter container."""
-    if isinstance(tree, torch.Tensor):
-        return tree[i]
-    return {k: _layer(v, i) for k, v in tree.items()}
+    """Row ``i`` of every stacked leaf of a nested parameter container: of
+    a stacked tensor or of a sequence of per-row tensors."""
+    if hasattr(tree, "items"):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return resolve(tree[i])
 
 
 def _attn_block_train(p, x, cfg):
@@ -47,19 +64,22 @@ def _attn_block_train(p, x, cfg):
 def stack_train(params, x: torch.Tensor, cfg, before_layer=None) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  ``before_layer(i)``, when given, is
     called before layer ``i`` reads its rows, and once more with ``i =
-    num_layers`` before the final norm; it runs outside the checkpointed
-    layer, so the backward pass's recompute does not call it again."""
+    num_layers`` before the final norm.  It and the read of the layer's
+    rows run outside the checkpointed layer, so the backward pass's
+    recompute repeats neither."""
     blocks = params["blocks"]["b0"]
     for i in range(cfg.num_layers):
         if before_layer is not None:
             before_layer(i)
+        p = _layer(blocks, i)
         if cfg.remat:
             x = checkpoint(
-                lambda x_, i_=i: _attn_block_train(_layer(blocks, i_), x_, cfg),
+                lambda x_, p_=p: _attn_block_train(p_, x_, cfg),
                 x, use_reentrant=False,
             )
         else:
-            x = _attn_block_train(_layer(blocks, i), x, cfg)
+            x = _attn_block_train(p, x, cfg)
     if before_layer is not None:
         before_layer(cfg.num_layers)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    final_norm = {k: resolve(v) for k, v in params["final_norm"].items()}
+    return rmsnorm(final_norm, x, cfg.norm_eps)

@@ -1,6 +1,7 @@
 from .trainer import (
     TrainConfig,
     Trainer,
+    build_overlapped_step,
     build_step_fn,
     loss_and_grads,
     make_compressor,
@@ -10,6 +11,7 @@ from .trainer import (
 __all__ = [
     "TrainConfig",
     "Trainer",
+    "build_overlapped_step",
     "build_step_fn",
     "loss_and_grads",
     "make_compressor",

@@ -1,11 +1,13 @@
 """Data-parallel trainer: COVAP wired into the gradient synchronisation of a
-``torch.distributed`` data-parallel step (the post path of
-``repro.train.trainer``).
+``torch.distributed`` data-parallel step (``repro.train.trainer`` without
+hierarchical pods).
 
 * One step function per ``phase = step % I``: each phase's
   ``CommSchedule`` is planned when the step function is built, before any
   gradient exists, and ``Compressor.execute`` consumes it after the
-  backward pass (``overlap="post"``).
+  backward pass (``overlap="post"``), or each bucket's hook starts its
+  collective inside the backward pass (``overlap="fused"``,
+  ``core.overlap``; segmented bucket pipelines: covap, none, fp16).
 * Gradients come from ``loss.backward()``; every worker holds its own
   un-reduced gradients, and the compressor decides exactly which bytes
   cross the process group (one ``all_reduce`` per selected segment, or
@@ -21,8 +23,9 @@
   before the first layer that reads it (once more, blocking, in
   :meth:`Trainer.flush_sync` when ``run`` ends).
 
-Not ported yet (they raise): ``overlap="fused"``, hierarchical pods,
-``interval="auto"``.
+``TrainConfig.interval`` is an integer, as in the reference: callers
+resolve ``"auto"`` first (``repro_torch.api.resolve_interval``, which
+``api.fit`` and the CLI call).  Hierarchical pods are not ported.
 """
 from __future__ import annotations
 
@@ -40,7 +43,9 @@ from ..core.overlap import (
     EMBED_STAGE,
     bucket_first_use,
     issue_param_allgather,
+    overlapped_loss_and_grads,
     sharded_param_allgather,
+    supports_fused_overlap,
 )
 from ..core.schedule import CommSchedule, mean_bytes_per_step
 from ..optim import Optimizer, apply_updates, clip_by_global_norm, global_norm
@@ -56,7 +61,9 @@ class TrainConfig:
     clip_norm: float = 0.0                 # 0 = off
     steps: int = 100
     log_every: int = 10
-    overlap: str = "post"                  # only "post" is ported
+    # "post": sync after the backward pass; "fused": each bucket's
+    # collective starts inside it (core/overlap.py)
+    overlap: str = "post"
     # zero-copy gradient arena (core/arena.py): bucket payloads are static
     # slot views of flat per-phase planes, packed by one fused pass
     arena: bool = False
@@ -66,15 +73,15 @@ class TrainConfig:
     sync: str = "allreduce"
 
     def __post_init__(self):
-        if self.interval == "auto":
-            raise NotImplementedError(
-                "interval='auto' needs the analytic CCR, which is not ported; "
-                "pass an integer interval"
+        if isinstance(self.interval, str):
+            raise ValueError(
+                f"TrainConfig.interval is an integer; resolve {self.interval!r} "
+                "first with repro_torch.api.resolve_interval (api.fit and the "
+                "CLI do)"
             )
-        if self.overlap != "post":
-            raise NotImplementedError(
-                f"overlap={self.overlap!r} is not ported; only 'post' is"
-            )
+        if self.overlap not in ("post", "fused"):
+            raise ValueError(
+                f"overlap must be 'post' or 'fused', got {self.overlap!r}")
 
 
 def make_compressor(tc: TrainConfig) -> Compressor:
@@ -132,9 +139,9 @@ def _sharded_grad_norm(synced: list[torch.Tensor], group) -> torch.Tensor:
 def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
                   plan: BucketPlan, *, phase: int, group=None,
                   clip_norm: float = 0.0) -> Callable:
-    """The per-phase step: :func:`loss_and_grads`, ``compressor.execute`` on
-    this phase's static schedule, optional global-norm clip, optimizer update
-    in place.
+    """The per-phase post step: :func:`loss_and_grads`, ``compressor.execute``
+    on this phase's static schedule, optional global-norm clip, optimizer
+    update in place.
 
     Sharded sync with a group: every step begins by starting the deferred
     param all-gather of the previous step (``overlap.issue_param_allgather``,
@@ -151,17 +158,45 @@ def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
     builds it, and its ``params`` are the model's parameters.
     ``step_fn.update(state, grads) -> (state, grad_norm)`` is the part after
     the backward pass, for callers that hold gradients already."""
+    return _build_phase_step(model, optimizer, compressor, plan, phase=phase,
+                             group=group, clip_norm=clip_norm, fused=False)
+
+
+def build_overlapped_step(model, optimizer: Optimizer, compressor: Compressor,
+                          plan: BucketPlan, *, phase: int, group=None,
+                          clip_norm: float = 0.0) -> Callable:
+    """The fused per-phase step (``TrainConfig(overlap="fused")``): the
+    contract of :func:`build_step_fn`, with each bucket's collective started
+    inside the backward pass by its hook (``core.overlap``) and waited for
+    after it.  The same values as the post step, given the same gradients.
+    Under sharded sync the head all-gathers start before the hooks are
+    installed.  ``step_fn.fired`` and ``step_fn.hook_streams`` hold the
+    order the last step's hooks fired in, and the stream current at their
+    install beside the CUDA stream each ran on."""
+    _require_fused(compressor)
+    return _build_phase_step(model, optimizer, compressor, plan, phase=phase,
+                             group=group, clip_norm=clip_norm, fused=True)
+
+
+def _require_fused(compressor) -> None:
+    if not supports_fused_overlap(compressor):
+        raise ValueError(
+            f"overlap='fused' requires a segmented bucket pipeline (covap / none "
+            f"/ fp16); {compressor!r} must use overlap='post'")
+
+
+def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
+                      clip_norm, fused) -> Callable:
+    """The skeleton both steps share; only the gradient and sync block
+    differs."""
     comm_schedule = compressor.plan_phase(plan, phase, world=world_size(group))
     sharded = (getattr(compressor, "sync_mode", "allreduce") == "sharded"
                and group is not None)
     first_use = (bucket_first_use(plan, model.cfg.num_layers) if sharded
                  else None)
 
-    def update(state, grads):
+    def apply(state, synced, comp_state):
         params = state["params"]
-        synced, comp_state, _ = compressor.execute(
-            comm_schedule, grads, state["comp"], step=state["step"], group=group,
-        )
         if sharded:
             gnorm = _sharded_grad_norm(synced, group)
             if clip_norm > 0:
@@ -177,6 +212,12 @@ def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
                      "step": state["step"] + 1}
         return new_state, gnorm
 
+    def update(state, grads):
+        synced, comp_state, _ = compressor.execute(
+            comm_schedule, grads, state["comp"], step=state["step"], group=group,
+        )
+        return apply(state, synced, comp_state)
+
     def step_fn(state, batch):
         before_layer = None
         if sharded:
@@ -186,18 +227,30 @@ def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
             gather.settle_through(EMBED_STAGE)
             before_layer = gather.before_layer
             step_fn.gather_events = gather.events
-        grads, metrics = loss_and_grads(model, state["params"], batch, group,
-                                        before_layer=before_layer)
+        if fused:
+            loss, metrics, synced, comp_state, _, hooks = overlapped_loss_and_grads(
+                model, compressor, comm_schedule, state["params"], state["comp"],
+                batch, state["step"], group=group, before_layer=before_layer)
+            metrics["total_loss"] = loss
+            metrics = _pmean_metrics(metrics, group)
+            step_fn.fired = hooks.fired
+            step_fn.hook_streams = (hooks.forward_stream, hooks.streams)
+        else:
+            grads, metrics = loss_and_grads(model, state["params"], batch, group,
+                                            before_layer=before_layer)
         if sharded and gather.pending:
             raise RuntimeError(
                 f"sharded sync: buckets {sorted(gather.pending)} were never "
                 "waited for: the model did not call before_layer for every "
                 "stage")
-        new_state, metrics["grad_norm"] = update(state, grads)
+        new_state, metrics["grad_norm"] = (apply(state, synced, comp_state) if fused
+                                           else update(state, grads))
         return new_state, metrics
 
     step_fn.comm_schedule = comm_schedule
     step_fn.gather_events = []
+    step_fn.fired = []
+    step_fn.hook_streams = (None, [])
     step_fn.update = update
     return step_fn
 
@@ -236,6 +289,9 @@ class Trainer:
         self.history: list[dict] = []
         self._pending_sync = False
         self.gather_events: list[tuple[str, int]] = []
+        self.last_step_fn: Callable | None = None
+        if tc.overlap == "fused":
+            _require_fused(self.compressor)
 
     @property
     def num_phases(self) -> int:
@@ -276,7 +332,9 @@ class Trainer:
 
     def _phase_fn(self, phase: int) -> Callable:
         if phase not in self._steps:
-            self._steps[phase] = build_step_fn(
+            build = (build_overlapped_step if self.tc.overlap == "fused"
+                     else build_step_fn)
+            self._steps[phase] = build(
                 self.model, self.optimizer, self.compressor, self.plan,
                 phase=phase, group=self.group, clip_norm=self.tc.clip_norm,
             )
@@ -325,10 +383,12 @@ class Trainer:
     def step(self, state: dict, batch: dict) -> tuple[dict, dict]:
         """One training step of the phase ``state["step"] % num_phases``;
         ``gather_events`` then holds its head all-gather's events (sharded
-        sync with a group; empty otherwise)."""
+        sync with a group; empty otherwise), and ``last_step_fn`` the step
+        function that ran (with the fused overlap's records of the step)."""
         fn = self._phase_fn(state["step"] % self.num_phases)
         out = fn(state, batch)
         self.gather_events = fn.gather_events
+        self.last_step_fn = fn
         return out
 
     def run(self, state: dict, batches: Iterable[dict], steps: int | None = None,

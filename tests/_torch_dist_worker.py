@@ -8,7 +8,10 @@ without JAX.  Each rank trains the REDUCED gpt2-paper once per entry of
 reference's data axis makes), in one gloo group.  It writes every run's
 losses, grad norms, params, EF residuals and params-shaped optimizer state
 (SGD's ``mu``, Adam's ``m`` and ``v``; after ``run``'s flush) to
-``<out_prefix><rank>.npz`` under ``<name>/...`` keys.  A run whose
+``<out_prefix><rank>.npz`` under ``<name>/...`` keys, and the last step's
+head all-gather events (sharded sync) under ``trace/<name>/gather_events``
+and the order its hooks fired in (``overlap="fused"``) under
+``trace/<name>/fired``.  A run whose
 compressor state is PowerSGD's (``{"q", "residual"}``) starts from the Q in
 ``init_comp_npz`` (``<name>/q:<leaf index>`` keys) and writes its residuals
 and Q under ``<name>/resid:<leaf index>`` and ``<name>/q:<leaf index>``.
@@ -63,6 +66,9 @@ def train_worker(rank, world, init_file, init_npz, out_prefix, runs, data_kw,
             state = tr.run(state, batches, steps=steps, log=None)
             out[f"{name}/losses"] = np.array([h["loss"] for h in tr.history])
             out[f"{name}/grad_norm"] = np.array([h["grad_norm"] for h in tr.history])
+            out[f"trace/{name}/gather_events"] = np.array(
+                [(EVENT_KINDS.index(k), i) for k, i in tr.gather_events], np.int64)
+            out[f"trace/{name}/fired"] = np.array(tr.last_step_fn.fired, np.int64)
             parts = {"params": state["params"]}
             if leaf_state:
                 for part, key in (("resid", "residual"), ("q", "q")):

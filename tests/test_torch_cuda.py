@@ -329,3 +329,45 @@ def test_threshold_filter_kernel_matches_plain_version(n, offset, threshold, blo
     if threshold == 0.0:
         assert int(c.sum()) == n - 1 and int(c[-1]) == n - (c.numel() - 1) * block
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options,kernel", [({}, "ef_update"),
+                                            ({"arena": True}, "pack_ef_cast"),
+                                            ({"sync": "sharded"}, "pack_ef_cast")],
+                         ids=["defaults", "arena", "sharded"])
+def test_fused_step_on_cuda_equals_post_step(options, kernel):
+    """Two REDUCED steps on the card with ``overlap="fused"`` and with
+    ``"post"`` from the same parameters and batches: params, momenta and
+    residuals equal (``torch.equal``); each run launches its EF kernel once
+    a segment a step; every hook's backward ran on the stream the forward
+    pass ran on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, make_loader
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.train import TrainConfig, Trainer
+
+    counter = {"ef_update": ef_update, "pack_ef_cast": pack_ef_cast}[kernel]
+    cfg = get_reduced("gpt2-paper")
+    out = {}
+    for overlap in ("post", "fused"):
+        model = build_model(cfg, device="cuda", seed=0)
+        tr = Trainer(model, sgd(1e-2, momentum=0.9),
+                     TrainConfig(overlap=overlap, bucket_bytes=1 << 13, max_buckets=64,
+                                 steps=2, log_every=1, **options))
+        loader = make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                        global_batch=4, corpus_tokens=1 << 14),
+                             device="cuda")
+        before = counter.launches
+        state = tr.run(tr.init_state(), loader, log=None)
+        torch.cuda.synchronize()
+        assert counter.launches - before == 2 * tr.plan.num_segments
+        out[overlap] = state["params"] + state["opt"]["mu"] + state["comp"]
+        if overlap == "fused":
+            fwd, streams = tr.last_step_fn.hook_streams
+            assert streams and all(s == fwd for s in streams)
+    for a, b in zip(out["post"], out["fused"]):
+        assert torch.equal(a, b)

@@ -6,8 +6,10 @@ The reference runs its ``arena=False``, ``sync="allreduce"`` post path,
 with an f32 wire, a bf16 wire and a binding global-norm clip, its
 flat-bucket path with the FP8 wire (``fp8wire``) and EFsignSGD, and its
 leaf-granularity path (PowerSGD, from the same starting Q).  The port
-runs those paths, its sharded forms (per-segment and arena) and the flat
-wires' arena form against them.
+runs those paths, its sharded forms (per-segment and arena), the flat
+wires' arena form and the fused overlap (allreduce, arena, sharded and
+sharded + arena) against them; each fused run also equals the port's post
+run of the same form bit for bit.
 
 Both sides sum the two workers' gradients in their own order (gloo's is not
 XLA's), so the comparison is allclose at the single-process SGD bound; the
@@ -57,7 +59,15 @@ PORT_RUNS = {
     "efsignsgd": SIGN,
     "efsignsgd-arena": dict(SIGN, arena=True),
     "powersgd": POWERSGD,
+    "fused": dict(TC, overlap="fused"),
+    "arena": dict(TC, arena=True),
+    "fused-arena": dict(TC, overlap="fused", arena=True),
+    "fused-sharded": dict(TC, overlap="fused", sync="sharded"),
+    "fused-sharded-arena": dict(TC, overlap="fused", sync="sharded", arena=True),
 }
+# each fused run and the post run of its form
+FUSED_RUNS = {"fused": "allreduce", "fused-arena": "arena",
+              "fused-sharded": "sharded", "fused-sharded-arena": "sharded-arena"}
 
 REFERENCE = """
 import jax, numpy as np
@@ -274,6 +284,31 @@ def test_two_worker_gloo_flat_wires_match_reference_cpu_mesh(runs, run):
             np.testing.assert_array_equal(v, ranks[1][f"{run}/{part}:{key}"])
     assert any(not np.array_equal(v, ranks[1][f"{run}/resid:{key}"])
                for key, v in _part(run, ranks[0], "resid").items())
+
+
+@pytest.mark.parametrize("run", sorted(FUSED_RUNS))
+def test_two_worker_gloo_fused_overlap_matches_post_and_reference(runs, run):
+    """Each fused form at W=2 (every bucket's collective started inside the
+    backward pass, waited for after it): bit for bit the port's post run
+    of the same form on each rank (losses, grad norms, params, momenta,
+    residuals, the sharded head gather's events), and held against the
+    reference's allreduce run as the post forms are.  The hooks fired in
+    the same order on both ranks."""
+    ref, ranks = runs
+    post = FUSED_RUNS[run]
+    for got in ranks:
+        keys = [k for k in got if k.startswith(post + "/")]
+        assert len(keys) > 3
+        for key in keys + [f"trace/{post}/gather_events"]:
+            np.testing.assert_array_equal(got[key.replace(post, run, 1)], got[key],
+                                          err_msg=key)
+        fired = got[f"trace/{run}/fired"].tolist()
+        assert len(fired) == len(set(fired)) > 8
+        assert len(got[f"trace/{post}/fired"]) == 0
+        assert (len(got[f"trace/{run}/gather_events"]) > 0) == ("sharded" in run)
+    np.testing.assert_array_equal(ranks[0][f"trace/{run}/fired"],
+                                  ranks[1][f"trace/{run}/fired"])
+    _assert_matches_reference(ranks, ref, run, "allreduce")
 
 
 def test_two_worker_gloo_powersgd_matches_reference_cpu_mesh(runs):

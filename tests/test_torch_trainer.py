@@ -244,16 +244,20 @@ def test_cosine_warmup_matches_reference(step):
 
 
 def test_unported_train_options_raise():
-    """``arena=True`` and ``sync="sharded"`` are ported and accepted;
-    ``overlap="fused"``, ``interval="auto"`` and ``topk`` still raise."""
+    """``arena=True``, ``sync="sharded"`` and ``overlap="fused"`` are ported
+    and accepted.  ``TrainConfig.interval`` stays an integer, as in the
+    reference: ``interval="auto"`` raises and points to
+    ``api.resolve_interval``, which resolves it (``api.fit`` and the CLI
+    call it first).  An unknown overlap and ``topk`` still raise."""
     from repro_torch.train.trainer import make_compressor
 
-    tc = TrainConfig(arena=True, sync="sharded")
+    tc = TrainConfig(arena=True, sync="sharded", overlap="fused")
     comp = make_compressor(tc)
-    assert comp._arena_on() and comp.sync_mode == "sharded"
-    for kw in ({"overlap": "fused"}, {"interval": "auto"}):
-        with pytest.raises(NotImplementedError):
-            TrainConfig(**kw)
+    assert comp._arena_on() and comp.sync_mode == "sharded" and tc.overlap == "fused"
+    with pytest.raises(ValueError, match="resolve_interval"):
+        TrainConfig(interval="auto")
+    with pytest.raises(ValueError, match="overlap"):
+        TrainConfig(overlap="inline")
     with pytest.raises(KeyError):
         make_compressor(TrainConfig(compressor="topk"))
 
@@ -306,13 +310,23 @@ def test_cli_runs_flat_wires_on_cpu(compressor):
 
 
 def test_cli_interval_auto_raises():
+    """``--interval auto`` no longer raises: it resolves the paper's ``I =
+    ceil(CCR)`` as the reference's CLI does and prints its ``[ccr]`` line
+    (the same interval as ``repro.launch.train``: 64 at REDUCED with the
+    default 8 modelled workers), here with ``--overlap fused``."""
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
-         "--interval", "auto", "--steps", "1", "--device", "cpu"],
+         "--interval", "auto", "--overlap", "fused", "--steps", "2",
+         "--seq-len", "16", "--global-batch", "4", "--device", "cpu",
+         "--log-every", "1"],
         capture_output=True, text=True, env=env, timeout=300,
     )
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = r.stdout
+    for tag in ("[ccr] analytic CCR=2552.08 -> interval I=64",
+                "64 phase executable(s)", "step     2  loss", "[done]"):
+        assert tag in out, out
 
 
 if __name__ == "__main__":
