@@ -68,6 +68,24 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            gradients, residuals, and the params, Adam moments and residuals
            after the step, by ``torch.equal`` (a difference is printed with
            its ulps and held at ``FUSED_PARITY_ULPS``)
+  ckpt     full width, on the defaults and on ``powersgd``: 2 steps,
+           ``checkpoint.save_train_state`` into a temporary directory, 3
+           more steps; a fresh trainer restored from it and fed the same 3
+           batches equals that run bit for bit (params, Adam's m and v, the
+           residuals, PowerSGD's Q, both steps, the losses); prints the
+           bytes on disk and the save, verify and restore seconds, and a
+           copy with one byte flipped must raise ``CheckpointCorruptError``
+           (``ef_update.launches`` == 8 x segments, ``lowrank.matmul`` 8 x
+           33)
+  replan   on the defaults, 2 steps at I=4, ``Trainer.replan(2)``: the
+           residual norm bit for bit the same (``carry``), the old and new
+           plan's buckets, segments and phases, 3 more steps with finite
+           losses and ``ef_update.launches`` == 3 x the new plan's segments
+  sparse   ``[train] topk``, ``dgc``, ``randomk`` and ``oktopk`` (5 steps
+           each on the flat-bucket path, no kernel launched), each with its
+           plan's bytes per worker per step; ``[parity] oktopk``: on the
+           same gradients, ``oktopk`` in the one-rank group (its all-to-all
+           and all-gather run) equals ``topk`` bit for bit
   overlap  last of the card runs (the steps after a profiled one run
            slower), after a fresh fused run of 5 steps: one post and one
            fused step under ``torch.profiler``: the host
@@ -144,6 +162,13 @@ FUSED_RUNS = (
     ("fused+sharded", {"overlap": "fused", "sync": "sharded"}, "sharded",
      "pack_ef_cast"),
 )
+# [ckpt]: save after 2 steps, resume 3; each a full-width run
+CKPT_RUNS = (
+    ("defaults", {}),
+    ("powersgd", {"compressor": "powersgd"}),
+)
+# the sparsifying baselines on the flat-bucket path, each one full-width run
+SPARSE_RUNS = ("topk", "dgc", "randomk", "oktopk")
 # [parity] fused: the largest float32 ulp distance allowed between a fused
 # form and its post form on one step from one state (PERF.md states it)
 FUSED_PARITY_ULPS = 0
@@ -1144,6 +1169,16 @@ def clone_tree(x):
     return x
 
 
+def ckpt_batches(cfg, seq_len=1024, global_batch=8, device="cuda") -> list[dict]:
+    """The first 5 batches of :func:`phase_train`'s loader: the checkpoint
+    and re-plan phases feed each run the same list."""
+    from repro_torch.data import DataConfig, make_loader
+
+    loader = make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                    global_batch=global_batch), device=device)
+    return [loader.make(s) for s in range(STEPS)]
+
+
 def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
                 group=None, label="defaults", options=None):
     """Full-width training through ``Trainer.run`` on the ``TrainConfig``
@@ -1624,6 +1659,205 @@ def comp_parts(comp) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     return list(comp), []
 
 
+def fresh_trainer(cfg, group, options=None, device="cuda"):
+    """A trainer as :func:`phase_train` builds it (the model from seed 0,
+    AdamW on the same schedule), and its fresh state."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train import TrainConfig, Trainer
+
+    model = build_model(cfg, device=device, seed=0)
+    opt = adamw(cosine_warmup(1.5e-4, STEPS // 10 + 1, STEPS))
+    tr = Trainer(model, opt, TrainConfig(steps=STEPS, log_every=1, **(options or {})),
+                 group=group)
+    return tr, tr.init_state()
+
+
+def zero_counters() -> dict:
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    by_route = counters[MATMUL].launches_by_route
+    by_route.update(dict.fromkeys(by_route, 0))
+    return counters
+
+
+def state_parts(state) -> dict:
+    """A train state's tensors by part, cloned: params, Adam's m and v, the
+    residuals (PowerSGD's without its ``None`` holes) and PowerSGD's Qs."""
+    resid, qs = comp_parts(state["comp"])
+    return {part: [x.detach().clone() for x in leaves] for part, leaves in (
+        ("params", state["params"]), ("m", state["opt"]["m"]),
+        ("v", state["opt"]["v"]), ("residual", resid), ("q", qs))}
+
+
+def phase_ckpt(cfg, group, label: str, options: dict, batches) -> dict:
+    """Save and resume at full width: 2 steps, ``save_train_state`` into a
+    temporary directory, 3 more steps (state A); a fresh trainer, then
+    ``restore_train_state`` and the same 3 batches (state B).  A equals B
+    bit for bit in params, Adam's m and v, the residuals (and PowerSGD's
+    Q), both steps and the losses.  Prints the bytes on disk and the save,
+    digest and restore seconds; a copy of the checkpoint with one byte
+    flipped must raise ``CheckpointCorruptError``.  The directory is
+    deleted afterwards.  -> the launches of the run's 8 steps."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = zero_counters()
+    device = batches[0]["tokens"].device
+    tr, state = fresh_trainer(cfg, group, options, device)
+    state = tr.run(state, iter(batches[:2]), steps=2, log=None)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = checkpoint.save_train_state(tmp, state, interval=tr.tc.interval,
+                                        names=tr.leaf_names, group=group)
+        save_s = time.perf_counter() - t0
+        nbytes = {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+        t0 = time.perf_counter()
+        digest = checkpoint.verify(tmp, 2)
+        digest_s = time.perf_counter() - t0
+        state = tr.run(state, iter(batches[2:]), steps=3, log=None)
+        want, want_steps = state_parts(state), (state["step"], state["opt"]["step"])
+        want_losses = [h["loss"] for h in tr.history[2:]]
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tr, state = fresh_trainer(cfg, group, options, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, extra = checkpoint.restore_train_state(tmp, state, names=tr.leaf_names,
+                                                      group=group)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(extra["comp_restored"] and extra["world"] == 1 and state["step"] == 2,
+              f"ckpt {label}: restore gave step {state['step']}, extra {extra}")
+        state = tr.run(state, iter(batches[2:]), steps=3, log=None)
+        got, got_steps = state_parts(state), (state["step"], state["opt"]["step"])
+        losses = [h["loss"] for h in tr.history]
+        check(got_steps == want_steps == (5, 5),
+              f"ckpt {label}: steps {got_steps} after resume, {want_steps} uninterrupted")
+        check(losses == want_losses and all(math.isfinite(v) for v in losses),
+              f"ckpt {label}: losses {losses} after resume, {want_losses} uninterrupted")
+        for part in want:
+            check(len(got[part]) == len(want[part])
+                  and all(torch.equal(a, b) for a, b in zip(got[part], want[part])),
+                  f"ckpt {label}: {part} differs between the resumed and the "
+                  "uninterrupted run")
+        check(any(bool(r.any()) for r in want["residual"]),
+              f"ckpt {label}: every residual is zero; the check shows nothing")
+        counts = {k: fn.launches for k, fn in counters.items()}
+
+        bad = os.path.join(tmp, "corrupt")
+        shutil.copytree(d, os.path.join(bad, os.path.basename(d)))
+        npz = os.path.join(bad, os.path.basename(d), "arrays.npz")
+        with open(npz, "r+b") as f:
+            f.seek(nbytes["arrays.npz"] // 2)
+            b = f.read(1)
+            f.seek(nbytes["arrays.npz"] // 2)
+            f.write(bytes([b[0] ^ 0x01]))
+        try:
+            checkpoint.verify(bad, 2)
+            raised = False
+        except checkpoint.CheckpointCorruptError:
+            raised = True
+        check(raised, f"ckpt {label}: a flipped byte was not caught")
+    n = {part: len(v) for part, v in want.items()}
+    print(f"[ckpt] {label}: {cfg.name}, 2 steps, save, 3 steps == restore into a "
+          f"fresh trainer, 3 steps, bit for bit in {n} leaves (params, m, v, "
+          f"residual, q), both steps {got_steps} and losses "
+          f"{[round(v, 4) for v in losses]}; on disk {sum(nbytes.values())} B "
+          f"{nbytes}; save {save_s:.3f} s (digest included), verify {digest_s:.3f} "
+          f"s ({digest[:23]}...), restore {restore_s:.3f} s (verify included); a "
+          f"flipped byte raises CheckpointCorruptError; launches {counts}",
+          flush=True)
+    return counts
+
+
+def phase_replan(cfg, group, batches) -> int:
+    """On the defaults, 2 steps at I = 4, then ``Trainer.replan(2)``: the
+    residual norm is the same bit for bit (``carry``), and 3 more steps
+    run the new plan with finite losses and ``ef_update`` once per new
+    segment a step.  -> ``ef_update``'s launches in those 3 steps."""
+    from repro_torch.runtime import residual_norm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr, state = fresh_trainer(cfg, group, device=batches[0]["tokens"].device)
+    state = tr.run(state, iter(batches[:2]), steps=2, log=None)
+    old = (tr.plan.num_buckets, tr.plan.num_segments, tr.num_phases)
+    before = residual_norm(state["comp"])
+    state, rep = tr.replan(2, state, step=state["step"])
+    after = residual_norm(state["comp"])
+    check(rep.policy == "carry" and before == after == rep.norm_before == rep.norm_after,
+          f"replan: residual norm {before} -> {after}, report {rep}")
+    new = (tr.plan.num_buckets, tr.plan.num_segments, tr.num_phases)
+    counters = zero_counters()
+    state = tr.run(state, iter(batches[2:]), steps=3, log=None)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    losses = [h["loss"] for h in tr.history[2:]]
+    check(len(losses) == 3 and all(math.isfinite(v) for v in losses),
+          f"replan: losses {losses}")
+    check(counts == launch_counts(ef_update=3 * new[1]),
+          f"replan: launches {counts} in 3 steps; the new plan has {new[1]} segments")
+    print(f"[replan] defaults, after 2 steps at I=4: replan(2) carries the residual "
+          f"(norm {before!r} before, {after!r} after, bit for bit); plan (buckets, "
+          f"segments, phases) {old} -> {new}; 3 more steps, losses "
+          f"{[round(v, 4) for v in losses]}; launches {counts}", flush=True)
+    return counts["ef_update"]
+
+
+def phase_oktopk_parity(tr, state, loader, group) -> None:
+    """On the same gradients and residuals, ``oktopk`` in the one-rank
+    group against ``topk``: the synced values and the new residuals bit for
+    bit, on every bucket whose compensated values hold at least k non-zero
+    elements (the regional top-k of a one-rank group then keeps exactly the
+    local top-k)."""
+    from repro_torch.core import bucketing as bk
+    from repro_torch.core import get_compressor
+    from repro_torch.core.comm import world_size
+    from repro_torch.train import loss_and_grads
+
+    batch = loader.make(state["step"])
+    grads, _ = loss_and_grads(tr.model, state["params"], batch, group)
+    out = {}
+    for name in ("topk", "oktopk"):
+        comp = get_compressor(name)
+        sched = comp.plan_phase(tr.plan, 0, world=world_size(group))
+        synced, resid, _ = comp.execute(sched, grads, state["comp"], step=state["step"],
+                                        group=group)
+        out[name] = (synced, resid)
+    torch.cuda.synchronize()
+    t = [g + r for g, r in zip(grads, state["comp"])]
+    eligible, diff = [], 0
+    for b, bucket in enumerate(tr.plan.buckets):
+        k = max(1, math.ceil(bucket.numel * 0.01))
+        nz = sum(int((bk._slice_segment(t[s.leaf_idx], s) != 0).sum())
+                 for s in bucket.segments)
+        if nz < k:
+            continue
+        eligible.append(b)
+        for part in (0, 1):
+            for s in bucket.segments:
+                a = bk._slice_segment(out["oktopk"][part][s.leaf_idx], s)
+                w = bk._slice_segment(out["topk"][part][s.leaf_idx], s)
+                if not torch.equal(a, w):
+                    diff += 1
+    check(diff == 0, f"parity oktopk: {diff} segments differ from topk")
+    check(len(eligible) == tr.plan.num_buckets,
+          f"parity oktopk: only buckets {eligible} hold k non-zero values")
+    print(f"[parity] oktopk step {state['step']}, same gradients, one-rank NCCL group "
+          f"(all-to-all and all-gather run): synced values and residuals == topk's "
+          f"bit for bit on all {len(eligible)} buckets (each holds >= k non-zero "
+          f"values)", flush=True)
+
+
 def phase_small() -> None:
     """REDUCED gpt2-paper on the card against the port on the CPU, on the
     defaults, with ``arena=True`` and with ``powersgd`` (whose Q is drawn on
@@ -1701,7 +1935,7 @@ def phase_small() -> None:
 
 
 def main() -> int:
-    name, _ = phase_device()
+    phase_device()
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -1794,6 +2028,33 @@ def main() -> int:
         phase_powersgd_parity(tr, state, loader, group)
         del tr, state, loader
         torch.cuda.empty_cache()
+        batches = ckpt_batches(cfg)
+        for label, options in CKPT_RUNS:
+            counts = phase_ckpt(cfg, group, label, options, batches)
+            if label == "defaults":
+                want = launch_counts(ef_update=8 * segs)
+                records[0]["launches_by_run"]["ckpt defaults"] = counts["ef_update"]
+            else:
+                want = launch_counts(**{MATMUL: 8 * n})
+                by_name[MATMUL]["launches_by_run"] = {"powersgd": by_name[MATMUL]["launches"],
+                                                      "ckpt powersgd": counts[MATMUL]}
+            check(counts == want, f"ckpt {label}: launches {counts}, want {want}")
+        records[0]["launches_by_run"]["replan"] = phase_replan(cfg, group, batches)
+        del batches
+        for sparse in SPARSE_RUNS:
+            tr, state, loader, launches = phase_train(cfg, group=group, label=sparse,
+                                                      options={"compressor": sparse})
+            check(launches == launch_counts(),
+                  f"{sparse}: launches {launches}; the sparsifiers run no kernel")
+            sr = tr.schedule_report()
+            print(f"[train] {sparse}: plan {sr['mean_bytes_per_step']:.0f} B per worker "
+                  f"per step at W={tr.dp_world} (dense {sr['dense_bytes']} B, volume "
+                  f"ratio {sr['volume_ratio']:.2f}), "
+                  f"{len(tr.schedules()[0].calls)} collectives a step", flush=True)
+            if sparse == "topk":
+                phase_oktopk_parity(tr, state, loader, group)
+            del tr, state, loader
+            torch.cuda.empty_cache()
         # last, since the steps that follow a profiled one run slower: a
         # fresh fused run, then one profiled post and fused step
         tr, state, loader, launches = phase_train(
@@ -1811,7 +2072,8 @@ def main() -> int:
     check(not idle, f"kernels never launched on their path: {idle}")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
 

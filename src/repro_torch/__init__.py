@@ -1,8 +1,8 @@
 """COVAP in PyTorch: the port of ``repro`` to PyTorch and CUDA on Hopper.
 
-The package mirrors the JAX package's module names (``api``, ``configs``,
-``data``, ``kernels``, ``models``, ``optim``, ``core``, ``train``,
-``launch``) so that each module has an obvious counterpart.  It imports neither JAX nor
+The package mirrors the JAX package's module names (``api``,
+``checkpoint``, ``configs``, ``data``, ``kernels``, ``models``, ``optim``,
+``core``, ``runtime``, ``train``, ``launch``) so that each module has an obvious counterpart.  It imports neither JAX nor
 the JAX package.  Entry points run on the GPU (``device="cuda"``) unless
 the caller passes ``device="cpu"``; they never fall back on their own.
 
@@ -16,6 +16,7 @@ __version__ = "0.1.0"
 
 _SUBMODULES = (
     "api",
+    "checkpoint",
     "configs",
     "core",
     "data",
@@ -25,6 +26,7 @@ _SUBMODULES = (
     "launch",
     "models",
     "optim",
+    "runtime",
     "train",
 )
 

@@ -103,6 +103,26 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return out.view(x.dtype).view(-1, *x.shape)
 
 
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Exchange the rows of ``x`` (shape ``(W, ...)``): row ``w`` goes to
+    worker ``w``, and row ``w`` of the result is what worker ``w`` sent
+    this one (``lax.all_to_all`` with ``split_axis = concat_axis = 0``),
+    through one ``all_to_all_single``, which NCCL and gloo both run.  A
+    1-byte dtype goes on the wire as a ``uint8`` view, as in
+    :func:`all_gather`.  The identity with no group."""
+    if group is None:
+        return x
+    W = dist.get_world_size(group)
+    if x.shape[0] != W:
+        raise ValueError(f"all_to_all: leading axis {x.shape[0]} is not the "
+                         f"world size {W}")
+    flat = x.contiguous().reshape(-1)
+    wire = flat.view(torch.uint8) if flat.element_size() == 1 else flat
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=group)
+    return out.view(x.dtype).view(x.shape)
+
+
 def start_all_gather_tiled(shard: torch.Tensor, group):
     """Start a concatenating all-gather of per-worker shards (worker order =
     rank, the inverse of :func:`reduce_scatter`'s scatter) and return

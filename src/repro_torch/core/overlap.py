@@ -62,8 +62,9 @@ EMBED_STAGE = -1
 def supports_fused_overlap(compressor) -> bool:
     """The fused overlap needs a segmented bucket pipeline (covap / none /
     fp16): the hook's backward syncs its bucket from its raw gradient
-    slices alone.  Flat wires (``fp8wire``, ``efsignsgd``) compensate the
-    whole tree first, and the leaf path (``powersgd``) has no buckets."""
+    slices alone.  Flat wires (``fp8wire``, ``efsignsgd``, ``topk``,
+    ``dgc``, ``randomk``, ``oktopk``) compensate the whole tree first, and
+    the leaf path (``powersgd``) has no buckets."""
     return (isinstance(compressor, SyncPipeline)
             and compressor.granularity == "bucket"
             and getattr(compressor.wire, "segmented", False))

@@ -21,7 +21,7 @@ class CollectiveCall:
     ring amplification is applied by :meth:`wire_bytes`."""
 
     target: str                # "bucket:3" | "param-bucket:3"
-    op: str                    # "all_reduce" | "reduce_scatter" | "all_gather"
+    op: str                    # "all_reduce" | "reduce_scatter" | "all_gather" | "all_to_all"
     wire_dtype: str            # dtype name of the wire payload
     payload_bytes: int
     index_bytes: int = 0
@@ -37,8 +37,10 @@ class CollectiveCall:
         """Bytes one worker moves under the ring algorithms: an all-reduce
         moves ``2(W-1)/W`` of the buffer, a reduce-scatter ``(W-1)/W`` of the
         buffer it feeds in, an all-gather re-sends its local shard ``W-1``
-        times.  A reduce-scatter's ``payload_bytes`` is the full input
-        buffer, an all-gather's the local shard."""
+        times, an all-to-all keeps ``1/W`` of its buffer local.  A
+        reduce-scatter's ``payload_bytes`` is the full input buffer, an
+        all-gather's the local shard, an all-to-all's the buffer it
+        sends."""
         if world <= 1:
             return 0.0
         b = float(self.bytes_per_worker)
@@ -48,13 +50,16 @@ class CollectiveCall:
             return (world - 1) / world * b
         if self.op == "all_gather":
             return (world - 1) * b
+        if self.op == "all_to_all":
+            return (world - 1) / world * b
         raise ValueError(f"unknown collective op {self.op!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class CommSchedule:
     """Per-phase static communication plan of one compressor: ``selected``
-    bucket indices aligned 1:1 with ``calls``; the originating
+    bucket indices aligned 1:1 with ``calls`` (a bucket that a wire stage
+    plans several collectives for repeats its index); the originating
     :class:`BucketPlan` rides along so ``execute`` can slice segments."""
 
     compressor: str

@@ -30,15 +30,18 @@ writes the synced values.  The post path finishes each bucket right after
 its start; the fused overlap (``core.overlap``) starts each bucket inside
 the backward pass and finishes them all after it.
 
-A flat wire (``FP8Block``, ``SignCompress``) sees each selected bucket as
-one flat vector: classic EF compensates the whole tree (``t = g + r``), each
+A flat wire (``FP8Block``, ``SignCompress``, and the sparsifiers'
+``TopK``, ``RandomK`` and ``OkTopKRoute``) sees each selected bucket as one
+flat vector: classic EF compensates the whole tree (``t = g + r``), each
 selected bucket's compensated slices are concatenated, the wire stage
-encodes, all-gathers and decodes them, and the residual is ``t - sent``,
-where ``sent`` is this worker's own decoded contribution.  With
-``use_arena=True`` the compensated tree is packed once into flat planes and
-each wire stage runs on its bucket's slot view.  On CUDA tensors the wire
-stages run the ``quantize_fp8`` / ``dequantize_fp8`` and ``sign_compress``
-kernels.
+encodes, exchanges and decodes them, and the residual is ``t - sent``,
+where ``sent`` is this worker's own contribution.  With ``use_arena=True``
+the compensated tree is packed once into flat planes and each wire stage
+runs on its bucket's slot view.  On CUDA tensors the wire stages run the
+``quantize_fp8`` / ``dequantize_fp8`` and ``sign_compress`` kernels; the
+sparsifiers run no kernel of their own (``torch.topk``, as the reference
+runs ``lax.top_k``).  Random-k draws its indices from a :class:`BucketKey`
+of ``(seed, step, bucket)``.
 
 A leaf-granularity wire (``LowRank``, PowerSGD) sees each leaf whole:
 classic EF compensates it (``t = g + r``), a leaf of two or more dimensions
@@ -64,6 +67,7 @@ from .comm import (
     Compressor,
     SyncStats,
     all_gather,
+    all_to_all,
     dense_bytes,
     flat_axis_index,
     pmean,
@@ -142,8 +146,8 @@ class WireStage:
 
     def execute_bucket(self, flat: torch.Tensor, key, group, *,
                        use_kernel: bool = False):
-        """-> ``(synced_flat, local_sent_flat)``.  ``key`` is the PRNG key of
-        Random-k, which is not ported (always ``None``); ``use_kernel``
+        """-> ``(synced_flat, local_sent_flat)``.  ``key`` is the bucket's
+        :class:`BucketKey` (only Random-k draws from it); ``use_kernel``
         runs the stage's CUDA kernels instead of their plain versions."""
         raise NotImplementedError
 
@@ -251,6 +255,222 @@ class FP8Block(WireStage):
 
     def __repr__(self):
         return f"FP8Block({self.block})"
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """SplitMix64's finaliser: a bijection of 64-bit integers that spreads
+    every input bit over the output."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketKey:
+    """The random key of one bucket at one step, the counterpart of the
+    reference's ``fold_in(fold_in(PRNGKey(seed), step), bucket.index)``.
+
+    Its generator seed is ``mix(mix(mix(seed) ^ step) ^ bucket)`` in 63
+    bits, ``mix`` being SplitMix64's finaliser: a function of the three
+    integers alone, so every rank draws the same numbers for the same
+    bucket and step.  ``jax.random`` streams cannot be reproduced in
+    torch, so the draws differ from the reference's."""
+
+    seed: int
+    step: int
+    bucket: int
+
+    @property
+    def value(self) -> int:
+        x = _mix64(_mix64(_mix64(int(self.seed) & _MASK64) ^ (int(self.step) & _MASK64))
+                   ^ (int(self.bucket) & _MASK64))
+        return x >> 1
+
+    def generator(self, device) -> torch.Generator:
+        """A ``torch.Generator`` on ``device`` seeded with :attr:`value`
+        (on CUDA the Philox stream, on the CPU the Mersenne twister: the two
+        devices draw different numbers from one key)."""
+        return torch.Generator(device=device).manual_seed(self.value)
+
+
+def _ratio_k(n: int, ratio: float) -> int:
+    return max(1, int(math.ceil(n * ratio)))
+
+
+class TopK(WireStage):
+    """Aji & Heafield top-|g| selection: each worker's index set differs,
+    so the exchange is an all-gather of (values, int32 indices), and the
+    W contributions are summed into a dense vector and divided by W.
+    ``clip_norm`` adds DGC's local gradient clipping before selection
+    (``x * min(1, clip / (||x|| + 1e-12))``).
+
+    ``torch.topk`` picks exactly k, as ``lax.top_k`` does; where ``|x|``
+    ties at the k-th value the two may keep other indices.  The sum of the
+    W contributions is an ``index_add_``, which on CUDA adds with atomics:
+    where workers' indices collide, the order of the adds, and so the last
+    bit, can vary from run to run."""
+
+    def __init__(self, ratio: float = 0.01, clip_norm: float = 0.0):
+        self.ratio = float(ratio)
+        self.clip_norm = float(clip_norm)
+
+    def _k(self, n: int) -> int:
+        return _ratio_k(n, self.ratio)
+
+    def plan_bucket(self, plan, bucket, world=1):
+        dt = bucket_dtype(plan, bucket)
+        m = self._k(bucket.numel)
+        return CollectiveCall(f"bucket:{bucket.index}", "all_gather", _dtype_name(dt),
+                              m * _itemsize(dt), m * 4)
+
+    def execute_bucket(self, flat, key, group, *, use_kernel=False):
+        if self.clip_norm > 0:
+            # a dot product: torch.linalg.vector_norm on the CPU sums in
+            # another order, up to 1e-5 relative off at 2^20 elements
+            norm = torch.sqrt(torch.dot(flat, flat)) + 1e-12
+            flat = flat * torch.clamp(self.clip_norm / norm, max=1.0)
+        n = flat.numel()
+        _, idx = torch.topk(flat.abs(), self._k(n), sorted=False)
+        vals = flat[idx]
+        vals_all = all_gather(vals, group)                      # (W, m)
+        idx_all = all_gather(idx.to(torch.int32), group)        # (W, m) int32
+        W = vals_all.shape[0]
+        out = torch.zeros(n, dtype=flat.dtype, device=flat.device)
+        out.index_add_(0, idx_all.reshape(-1), vals_all.reshape(-1))
+        local_sent = torch.zeros_like(out).index_copy_(0, idx, vals)
+        return out / W, local_sent
+
+    def __repr__(self):
+        clip = f", clip_norm={self.clip_norm}" if self.clip_norm > 0 else ""
+        return f"TopK({self.ratio}{clip})"
+
+
+class RandomK(WireStage):
+    """Stich et al. sparsified SGD: the index set is drawn from the
+    bucket's :class:`BucketKey`, the same on every worker, so the exchange
+    is a dense all-reduce (mean) of the selected values only, with no index
+    traffic.  :meth:`indices` draws ``k`` indices with replacement, on the
+    bucket's device."""
+
+    def __init__(self, ratio: float = 0.01):
+        self.ratio = float(ratio)
+
+    def plan_bucket(self, plan, bucket, world=1):
+        dt = bucket_dtype(plan, bucket)
+        m = _ratio_k(bucket.numel, self.ratio)
+        return CollectiveCall(f"bucket:{bucket.index}", "all_reduce", _dtype_name(dt),
+                              m * _itemsize(dt))
+
+    def indices(self, key: BucketKey, n: int, device) -> torch.Tensor:
+        """``k`` uniform indices in ``[0, n)``, with replacement (as
+        ``jax.random.randint``), from ``key``'s generator on ``device``."""
+        m = _ratio_k(n, self.ratio)
+        return torch.randint(0, n, (m,), generator=key.generator(device),
+                             device=device)
+
+    def execute_bucket(self, flat, key, group, *, use_kernel=False):
+        n = flat.numel()
+        idx = self.indices(key, n, flat.device)
+        vals = flat[idx]
+        synced = pmean(vals.clone(), group)
+        # a repeated index carries the same value each time, so the order of
+        # the writes does not matter
+        out = torch.zeros(n, dtype=flat.dtype, device=flat.device)
+        out[idx] = synced
+        local_sent = torch.zeros_like(out)
+        local_sent[idx] = vals
+        return out, local_sent
+
+    def __repr__(self):
+        return f"RandomK({self.ratio})"
+
+
+class OkTopKRoute(WireStage):
+    """Ok-topk's region-routed sparse exchange: each worker's top-m entries
+    go to the worker that owns their region of the index space (an
+    all-to-all into fixed-capacity windows; entries past a window's
+    capacity are dropped), each owner sums what it received and keeps its
+    regional top-(m/W), and the survivors are all-gathered.  A
+    data-dependent multi-stage exchange, which the paper (SS I, Fig. 1e)
+    names as hostile to overlapping.  Without a group it is a local top-k
+    (no exchange); a one-rank group runs the exchange and gives the same
+    result."""
+
+    def __init__(self, ratio: float = 0.01):
+        self.ratio = float(ratio)
+
+    @staticmethod
+    def _geometry(n: int, ratio: float, W: int) -> tuple[int, int, int]:
+        """``(m, region_size, cap)``: the local top-m (a multiple of W), the
+        size of each worker's region, each window's capacity."""
+        m = max(W, int(math.ceil(n * ratio)))
+        m = int(math.ceil(m / W) * W)
+        region_size = int(math.ceil(n / W))
+        cap = min(2 * m // W + 1, region_size)
+        return m, region_size, cap
+
+    def plan_bucket(self, plan, bucket, world=1):
+        dt = bucket_dtype(plan, bucket)
+        size, name = _itemsize(dt), _dtype_name(dt)
+        W = max(int(world), 1)
+        m, _, cap = self._geometry(bucket.numel, self.ratio, W)
+        k_r = m // W
+        # the routed all-to-all ((values, int32 index, mask at the wire
+        # dtype) in W windows) and the survivors' all-gather ((values, int32
+        # global index) x k_r)
+        return (
+            CollectiveCall(f"bucket:{bucket.index}", "all_to_all", name,
+                           W * cap * size, W * cap * (4 + size)),
+            CollectiveCall(f"bucket:{bucket.index}:survivors", "all_gather", name,
+                           k_r * size, k_r * 4),
+        )
+
+    def execute_bucket(self, flat, key, group, *, use_kernel=False):
+        n, dev = flat.numel(), flat.device
+        if group is None:
+            _, idx = torch.topk(flat.abs(), _ratio_k(n, self.ratio), sorted=False)
+            out = torch.zeros_like(flat).index_copy_(0, idx, flat[idx])
+            return out, out
+        W = world_size(group)
+        m, region_size, cap = self._geometry(n, self.ratio, W)
+        _, idx = torch.topk(flat.abs(), m)            # by descending magnitude
+        vals = flat[idx]
+        region = idx // region_size                   # destination worker
+        # each entry's place in its destination's window, in magnitude order
+        order = torch.argsort(region, stable=True)
+        counts = torch.bincount(region, minlength=W)
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.empty_like(region)
+        pos[order] = torch.arange(m, device=dev) - starts[region[order]]
+        kept = pos < cap                              # the rest are dropped
+        r_k, p_k = region[kept], pos[kept]
+        send_vals = torch.zeros((W, cap), dtype=flat.dtype, device=dev)
+        send_idx = torch.zeros((W, cap), dtype=torch.int32, device=dev)
+        send_mask = torch.zeros((W, cap), dtype=flat.dtype, device=dev)
+        send_vals[r_k, p_k] = vals[kept]
+        send_idx[r_k, p_k] = (idx[kept] - r_k * region_size).to(torch.int32)
+        send_mask[r_k, p_k] = 1.0
+        recv_vals = all_to_all(send_vals, group)
+        recv_idx = all_to_all(send_idx, group)
+        recv_mask = all_to_all(send_mask, group)
+        dense = torch.zeros(region_size, dtype=flat.dtype, device=dev)
+        dense.index_add_(0, recv_idx.reshape(-1), (recv_vals * recv_mask).reshape(-1))
+        _, ridx = torch.topk(dense.abs(), m // W)
+        gidx = (ridx + flat_axis_index(group) * region_size).to(torch.int32)
+        vals_all = all_gather(dense[ridx], group).reshape(-1)
+        gidx_all = all_gather(gidx, group).reshape(-1)
+        out = torch.zeros(region_size * W, dtype=flat.dtype, device=dev)
+        out[gidx_all.long()] = vals_all
+        local_sent = torch.zeros_like(flat).index_copy_(
+            0, idx, torch.where(kept, vals, torch.zeros_like(vals)))
+        return (out / W)[:n], local_sent
+
+    def __repr__(self):
+        return f"OkTopKRoute({self.ratio})"
 
 
 def _as_batched_matrix(x: torch.Tensor) -> torch.Tensor:
@@ -451,12 +671,19 @@ class SyncPipeline(Compressor):
                 self.filter.select(plan, ph) if self.filter is not None
                 else tuple(range(plan.num_buckets))
             )
-            calls = tuple(
-                self._plan_bucket_sharded(plan, plan.buckets[b], world) if sharded
-                else self.wire.plan_bucket(plan, plan.buckets[b], world)
-                for b in sel
-            )
+            # a wire stage may plan several collectives for a bucket
+            # (OkTopKRoute's route and survivor exchange): ``selected`` then
+            # repeats the bucket's index, aligned with ``calls``
             ready = bk.build_ready_order(plan)
+            picked, planned_calls = [], []
+            for b in sel:
+                planned = (self._plan_bucket_sharded(plan, plan.buckets[b], world)
+                           if sharded
+                           else self.wire.plan_bucket(plan, plan.buckets[b], world))
+                for call in planned if isinstance(planned, tuple) else (planned,):
+                    picked.append(b)
+                    planned_calls.append(call)
+            sel, calls = tuple(picked), tuple(planned_calls)
             ready_ranks = tuple(ready.rank_of(b) for b in sel)
         return CommSchedule(
             compressor=self.name,
@@ -710,8 +937,8 @@ class SyncPipeline(Compressor):
 
         Flat wire: ``g_slices`` are already compensated; returns
         ``(synced_slices, sent_slices)``, ``(None, None)`` for an unselected
-        bucket.  ``key`` (Random-k's PRNG key) is not used by the ported
-        wires."""
+        bucket.  ``key`` is the bucket's :class:`BucketKey` (Random-k draws
+        its indices from it)."""
         selected = b in schedule.selected
         if not getattr(self.wire, "segmented", False):
             if not selected:
@@ -738,7 +965,12 @@ class SyncPipeline(Compressor):
             sync.finish(b)
         return sync.close()
 
-    # ---- flat-bucket path (fp8wire, efsignsgd) ----------------------------
+    # ---- flat-bucket path (fp8wire, efsignsgd, the sparsifiers) -----------
+    def bucket_key(self, step: int, bucket: int) -> BucketKey:
+        """The random key of ``bucket`` at ``step``, from the ``seed``
+        option (0 by default, as in the reference)."""
+        return BucketKey(int(self.options.get("seed", 0) or 0), int(step), int(bucket))
+
     @torch.no_grad()
     def _execute_flat_arena(self, schedule, grads, state, step, group):
         """Arena form of :meth:`_execute_flat`: the compensated tree is
@@ -756,7 +988,8 @@ class SyncPipeline(Compressor):
         for b in sel:
             view = layout.bucket_view(planes, b)
             synced_flat, sent_flat = self.wire.execute_bucket(
-                view, None, group, use_kernel=self._engage("use_wire_kernel", view))
+                view, self.bucket_key(step, plan.buckets[b].index), group,
+                use_kernel=self._engage("use_wire_kernel", view))
             synced[b] = layout.unpack_bucket(b, synced_flat)
             sent[b] = layout.unpack_bucket(b, sent_flat)
         out = ar.gather_leaves(
@@ -784,7 +1017,8 @@ class SyncPipeline(Compressor):
             segs = plan.buckets[b].segments
             slices = [bk._slice_segment(t[s.leaf_idx], s) for s in segs]
             synced_slices, sent_slices = self.execute_bucket(
-                schedule, b, slices, key=None, group=group)
+                schedule, b, slices, key=self.bucket_key(step, plan.buckets[b].index),
+                group=group)
             for seg, xm, sv in zip(segs, synced_slices, sent_slices):
                 bk._update_segment(out[seg.leaf_idx], seg, xm)
                 if ef_on:

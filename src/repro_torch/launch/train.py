@@ -8,11 +8,19 @@ Prints the same ``[ccr]`` (with ``--interval auto``, the default),
 as ``repro.launch.train``.  ``--interval auto`` is the paper's ``I =
 ceil(CCR)`` from the analytic CCR of a ``--dp-workers``-worker run on the
 paper's environment (V100 + 30 Gbps Ethernet).  ``--compressor`` picks covap,
-none, fp16, fp8wire, efsignsgd or powersgd (rank 2; like the reference's
-CLI this one has no rank flag), ``--arena`` the zero-copy arena and
+none, fp16, fp8wire, efsignsgd, powersgd (rank 2; like the reference's
+CLI this one has no rank flag), or one of the sparsifiers topk, dgc,
+randomk and oktopk (their default ratios; they take neither ``--overlap
+fused`` nor ``--sync sharded``), ``--arena`` the zero-copy arena and
 ``--sync sharded`` the reduce-scatter + deferred all-gather decomposition,
 ``--overlap fused`` each bucket's collective started inside the backward
 pass.  Runs on the GPU unless ``--device cpu`` is given.
+
+``--ckpt-dir D --ckpt-every N`` saves the full state (params, optimizer and
+EF residuals) every N steps and at the end; ``--resume`` restarts from the
+latest checkpoint in D, re-planning through ``Trainer.replan`` when the
+saved interval differs.  As in the reference, the resumed run's data
+stream starts again from the loader's first batch.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import time
 
 import torch
 
+from .. import checkpoint
 from ..api import resolve_interval
 from ..configs import get_config, get_reduced
 from ..data import DataConfig, make_loader
@@ -49,7 +58,7 @@ def main(argv=None):
                     help="use the smoke-test REDUCED variant")
     ap.add_argument("--compressor", default="covap",
                     choices=["covap", "none", "fp16", "fp8wire", "efsignsgd",
-                             "powersgd"])
+                             "powersgd", "topk", "dgc", "randomk", "oktopk"])
     ap.add_argument("--interval", default="auto")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -59,6 +68,13 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     ap.add_argument("--lr", type=float, default=1.5e-4)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir "
+                         "(params, optimizer AND error-feedback state); the "
+                         "data stream starts again from the loader's first "
+                         "batch, as in the reference")
     ap.add_argument("--arena", action="store_true",
                     help="zero-copy gradient arena: statically planned flat "
                          "bucket buffers + fused pack/EF/cast pass")
@@ -105,14 +121,43 @@ def main(argv=None):
               f"deferred param AG riding the next forward pass")
 
     state = tr.init_state()
+    if args.resume and args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
+        state, extra = checkpoint.restore_train_state(args.ckpt_dir, state,
+                                                      names=tr.leaf_names)
+        print(f"[ckpt] resumed step {state['step']} "
+              f"(EF state: {extra.get('has_comp_state')}, "
+              f"saved interval: {extra.get('interval')})")
+        if not extra.get("comp_restored", True):
+            print("[ckpt] WARNING: saved compressor state is incompatible with "
+                  "this config (EF on/off changed, or another world size "
+                  f"than the saved {extra.get('world', 1)}); residual "
+                  "re-initialised")
+        elif extra.get("interval") not in (None, interval):
+            # the residual was accumulated under another cadence: cross the
+            # boundary through the runtime's transition logic
+            state, rep = tr.replan(interval, state, step=state["step"],
+                                   old_interval=extra["interval"])
+            print(f"[ckpt] interval {extra['interval']} -> {interval}: "
+                  f"residual {rep.policy} "
+                  f"(norm {rep.norm_before:.3e} -> {rep.norm_after:.3e})")
     n_params = sum(p.numel() for p in state["params"])
     print(f"[model] {cfg.name}: {n_params/1e6:.1f}M params")
 
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                     global_batch=args.global_batch)
-    loader = make_loader(dc, device=args.device)
+    loader = iter(make_loader(dc, device=args.device))
     t0 = time.perf_counter()
-    tr.run(state, loader, steps=args.steps)
+    done = 0
+    while done < args.steps:
+        chunk = args.steps - done
+        if args.ckpt_dir and args.ckpt_every > 0:
+            chunk = min(chunk, args.ckpt_every)
+        state = tr.run(state, loader, steps=chunk)
+        done += chunk
+        if args.ckpt_dir and (args.ckpt_every > 0 or done >= args.steps):
+            path = checkpoint.save_train_state(
+                args.ckpt_dir, state, interval=tr.tc.interval, names=tr.leaf_names)
+            print(f"[ckpt] saved {path} (params + opt + EF residuals)")
     if model.embed["table"].is_cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0

@@ -12,8 +12,10 @@ hierarchical pods).
   un-reduced gradients, and the compressor decides exactly which bytes
   cross the process group (one ``all_reduce`` per selected segment, or
   the all-gathers of each bucket's codes on the flat path of ``fp8wire``
-  and ``efsignsgd``, or two all-reduces of each leaf's low-rank factors
-  under ``powersgd``, options through ``compressor_options``).
+  and ``efsignsgd``, or of its top-k values and indices under ``topk`` and
+  ``dgc``, ``randomk``'s all-reduce of k values, ``oktopk``'s all-to-all
+  and all-gather, or two all-reduces of each leaf's low-rank factors under
+  ``powersgd``, options through ``compressor_options``).
 * Loss metrics are averaged over the process group.
 * ``arena=True`` runs the zero-copy arena form of the sync
   (``core.arena``); ``sync="sharded"`` reduce-scatters each selected
@@ -25,7 +27,9 @@ hierarchical pods).
 
 ``TrainConfig.interval`` is an integer, as in the reference: callers
 resolve ``"auto"`` first (``repro_torch.api.resolve_interval``, which
-``api.fit`` and the CLI call).  Hierarchical pods are not ported.
+``api.fit`` and the CLI call).  :meth:`Trainer.replan` adopts another
+interval between steps, carrying the EF residuals across
+(``runtime.transitions``).  Hierarchical pods are not ported.
 """
 from __future__ import annotations
 
@@ -287,6 +291,7 @@ class Trainer:
         )
         self._steps: dict[int, Callable] = {}
         self.history: list[dict] = []
+        self.transitions: list = []
         self._pending_sync = False
         self.gather_events: list[tuple[str, int]] = []
         self.last_step_fn: Callable | None = None
@@ -296,6 +301,12 @@ class Trainer:
     @property
     def num_phases(self) -> int:
         return self.compressor.num_phases()
+
+    @property
+    def leaf_names(self) -> list[str]:
+        """The model's leaf paths in leaf order, the keys of a checkpoint
+        (``checkpoint.save_train_state(..., names=)``)."""
+        return [path for path, _ in self.model.named_leaves()]
 
     @property
     def dp_world(self) -> int:
@@ -379,6 +390,56 @@ class Trainer:
         if seed is not None:
             self.model.init_params(seed)
         return make_train_state(self.model, self.optimizer, self.compressor, self.plan)
+
+    def replan(self, interval: int, state: dict | None = None, *,
+               policy: str = "carry", step: int = 0,
+               old_interval: int | None = None):
+        """Adopt a new COVAP interval at a safe boundary (between steps): a
+        new compressor, a new bucket plan and (built lazily) new phase step
+        functions, with the EF residual carried across the switch by
+        ``runtime.transitions`` so that its norm survives.  Under the fused
+        overlap the next step's hooks are built against the new plan (each
+        step creates its hooks from its schedule).
+
+        ``old_interval`` is the cadence the residual in ``state`` was
+        accumulated under; it defaults to this trainer's interval and must
+        be given when the state came from elsewhere (a checkpoint saved
+        under another config).  Returns ``(state, TransitionReport)``, or
+        ``(None, None)`` without a state."""
+        from ..runtime.transitions import carry_comp_state
+
+        if old_interval is None:
+            old_interval = self.tc.interval
+        if state is not None:
+            # sharded sync: the pending deferred gather belongs to the old
+            # plan's schedules, so it settles before the plan is replaced
+            state = self.flush_sync(state)
+        self.tc = dataclasses.replace(self.tc, interval=int(interval))
+        self.compressor = make_compressor(self.tc)
+        if self.tc.overlap == "fused":
+            _require_fused(self.compressor)
+        self.plan = build_plan(
+            self.model.named_leaves(),
+            bucket_bytes=self.tc.bucket_bytes,
+            max_buckets=self.tc.max_buckets,
+            interval=self.tc.interval,
+        )
+        self._steps = {}         # the old plan's step functions
+        report = None
+        if state is not None:
+            comp, report = carry_comp_state(
+                state["comp"],
+                new_compressor=self.compressor,
+                new_plan=self.plan,
+                params_like=state["params"],
+                step=step,
+                old_interval=old_interval,
+                new_interval=self.tc.interval,
+                policy=policy,
+            )
+            state = {**state, "comp": comp}
+            self.transitions.append(report)
+        return state, report
 
     def step(self, state: dict, batch: dict) -> tuple[dict, dict]:
         """One training step of the phase ``state["step"] % num_phases``;

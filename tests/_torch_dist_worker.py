@@ -1,5 +1,6 @@
-"""Workers of the port's two-process gloo tests (``test_torch_multiworker.py``,
-``test_torch_sharded.py``).
+"""Workers of the port's multi-process gloo tests (``test_torch_multiworker.py``,
+``test_torch_sharded.py``, ``test_torch_checkpoint.py``,
+``test_torch_sparsify.py``).
 
 It imports only torch, numpy and ``repro_torch``, so spawned processes start
 without JAX.  Each rank trains the REDUCED gpt2-paper once per entry of
@@ -209,3 +210,98 @@ def assert_quantized_wire_close(part, got, want, *, steps, lr, mu_max,
                     "mu": (1 / 20, mu_max)}[part]
     assert drift["over"] <= share * drift["size"], (err_msg, drift)
     assert drift["max"] <= bound, (err_msg, drift, bound)
+
+
+def ckpt_worker(rank, world, init_file, init_npz, ckpt_dir, out_prefix, tc_kw,
+                data_kw, lr, steps_before, steps_after):
+    """Checkpoint and resume on ``world`` gloo workers, AdamW from the
+    parameters in ``init_npz``: run ``A`` trains ``steps_before`` steps,
+    saves with ``checkpoint.save_train_state`` (every rank's comp state)
+    and trains ``steps_after`` more; run ``B`` restores into a fresh
+    trainer and trains the same ``steps_after`` batches.  Writes, under
+    ``A/`` and ``B/``, the params, Adam moments, residuals and both steps,
+    and the residuals as saved (``saved/``) and as restored
+    (``restored/``), and the params as saved (``saved_params/``), to
+    ``<out_prefix><rank>.npz``."""
+    from repro_torch import checkpoint, optim
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, make_loader
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        group = dist.group.WORLD
+        loader = make_loader(DataConfig(**data_kw), device="cpu")
+        local = data_kw["global_batch"] // world
+        rows = slice(rank * local, (rank + 1) * local)
+        batches = [{k: v[rows] for k, v in loader.make(s).items()}
+                   for s in range(steps_before + steps_after)]
+
+        def trainer():
+            model = build_model(get_reduced("gpt2-paper"), device="cpu")
+            with np.load(init_npz) as init:
+                model.load_state_dict({k: torch.from_numpy(init[k]) for k in init.files})
+            tr = Trainer(model, optim.adamw(lr), TrainConfig(**tc_kw), group=group)
+            return tr, tr.init_state()
+
+        def record(tag, tr, state):
+            parts = {"params": state["params"], "m": state["opt"]["m"],
+                     "v": state["opt"]["v"], "resid": state["comp"]}
+            for part, leaves in parts.items():
+                for path, x in zip(tr.leaf_names, leaves):
+                    out[f"{tag}/{part}:{path}"] = x.detach().numpy().copy()
+            out[f"{tag}/step"] = np.array([state["step"], state["opt"]["step"]])
+
+        out = {}
+        tr, state = trainer()
+        state = tr.run(state, iter(batches[:steps_before]), steps=steps_before,
+                       log=None)
+        checkpoint.save_train_state(ckpt_dir, state, interval=tr.tc.interval,
+                                    names=tr.leaf_names, group=group)
+        for path, x, p in zip(tr.leaf_names, state["comp"], state["params"]):
+            out[f"saved/{path}"] = x.numpy().copy()
+            out[f"saved_params/{path}"] = p.detach().numpy().copy()
+        state = tr.run(state, iter(batches[steps_before:]), steps=steps_after, log=None)
+        record("A", tr, state)
+
+        tr, state = trainer()
+        state, extra = checkpoint.restore_train_state(ckpt_dir, state,
+                                                      names=tr.leaf_names, group=group)
+        assert extra["comp_restored"] and extra["world"] == world, extra
+        for path, x in zip(tr.leaf_names, state["comp"]):
+            out[f"restored/{path}"] = x.numpy().copy()
+        state = tr.run(state, iter(batches[steps_before:]), steps=steps_after, log=None)
+        record("B", tr, state)
+        np.savez(f"{out_prefix}{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def sparse_worker(rank, world, init_file, in_npz, out_prefix, ratio):
+    """Each rank's flat vector ``x<rank>`` of ``in_npz`` through the
+    sparsifying wire stages (``TopK``, ``RandomK`` with the key of seed 0,
+    step 3, bucket 1, and ``OkTopKRoute``) in one gloo group; writes each
+    stage's synced and sent vectors, and RandomK's indices, to
+    ``<out_prefix><rank>.npz``."""
+    from repro_torch.core.stages import BucketKey, OkTopKRoute, RandomK, TopK
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        group = dist.group.WORLD
+        with np.load(in_npz) as data:
+            x = torch.from_numpy(data[f"x{rank}"])
+        key = BucketKey(0, 3, 1)
+        out = {"randomk/idx": RandomK(ratio).indices(key, x.numel(), x.device).numpy()}
+        for name, stage in (("topk", TopK(ratio)), ("randomk", RandomK(ratio)),
+                            ("oktopk", OkTopKRoute(ratio))):
+            synced, sent = stage.execute_bucket(x.clone(), key, group)
+            out[f"{name}/synced"] = synced.numpy()
+            out[f"{name}/sent"] = sent.numpy()
+        np.savez(f"{out_prefix}{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()

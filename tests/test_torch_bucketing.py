@@ -101,7 +101,8 @@ def test_every_bucket_selected_once_per_cycle(interval):
 
 def test_unported_options_raise():
     """The wire cast, the arena and sharded sync are ported and accepted;
-    ``interval="auto"`` and the sparsifying compressors still raise."""
+    ``interval="auto"`` still raises.  Every compressor of the reference's
+    registry is ported (the sparsifiers last); an unknown name raises."""
     comp = get_compressor("covap", interval=4, wire_dtype="bfloat16",
                           use_arena=True, sync="sharded")
     assert comp.wire.wire_dtype == torch.bfloat16
@@ -112,5 +113,7 @@ def test_unported_options_raise():
         get_compressor("covap", interval=4, sync="ring")
     with pytest.raises(NotImplementedError):
         get_compressor("covap", interval="auto")
+    for name in ("topk", "dgc", "randomk", "oktopk"):
+        assert get_compressor(name).name == r_get_compressor(name).name == name
     with pytest.raises(KeyError):
-        get_compressor("topk")
+        get_compressor("qsgd")

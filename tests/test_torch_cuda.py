@@ -371,3 +371,55 @@ def test_fused_step_on_cuda_equals_post_step(options, kernel):
             assert streams and all(s == fwd for s in streams)
     for a, b in zip(out["post"], out["fused"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_cuda(tmp_path):
+    """A tree of card tensors (bf16 and a host int included) saved and
+    restored onto the card bit for bit, and onto the CPU when the ``like``
+    tree lies there: the caller's tree alone picks the device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch import checkpoint
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    tree = {"params": [torch.randn(300, 7, generator=gen, device="cuda"),
+                       torch.randn(9, generator=gen, device="cuda").to(torch.bfloat16)],
+            "opt": {"step": 3}, "comp": [None, torch.randn(9, generator=gen, device="cuda")]}
+    checkpoint.save(str(tmp_path), 4, tree)
+    for device in ("cuda", "cpu"):
+        like = {"params": [torch.zeros(300, 7, device=device),
+                           torch.zeros(9, dtype=torch.bfloat16, device=device)],
+                "opt": {"step": 0}, "comp": [None, torch.zeros(9, device=device)]}
+        got = checkpoint.restore(str(tmp_path), 4, like)
+        assert got["opt"]["step"] == 3 and got["comp"][0] is None
+        for a, b in zip(got["params"] + got["comp"][1:], tree["params"] + tree["comp"][1:]):
+            assert a.device.type == device and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 1_000_003])
+def test_sparsifying_stages_on_cuda_match_the_cpu(n):
+    """TopK and OkTopK (no group) on the card equal the CPU's bit for bit
+    on normal noise (no ties at the k-th magnitude); DGC's clip scales by a
+    norm summed in another order, so it is held at rtol 1e-6; RandomK's
+    draw on the card is the same for the same key and lies in range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core.stages import BucketKey, OkTopKRoute, RandomK, TopK
+
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n))
+    for stage in (TopK(0.01), OkTopKRoute(0.01)):
+        for a, b in zip(stage.execute_bucket(x.cuda(), None, None),
+                        stage.execute_bucket(x, None, None)):
+            assert torch.equal(a.cpu(), b)
+    for a, b in zip(TopK(0.001, clip_norm=1.0).execute_bucket(x.cuda(), None, None),
+                    TopK(0.001, clip_norm=1.0).execute_bucket(x, None, None)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0)
+    key = BucketKey(0, 5, 2)
+    i1 = RandomK(0.01).indices(key, n, torch.device("cuda"))
+    i2 = RandomK(0.01).indices(BucketKey(0, 5, 2), n, torch.device("cuda"))
+    assert i1.is_cuda and torch.equal(i1, i2)
+    assert int(i1.min()) >= 0 and int(i1.max()) < n
+    synced, sent = RandomK(0.01).execute_bucket(x.cuda(), key, None)
+    assert torch.equal(synced, sent) and torch.equal(synced[i1], x.cuda()[i1])

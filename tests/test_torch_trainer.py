@@ -248,7 +248,8 @@ def test_unported_train_options_raise():
     and accepted.  ``TrainConfig.interval`` stays an integer, as in the
     reference: ``interval="auto"`` raises and points to
     ``api.resolve_interval``, which resolves it (``api.fit`` and the CLI
-    call it first).  An unknown overlap and ``topk`` still raise."""
+    call it first).  An unknown overlap and an unknown compressor raise;
+    ``topk`` is ported."""
     from repro_torch.train.trainer import make_compressor
 
     tc = TrainConfig(arena=True, sync="sharded", overlap="fused")
@@ -258,8 +259,9 @@ def test_unported_train_options_raise():
         TrainConfig(interval="auto")
     with pytest.raises(ValueError, match="overlap"):
         TrainConfig(overlap="inline")
+    assert make_compressor(TrainConfig(compressor="topk")).name == "topk"
     with pytest.raises(KeyError):
-        make_compressor(TrainConfig(compressor="topk"))
+        make_compressor(TrainConfig(compressor="qsgd"))
 
 
 def test_cli_runs_on_cpu():
