@@ -86,6 +86,22 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            plan's bytes per worker per step; ``[parity] oktopk``: on the
            same gradients, ``oktopk`` in the one-rank group (its all-to-all
            and all-gather run) equals ``topk`` bit for bit
+  adaptive the adaptive runtime at full width on the defaults (COVAP I=4,
+           ``ef_update``): after 2 steps one ``PhaseProbe`` call leaves
+           params, m, v and residuals ``torch.equal`` (its times, the
+           call's seconds and peak memory printed); 6 steps under the real
+           probe (``ADAPTIVE_CONFIG``) with a ``Telemetry``, each probe's
+           ``t_full``, ``t_comp``, ``t_comm``, ``t_comm_direct`` and CCR,
+           each decision and re-plan printed, the measured CCRs replayed
+           through a fresh ``ReplanController`` to the same decisions,
+           ``ef_update.launches`` equal to the count worked out from the
+           plans the run went through, the events valid against the schema
+           and the trace's measured, planned and control rows; the
+           synthetic probe (CCR 1.6) re-planning I 4 -> 2 after step 1
+           with the residual norm carried bit for bit; and
+           ``api.tune(measured=True)`` at full width (each row's analytic
+           speedup on the paper's V100 spec beside the CCR measured on
+           the card)
   overlap  last of the card runs (the steps after a profiled one run
            slower), after a fresh fused run of 5 steps: one post and one
            fused step under ``torch.profiler``: the host
@@ -1813,6 +1829,235 @@ def phase_replan(cfg, group, batches) -> int:
     return counts["ef_update"]
 
 
+# [adaptive]: the runtime's settings and the synthetic probe's.  From I = 4
+# with this config the synthetic probe (CCR 1.6) re-plans to I = 2 after
+# step ADAPTIVE_REPLAN_STEP: the step that the "chip_smoke" case of
+# tests/test_torch_runtime.py::test_synthetic_probe_runs_replan_like_the_reference
+# finds for the reference's controller, on the same settings.
+ADAPTIVE_STEPS = 6
+ADAPTIVE_CONFIG = dict(measure_every=2, warmup_steps=1, window=1, patience=1,
+                       cooldown_steps=0, probe_warmup=1, probe_iters=2)
+ADAPTIVE_SYNTHETIC = (0.01, 1.6)
+ADAPTIVE_REPLAN_STEP = 1
+
+
+def adaptive_batches(cfg, n: int, seq_len=1024, global_batch=8) -> list[dict]:
+    from repro_torch.data import DataConfig, make_loader
+
+    loader = make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                    global_batch=global_batch), device="cuda")
+    return [loader.make(s) for s in range(n)]
+
+
+def ef_launches_of(plan_segments: dict, intervals: list[int], probes: dict,
+                   per_probe: int) -> int:
+    """``ef_update``'s launches in a run: each step runs EF on every segment
+    of its plan while the plan keeps EF (I > 1), and each probe runs
+    ``per_probe`` steps (full and compute-only) on the plan it found.
+    ``intervals[s]`` is step s's interval, ``probes`` maps a probed step to
+    the interval its probe ran under."""
+    def segs(i):
+        return plan_segments[i] if i > 1 else 0
+    return (sum(segs(i) for i in intervals)
+            + sum(per_probe * segs(i) for i in probes.values()))
+
+
+def phase_adaptive(cfg, group, smi: str) -> int:
+    """The adaptive runtime at full width on the defaults (COVAP I = 4,
+    post, ``ef_update``), in the one-rank NCCL group:
+
+    1. after 2 steps, one ``PhaseProbe`` call leaves params, Adam's m and v
+       and the residuals ``torch.equal`` to their clones;
+    2. 6 steps with the real probe (``ADAPTIVE_CONFIG``) and a
+       ``Telemetry``: every probe's times, every decision and re-plan are
+       printed; the measured CCRs replayed through a fresh
+       ``ReplanController`` give the same decisions; ``ef_update``'s
+       launches equal the count worked out from the plans the run went
+       through; the events validate against the schema and the trace has
+       its measured, planned and control rows;
+    3. the synthetic probe from I = 4 re-plans to 2 after step
+       ``ADAPTIVE_REPLAN_STEP`` and carries the residual norm bit for bit;
+    4. ``api.tune(measured=True)`` on the card.
+    -> ``ef_update``'s launches in 1-3."""
+    import os
+    import tempfile
+
+    import repro_torch.api as api
+    from repro_torch.core import build_plan
+    from repro_torch.obs import Telemetry, validate_event
+    from repro_torch.runtime import (AdaptiveRuntime, AutotuneConfig, PhaseProbe,
+                                     ReplanController, synthetic_probe)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = adaptive_batches(cfg, ADAPTIVE_STEPS)
+    per_probe = 2 * (ADAPTIVE_CONFIG["probe_warmup"] + ADAPTIVE_CONFIG["probe_iters"])
+    total = 0
+
+    # 1. the probe leaves the state alone
+    counters = zero_counters()
+    tr, state = fresh_trainer(cfg, group)
+    model = tr.model
+    plan_segments = {i: build_plan(model.named_leaves(), bucket_bytes=tr.tc.bucket_bytes,
+                                   max_buckets=tr.tc.max_buckets, interval=i).num_segments
+                     for i in (1, 2, 4)}
+    state = tr.run(state, iter(batches[:2]), steps=2, log=None)
+    before = state_parts(state)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    probe = PhaseProbe(tr, warmup=ADAPTIVE_CONFIG["probe_warmup"],
+                       iters=ADAPTIVE_CONFIG["probe_iters"])
+    t0 = time.perf_counter()
+    sample = probe(state, batches[2], state["step"] % tr.num_phases)
+    probe_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = state_parts(state)
+    for part in before:
+        check(all(torch.equal(a, b) for a, b in zip(after[part], before[part])),
+              f"adaptive: the probe changed the live {part}")
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = (2 + per_probe) * plan_segments[4]
+    check(counts == launch_counts(ef_update=want),
+          f"adaptive: launches {counts} in 2 steps and one probe, want ef_update {want}")
+    total += counts["ef_update"]
+    res = probe.last
+    print(f"[adaptive] probe state: after 2 steps, one PhaseProbe call (phase "
+          f"{res['phase']}, warmup 1, iters 2) leaves params, m, v and residuals "
+          f"torch.equal; t_full {res['t_full'] * 1e3:.2f} ms, t_comp "
+          f"{res['t_comp'] * 1e3:.2f} ms, t_comm {res['t_comm'] * 1e3:.3f} ms, "
+          f"t_comm_direct {res['t_comm_direct'] * 1e3:.3f} ms, CCR {sample.ccr:.5f}, "
+          f"achieved overlap {sample.achieved_overlap}; the call took {probe_s:.2f} s; "
+          f"peak {peak:.2f} GiB against {base:.2f} GiB held before it; launches "
+          f"{counts} ({smi})", flush=True)
+    del tr, state, before, after, probe, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the real probe through Trainer.run, with telemetry
+    counters = zero_counters()
+    tr, state = fresh_trainer(cfg, group)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_") as tmp:
+        tel = Telemetry(tmp)
+        rt = AdaptiveRuntime(tr, AutotuneConfig(**ADAPTIVE_CONFIG))
+        print(f"[adaptive] prediction: one rank, so the probe's comm term is the "
+              f"one-rank NCCL floor and CCR << 0.75; the first probe (after step "
+              f"1) leaves I=4's band and re-plans to I=1 (EF off, residual "
+              f"dropped), so ef_update launches (2 + {per_probe}) x "
+              f"{plan_segments[4]} = {(2 + per_probe) * plan_segments[4]}", flush=True)
+        intervals, probes, probe_lines = [], {}, []
+        for s in range(ADAPTIVE_STEPS):
+            intervals.append(tr.tc.interval)
+            last = rt.phase_probe.last
+            state = tr.run(state, iter(batches[s:s + 1]), steps=1, log=None,
+                           autotune=rt, telemetry=tel)
+            res = rt.phase_probe.last
+            if res is not last and res is not None:
+                probes[s] = intervals[-1]
+                probe_lines.append(
+                    f"after step {s} (phase {res['phase']}, I={intervals[-1]}): t_full "
+                    f"{res['t_full'] * 1e3:.2f} ms, t_comp {res['t_comp'] * 1e3:.2f} ms, "
+                    f"t_comm {res['t_comm'] * 1e3:.3f} ms, t_comm_direct "
+                    f"{res['t_comm_direct'] * 1e3:.3f} ms, CCR {res['ccr']:.5f}")
+        tel.save()
+        tel.close()
+        with open(os.path.join(tmp, "events.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        with open(os.path.join(tmp, "trace.json")) as f:
+            trace = json.load(f)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    ctrl = rt.controller
+    decisions = ctrl.decisions
+    check(len(decisions) == len(probes) == 3, f"adaptive: {len(decisions)} decisions, "
+          f"probes after steps {sorted(probes)}")
+    replay = ReplanController(AutotuneConfig(**ADAPTIVE_CONFIG), interval=4)
+    steps_probed = sorted(probes)
+    replayed = [replay.observe(s, d.measured_ccr) for s, d in zip(steps_probed, decisions)]
+    check(replayed == decisions, f"adaptive: replayed decisions {replayed} != {decisions}")
+    want = ef_launches_of(plan_segments, intervals, probes, per_probe)
+    check(counts == launch_counts(ef_update=want),
+          f"adaptive: launches {counts}; from the plans (intervals by step "
+          f"{intervals}, probes {probes}) ef_update {want}")
+    total += counts["ef_update"]
+    kinds = [e["kind"] for e in events]
+    bad = [(e["kind"], validate_event(e)) for e in events if validate_event(e)]
+    check(not bad, f"adaptive: events that do not validate: {bad[:3]}")
+    check(kinds.count("probe") == kinds.count("replan_decision") == 3
+          and kinds.count("replan") == ctrl.replans and kinds[0] == "manifest",
+          f"adaptive: event kinds {kinds}")
+    cats = {c for e in trace["traceEvents"] for c in e.get("cat", "").split(",") if c}
+    check({"measured", "planned"} <= cats and ("control" in cats) == (ctrl.replans > 0),
+          f"adaptive: trace categories {cats} with {ctrl.replans} re-plan(s)")
+    for line in probe_lines:
+        print(f"[adaptive] real probe {line} ({smi})", flush=True)
+    for s, d in zip(steps_probed, decisions):
+        print(f"[adaptive] decision after step {s}: replan={d.replan} I={d.interval} "
+              f"measured CCR {d.measured_ccr!r} ({d.reason})", flush=True)
+    for rep in rt.transitions:
+        print(f"[adaptive] re-plan at step {rep.step}: I {rep.old_interval} -> "
+              f"{rep.new_interval}, {rep.policy}, residual norm {rep.norm_before!r} -> "
+              f"{rep.norm_after!r}", flush=True)
+    s = rt.summary()
+    print(f"[adaptive] real probe run: {ADAPTIVE_STEPS} steps, intervals by step "
+          f"{intervals}, {ctrl.replans} re-plan(s), final I={tr.tc.interval}; losses "
+          f"{[round(h['loss'], 4) for h in tr.history]}; replayed decisions equal; "
+          f"{len(events)} events valid ({sorted(set(kinds))}), trace rows "
+          f"{sorted(cats)}; mean timed step {s['monitor']['mean_step_s'] * 1e3:.1f} ms; "
+          f"launches {counts} ({smi})", flush=True)
+    del tr, state, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the synthetic probe: no clock, a re-plan to I = 2 with the norm carried
+    counters = zero_counters()
+    tr, state = fresh_trainer(cfg, group)
+    cfg_syn = AutotuneConfig(**ADAPTIVE_CONFIG, probe=synthetic_probe(*ADAPTIVE_SYNTHETIC))
+    state = tr.run(state, iter(batches), steps=ADAPTIVE_STEPS, log=None, autotune=cfg_syn)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    (rep,) = tr.transitions
+    check(tr.runtime.controller.replan_steps == [ADAPTIVE_REPLAN_STEP]
+          and tr.tc.interval == 2 and rep.policy == "carry"
+          and rep.norm_before == rep.norm_after,
+          f"adaptive: synthetic re-plans {tr.runtime.controller.replan_steps} to "
+          f"I={tr.tc.interval}, {rep}")
+    intervals = [4] * (ADAPTIVE_REPLAN_STEP + 1) + [2] * (ADAPTIVE_STEPS
+                                                          - ADAPTIVE_REPLAN_STEP - 1)
+    want = ef_launches_of(plan_segments, intervals, {}, per_probe)
+    check(counts == launch_counts(ef_update=want),
+          f"adaptive: synthetic launches {counts}, want ef_update {want}")
+    check(all(math.isfinite(h["loss"]) for h in tr.history), "adaptive: synthetic loss")
+    total += counts["ef_update"]
+    print(f"[adaptive] synthetic probe (t_comp {ADAPTIVE_SYNTHETIC[0]}, CCR "
+          f"{ADAPTIVE_SYNTHETIC[1]}): re-plan after step {ADAPTIVE_REPLAN_STEP}, I 4 -> 2, "
+          f"carry, residual norm {rep.norm_before!r} -> {rep.norm_after!r} (bit for "
+          f"bit); launches {counts}", flush=True)
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. api.tune with the measured column, on the card
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    rows = api.tune("gpt2-paper", reduced=False, seq_len=1024, global_batch=8,
+                    bucket_bytes=25 << 20, max_buckets=128, dp_workers=8,
+                    measured=True, measure_steps=1, device="cuda")
+    tune_s = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    check(counts == launch_counts(), f"adaptive: tune launches {counts}")
+    check(all(math.isfinite(r["measured_ccr"]) and r["measured_interval"] >= 1
+              for r in rows), f"adaptive: tune rows {rows}")
+    for r in rows:
+        print(f"[adaptive] tune {r['compressor']}: analytic speedup {r['speedup']:.3f} "
+              f"of 8 on the paper's V100 + 30 Gbps spec (HardwareSpec."
+              f"cloud_v100_30gbps), modelled overlap {r['overlap_frac_modeled']:.3f}; "
+              f"measured CCR on the card {r['measured_ccr']:.5f} -> I="
+              f"{r['measured_interval']}, achieved overlap {r['overlap_frac_achieved']} "
+              f"({smi})", flush=True)
+    print(f"[adaptive] api.tune(measured=True) at full width took {tune_s:.1f} s",
+          flush=True)
+    return total
+
+
 def phase_oktopk_parity(tr, state, loader, group) -> None:
     """On the same gradients and residuals, ``oktopk`` in the one-rank
     group against ``topk``: the synced values and the new residuals bit for
@@ -1935,7 +2180,7 @@ def phase_small() -> None:
 
 
 def main() -> int:
-    phase_device()
+    _, smi = phase_device()
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -2055,6 +2300,7 @@ def main() -> int:
                 phase_oktopk_parity(tr, state, loader, group)
             del tr, state, loader
             torch.cuda.empty_cache()
+        records[0]["launches_by_run"]["adaptive"] = phase_adaptive(cfg, group, smi)
         # last, since the steps that follow a profiled one run slower: a
         # fresh fused run, then one profiled post and fused step
         tr, state, loader, launches = phase_train(

@@ -1,7 +1,7 @@
 """COVAP in PyTorch: the port of ``repro`` to PyTorch and CUDA on Hopper.
 
 The package mirrors the JAX package's module names (``api``,
-``checkpoint``, ``configs``, ``data``, ``kernels``, ``models``, ``optim``,
+``checkpoint``, ``configs``, ``data``, ``kernels``, ``models``, ``obs``, ``optim``,
 ``core``, ``runtime``, ``train``, ``launch``) so that each module has an obvious counterpart.  It imports neither JAX nor
 the JAX package.  Entry points run on the GPU (``device="cuda"``) unless
 the caller passes ``device="cpu"``; they never fall back on their own.
@@ -25,6 +25,7 @@ _SUBMODULES = (
     "kernels",
     "launch",
     "models",
+    "obs",
     "optim",
     "runtime",
     "train",

@@ -1,14 +1,16 @@
-"""The port's library surface: ``repro_torch.api.fit`` and
-``plan_report`` (the counterpart of ``repro.api``; ``tune`` waits for the
-perf model, ``ROADMAP.md`` queue 1 "CCR, perf model and adaptive
-runtime").
+"""The port's library surface: ``repro_torch.api.fit``, ``plan_report``
+and ``tune`` (the counterpart of ``repro.api``).
 
 * :func:`fit` trains an architecture with a registered compressor.
   ``interval="auto"`` resolves the paper's adaptive rule ``I =
-  ceil(analytic_ccr)`` (SS III.B) before the first step.
+  ceil(analytic_ccr)`` (SS III.B) before the first step;
+  ``interval="adaptive"`` starts there and re-plans online from the
+  measured CCR (``runtime``).
 * :func:`plan_report` gives everything static about a run (the resolved
   interval, each phase's ``CommSchedule`` summary, the analytic step times
   and the CCR left after compression) without running anything.
+* :func:`tune` ranks candidate compressors for a workload by the
+  schedule-driven overlap timeline (eq (6) with real planned volumes).
 
     import repro_torch.api as api
     result = api.fit("gpt2-paper", reduced=True, interval="auto", steps=20)
@@ -17,7 +19,7 @@ runtime").
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable
+from typing import Any, Iterable, Sequence
 
 import torch
 
@@ -31,9 +33,16 @@ from .core.ccr import (
     select_interval,
 )
 from .core.comm import flat_axis_index, world_size
-from .core.schedule import CommSchedule, plan_all_phases
+from .core.perfmodel import (
+    cycle_speedup,
+    overlap_fraction,
+    pack_overhead_s,
+    simulate_schedule,
+)
+from .core.schedule import CommSchedule, mean_bytes_per_step, plan_all_phases
 from .data import DataConfig, make_loader
 from .models import build_model, count_params, param_shapes
+from .obs import as_telemetry
 from .optim import adamw, cosine_warmup, sgd
 from .train.trainer import TrainConfig, Trainer
 
@@ -61,15 +70,14 @@ def resolve_interval(interval, cfg, *, global_batch: int, seq_len: int,
     """The paper's adaptive compression ratio as a library call: with
     ``interval="auto"``, ``I = ceil(analytic_ccr)`` on the paper's
     environment (V100 + 30 Gbps Ethernet) unless ``hw`` is given; an
-    integer passes through.  ``"adaptive"`` (the online re-planning
-    runtime) is not ported."""
-    if interval == "adaptive":
-        raise _not_ported("interval='adaptive'", "CCR, perf model and adaptive runtime")
+    integer passes through.  ``interval="adaptive"`` resolves the same way:
+    the analytic pick is the *initial* interval, which the online runtime
+    then re-plans from the measured CCR."""
     hw = hw or HardwareSpec.cloud_v100_30gbps()
     n_active = count_params(cfg, active_only=True)
     flops = 6.0 * n_active * global_batch * seq_len / max(dp_world, 1)
     grad_bytes = count_params(cfg) * 4
-    if interval != "auto":
+    if interval not in ("auto", "adaptive"):
         return IntervalChoice(int(interval), None, False, dp_world, grad_bytes, flops)
     ccr = analytic_ccr(step_flops_per_chip=flops, grad_bytes=grad_bytes,
                        dp_world=max(dp_world, 1), hw=hw)
@@ -128,11 +136,13 @@ class FitResult:
     interval: int
     ccr: float | None
     schedules: list[CommSchedule]
+    autotune: dict | None = None   # the AdaptiveRuntime's summary (adaptive mode)
+    telemetry: Any = None          # the repro_torch.obs.Telemetry when armed
 
     @property
     def final_interval(self) -> int:
-        """The interval the run ended with (no online re-planning is ported,
-        so ``interval``)."""
+        """The interval after any online re-planning (``interval`` when the
+        run was static)."""
         return self.trainer.tc.interval
 
     @property
@@ -180,16 +190,20 @@ def fit(arch: str = "gpt2-paper", *, reduced: bool = True, compressor: str = "co
     the synthetic loader.  ``overlap="fused"``, ``arena=True`` and
     ``sync="sharded"`` pick the execution forms of ``TrainConfig``.
 
-    Not ported (they raise ``NotImplementedError``): ``interval="adaptive"``
-    and ``autotune`` (the adaptive runtime), ``telemetry``, ``guards`` and
-    ``faults``."""
-    for value, what, item in (
-            (autotune, "autotune", "CCR, perf model and adaptive runtime"),
-            (telemetry, "telemetry", "Observability and resilience"),
-            (guards, "guards", "Observability and resilience"),
-            (faults, "faults", "Observability and resilience")):
+    ``interval="adaptive"`` starts from the analytic pick and arms the
+    adaptive runtime (``repro_torch.runtime``): the measured CCR re-plans
+    the interval online, the EF residuals carried across each switch.
+    ``autotune`` passes an ``AutotuneConfig`` (or True) to tune the policy;
+    it may also be given with a numeric ``interval``.  ``telemetry`` (None
+    | directory path | ``repro_torch.obs.Telemetry``) records the run; the
+    bundle comes back as ``FitResult.telemetry``.
+
+    Not ported (they raise ``NotImplementedError``): ``guards`` and
+    ``faults``, the resilience runtime."""
+    for value, what in ((guards, "guards"), (faults, "faults")):
         if value is not None:
-            raise _not_ported(what, item)
+            raise _not_ported(f"{what} (the resilience runtime)",
+                              "Observability and resilience")
     cfg = _config(arch, reduced=reduced, vocab_size=vocab_size)
     dp_world = world_size(group) if group is not None else dp_workers
     choice = resolve_interval(interval, cfg, global_batch=global_batch,
@@ -208,10 +222,16 @@ def fit(arch: str = "gpt2-paper", *, reduced: bool = True, compressor: str = "co
         batches = _worker_batches(
             DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                        global_batch=global_batch), device, group)
-    state = tr.run(state, iter(batches), steps=steps, log=log)
+    if interval == "adaptive" and autotune is None:
+        autotune = True
+    tel = as_telemetry(telemetry)
+    state = tr.run(state, iter(batches), steps=steps, log=log, autotune=autotune,
+                   telemetry=tel)
     return FitResult(trainer=tr, state=state, history=tr.history,
                      interval=choice.interval, ccr=choice.ccr,
-                     schedules=tr.schedules())
+                     schedules=tr.schedules(),
+                     autotune=tr.runtime.summary() if tr.runtime is not None else None,
+                     telemetry=tel if tel.enabled else None)
 
 
 def plan_report(arch: str = "gpt2-paper", *, reduced: bool = True,
@@ -251,4 +271,137 @@ def plan_report(arch: str = "gpt2-paper", *, reduced: bool = True,
     }
 
 
-__all__ = ["FitResult", "IntervalChoice", "fit", "plan_report", "resolve_interval"]
+_TUNE_CANDIDATES = (
+    ("covap", {}),
+    ("none", {}),
+    ("fp16", {}),
+    ("topk", {"ratio": 0.01}),
+    ("randomk", {"ratio": 0.01}),
+    ("efsignsgd", {}),
+    ("powersgd", {"rank": 2}),
+    ("oktopk", {"ratio": 0.01}),
+    ("fp8wire", {}),
+)
+
+
+def tune(arch: str = "gpt2-paper", *, reduced: bool = True,
+         candidates: Sequence[tuple[str, dict]] = _TUNE_CANDIDATES,
+         interval: int | str = "auto", seq_len: int = 32, global_batch: int = 8,
+         dp_workers: int = 8, bucket_bytes: int = 1 << 14, max_buckets: int = 32,
+         hw: HardwareSpec | None = None, measured: bool = False,
+         measure_steps: int = 2, arena: bool = False, telemetry=None,
+         device: str = "cuda") -> list[dict]:
+    """Rank compressors for a workload by the schedule-driven overlap
+    timeline (eq (6) with each one's planned volumes), best modelled
+    speedup first.  Data-dependent exchanges (all-to-all) lose their
+    overlap, as in the paper's Fig. 1(e).  The analytic columns are priced
+    on ``hw``, by default the paper's environment (V100 + 30 Gbps
+    Ethernet), whatever device runs the program.
+
+    ``arena=True`` puts the arena's pack pass (``perfmodel.pack_overhead_s``)
+    on the timeline's compute lane, as ``fit(arena=True)`` runs it; the
+    ``pack_overhead_us`` column is there either way.
+
+    ``measured=True`` also runs the online profiler
+    (``runtime.measure_workload_ccr``) on the dense workload on ``device``
+    (the GPU unless the caller passes ``"cpu"``): ``measure_steps`` real
+    steps, then one probe of the phase.  Every row then carries the
+    measured CCR, the interval it implies and the achieved overlap.  On one
+    worker the measured comm time is about 0.  ``telemetry`` gets one
+    ``tune_row`` event and two gauges a row."""
+    hw = hw or HardwareSpec.cloud_v100_30gbps()
+    cfg, choice, plan, times = _static_setup(
+        arch, reduced=reduced, interval=interval, seq_len=seq_len,
+        global_batch=global_batch, dp_workers=dp_workers,
+        bucket_bytes=bucket_bytes, max_buckets=max_buckets, hw=hw,
+    )
+    measured_row = None
+    if measured:
+        measured_row = _measured_workload_ccr(
+            cfg, seq_len=seq_len, global_batch=global_batch,
+            bucket_bytes=bucket_bytes, max_buckets=max_buckets,
+            steps=measure_steps, device=device,
+        )
+    rows = []
+    for name, opts in candidates:
+        opts = _compressor_opts(name, opts, choice.interval)
+        comp = get_compressor(name, **opts)
+        schedules = plan_all_phases(comp, plan, world=dp_workers)
+        data_dep = any(c.op == "all_to_all" for s in schedules for c in s.calls)
+        speedup = cycle_speedup(
+            dp_workers, times["t_before"], times["t_comp"], schedules,
+            world=dp_workers, link_bw=hw.ici_bw, data_dependency=data_dep,
+        )
+        mean_bytes = mean_bytes_per_step(schedules)
+        # the arena's pack pass, one streaming sweep of device memory a
+        # phase: priced into the timeline below and kept as its own column
+        ef_on = getattr(comp, "ef", None) is not None
+        packs = [pack_overhead_s(s, hbm_bw=hw.hbm_bw, ef=ef_on) for s in schedules]
+        pack_us = sum(packs) / max(len(packs), 1) * 1e6
+        # the predicted overlap fraction: the eq-(6) timeline in the fused
+        # overlap's issue order (ReadyOrder)
+        sims = [
+            simulate_schedule(
+                times["t_before"], times["t_comp"], s,
+                world=dp_workers, link_bw=hw.ici_bw,
+                t_pack=t_pack if arena else 0.0,
+                data_dependency=data_dep, ready_order=True,
+            )
+            for s, t_pack in zip(schedules, packs)
+        ]
+        predicted_overlap = sum(overlap_fraction(s) for s in sims) / max(len(sims), 1)
+        row = {
+            "compressor": name,
+            "options": opts,
+            "speedup": speedup,
+            "efficiency": speedup / max(dp_workers, 1),
+            "mean_bytes_per_step": mean_bytes,
+            "volume_ratio": schedules[0].dense_bytes / max(mean_bytes, 1),
+            "data_dependency": data_dep,
+            "num_phases": len(schedules),
+            "analytic_ccr": times["ccr"],
+            "overlap_frac_modeled": predicted_overlap,
+            "pack_overhead_us": pack_us,
+        }
+        if measured_row is not None:
+            row["measured_ccr"] = measured_row["ccr"]
+            row["measured_interval"] = measured_row["interval"]
+            # what the executed dense step hid, beside the model's prediction
+            row["overlap_frac_achieved"] = measured_row.get("achieved_overlap")
+        rows.append(row)
+    rows.sort(key=lambda r: -r["speedup"])
+    tel = as_telemetry(telemetry)
+    if tel.enabled:
+        for row in rows:
+            tel.events.emit("tune_row", compressor=row["compressor"], row=row)
+            tel.registry.gauge("tune_speedup", "modeled cycle speedup",
+                               compressor=row["compressor"]).set(row["speedup"])
+            tel.registry.gauge(
+                "tune_overlap_frac_modeled", "predicted overlap fraction",
+                compressor=row["compressor"],
+            ).set(row["overlap_frac_modeled"])
+    return rows
+
+
+def _measured_workload_ccr(cfg, *, seq_len: int, global_batch: int, bucket_bytes: int,
+                           max_buckets: int, steps: int, device: str) -> dict:
+    """A few real dense steps on ``device`` through the measured profiler:
+    what the hardware delivers for this workload, as a CCR and an
+    interval."""
+    from .runtime import measure_workload_ccr
+
+    model = build_model(cfg, device=device, seed=0)
+    tc = TrainConfig(compressor="none", interval=1, bucket_bytes=bucket_bytes,
+                     max_buckets=max_buckets, log_every=10 ** 9)
+    tr = Trainer(model, sgd(1e-3), tc)
+    state = tr.init_state()
+    batch = next(iter(make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                             global_batch=global_batch), device=device)))
+    state = tr.run(state, iter([batch] * max(steps, 1)), steps=max(steps, 1), log=None)
+    out = measure_workload_ccr(tr, state, batch)
+    out["interval"] = select_interval(out["ccr"])
+    return out
+
+
+__all__ = ["FitResult", "IntervalChoice", "fit", "plan_report", "resolve_interval",
+           "tune"]

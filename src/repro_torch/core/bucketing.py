@@ -72,6 +72,9 @@ class BucketPlan:
     def total_numel(self) -> int:
         return sum(b.numel for b in self.buckets)
 
+    def bucket_numels(self) -> list[int]:
+        return [b.numel for b in self.buckets]
+
 
 def _row_count(shape: tuple[int, ...]) -> int:
     return shape[0] if shape else 1

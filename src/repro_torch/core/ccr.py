@@ -1,22 +1,32 @@
 """CCR (communication-to-computation ratio) estimation and interval
-selection (paper SS III.B): the analytic half of ``repro.core.ccr``.
+selection (paper SS III.B), the counterpart of ``repro.core.ccr``.
 
-The analytic profiler takes the communication volume and the FLOPs of a
-step from the configuration, before anything runs.  The adaptive rule is
-the paper's: ``I = ceil(CCR)``, a little more compression than strictly
-needed, so that the remaining communication fits under the backward pass.
+Two estimators:
+
+* ``analytic_ccr`` takes the communication volume and the FLOPs of a step
+  from the configuration, before anything runs;
+* ``measure_ccr`` / ``align_comm_times`` are the paper's measured
+  profiler: a full step timed against a communication-free one, and the
+  distributed timeline alignment, under which a collective's transfer
+  starts when the *last* worker arrives (``end - max_w(start_w)``).  The
+  adaptive runtime (``runtime.monitor.PhaseProbe``) consumes it.
+
+The adaptive rule is the paper's: ``I = ceil(CCR)``, a little more
+compression than strictly needed, so that the remaining communication fits
+under the backward pass.
 
 :class:`HardwareSpec` carries no accelerator default: the paper's
 environment (V100 + 30 Gbps Ethernet, :meth:`HardwareSpec.cloud_v100_30gbps`)
 is the port's named spec and the fallback wherever the caller passes none.
-The measured profiler (``measure_ccr``, ``align_comm_times``) is not ported
-yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+import time
+from typing import Callable, Sequence
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,12 +112,61 @@ def compressed_ccr(schedules: Sequence, *, t_comp: float, world: int,
     return t_comm / max(t_comp, 1e-12)
 
 
+def align_comm_times(starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    """Distributed-profiler alignment (paper SS III.B, Fig. 3).
+
+    ``starts`` / ``ends``: ``(workers, ops)`` wall-clock times of each
+    collective.  Returns the ``(ops,)`` transfer times ``min_w(end) -
+    max_w(start)``: the time early workers spend waiting at the rendezvous
+    is excluded."""
+    starts = np.asarray(starts, dtype=np.float64)
+    ends = np.asarray(ends, dtype=np.float64)
+    return ends.min(axis=0) - starts.max(axis=0)
+
+
+def measure_ccr(step_full: Callable[[], None], step_compute_only: Callable[[], None],
+                *, step_comm_only: Callable[[], None] | None = None,
+                warmup: int = 2, iters: int = 5) -> dict:
+    """Measured profiler: times a full data-parallel step against a
+    communication-free one and derives ``CCR = (T_full - T_comp) / T_comp``.
+
+    Each callable must return only once its work is done (on the GPU, after
+    a device synchronisation): the clock is the host's ``time.perf_counter``
+    around ``iters`` calls after ``warmup`` untimed ones, so the step's host
+    time counts as the user pays for it.  ``step_comm_only`` (the phase's
+    planned collectives on zero buffers) adds a ``t_comm_direct``
+    cross-check: under full overlap ``t_full - t_comp`` undershoots the wire
+    time, so the reported ``t_comm`` is the larger of the two."""
+
+    def timed(fn):
+        for _ in range(warmup):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters
+
+    t_full = timed(step_full)
+    t_comp = timed(step_compute_only)
+    t_comm = max(t_full - t_comp, 0.0)
+    out = {"t_full": t_full, "t_comp": t_comp}
+    if step_comm_only is not None:
+        t_direct = timed(step_comm_only)
+        out["t_comm_direct"] = t_direct
+        t_comm = max(t_comm, t_direct)
+    out["t_comm"] = t_comm
+    out["ccr"] = t_comm / max(t_comp, 1e-12)
+    return out
+
+
 __all__ = [
     "HardwareSpec",
+    "align_comm_times",
     "allreduce_bytes_on_wire",
     "analytic_ccr",
     "analytic_times",
     "compressed_ccr",
+    "measure_ccr",
     "schedule_comm_seconds",
     "select_interval",
 ]

@@ -21,10 +21,17 @@ EF residuals) every N steps and at the end; ``--resume`` restarts from the
 latest checkpoint in D, re-planning through ``Trainer.replan`` when the
 saved interval differs.  As in the reference, the resumed run's data
 stream starts again from the loader's first batch.
+
+``--adaptive`` (implied by ``--interval adaptive``) arms the adaptive
+runtime: one ``AdaptiveRuntime`` for the whole run re-plans the interval
+from the measured CCR and prints an ``[autotune]`` summary line at the end.
+``--telemetry-dir D`` streams ``events.jsonl`` into D and writes
+``metrics.prom``, ``metrics.json`` and ``trace.json`` there at the end.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -42,7 +49,8 @@ def pick_interval(args, cfg) -> int:
     """``api.resolve_interval``: ``I = ceil(analytic_ccr)`` for ``auto``,
     modelled on the paper's environment for a ``--dp-workers`` run."""
     choice = resolve_interval(
-        args.interval if args.interval == "auto" else int(args.interval), cfg,
+        args.interval if args.interval in ("auto", "adaptive") else int(args.interval),
+        cfg,
         global_batch=args.global_batch, seq_len=args.seq_len,
         dp_world=max(args.dp_workers, 1),
     )
@@ -86,9 +94,18 @@ def main(argv=None):
     ap.add_argument("--overlap", default="post", choices=["post", "fused"],
                     help="gradient-sync placement: after the backward pass "
                          "(default) or each bucket started inside it")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="arm the adaptive runtime: re-plan the interval "
+                         "online from the measured CCR")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="write events.jsonl (streamed), metrics.prom, "
+                         "metrics.json and trace.json into this directory")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.interval == "adaptive":
+        # as api.fit: the analytic pick first, then the online runtime
+        args.adaptive = True
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     interval = pick_interval(args, cfg)
@@ -146,25 +163,53 @@ def main(argv=None):
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                     global_batch=args.global_batch)
     loader = iter(make_loader(dc, device=args.device))
+    autotune = None
+    if args.adaptive:
+        # one runtime for the whole run: the chunked (checkpoint-every)
+        # calls must not reset the controller's patience and cooldown
+        from ..runtime import AdaptiveRuntime
+
+        autotune = AdaptiveRuntime(tr)
+    telemetry = None
+    if args.telemetry_dir:
+        from ..obs import Telemetry
+
+        telemetry = Telemetry(args.telemetry_dir)
+        print(f"[telemetry] streaming events to "
+              f"{os.path.join(args.telemetry_dir, 'events.jsonl')}")
     t0 = time.perf_counter()
     done = 0
     while done < args.steps:
         chunk = args.steps - done
         if args.ckpt_dir and args.ckpt_every > 0:
             chunk = min(chunk, args.ckpt_every)
-        state = tr.run(state, loader, steps=chunk)
+        state = tr.run(state, loader, steps=chunk, autotune=autotune,
+                       telemetry=telemetry)
         done += chunk
         if args.ckpt_dir and (args.ckpt_every > 0 or done >= args.steps):
             path = checkpoint.save_train_state(
                 args.ckpt_dir, state, interval=tr.tc.interval, names=tr.leaf_names)
             print(f"[ckpt] saved {path} (params + opt + EF residuals)")
+            if telemetry is not None:
+                telemetry.events.emit("checkpoint", step=int(state["step"]), path=path)
     if model.embed["table"].is_cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tokens = args.steps * args.global_batch * args.seq_len
     last = tr.history[-1]
     print(f"[done] {wall:.1f}s, {tokens/wall:.0f} tok/s, "
-          f"final loss {last['loss']:.4f}")
+          f"final loss {last.get('loss', last['total_loss']):.4f}")
+    if args.adaptive and tr.runtime is not None:
+        s = tr.runtime.summary()
+        print(f"[autotune] measured CCR {(s['measured_ccr'] or 0.0):.3f}, "
+              f"interval {s['interval']}, {s['replans']} re-plan(s)")
+    if telemetry is not None:
+        if tr.runtime is not None:
+            tr.runtime.finish()     # the planned per-bucket spans -> trace
+        paths = telemetry.save()
+        telemetry.close()
+        print(f"[telemetry] {paths['snapshot']}  {paths['prom']}  "
+              f"{paths['trace']} (open in Perfetto)")
 
 
 if __name__ == "__main__":

@@ -29,7 +29,10 @@ hierarchical pods).
 resolve ``"auto"`` first (``repro_torch.api.resolve_interval``, which
 ``api.fit`` and the CLI call).  :meth:`Trainer.replan` adopts another
 interval between steps, carrying the EF residuals across
-(``runtime.transitions``).  Hierarchical pods are not ported.
+(``runtime.transitions``); ``Trainer.run(autotune=...)`` re-plans online
+from the measured CCR (``runtime.controller``), and ``telemetry=`` records
+the run (``obs``).  Hierarchical pods and the resilience runtime are not
+ported.
 """
 from __future__ import annotations
 
@@ -52,7 +55,9 @@ from ..core.overlap import (
     supports_fused_overlap,
 )
 from ..core.schedule import CommSchedule, mean_bytes_per_step
+from ..obs import NULL_TELEMETRY, as_telemetry, plan_digest
 from ..optim import Optimizer, apply_updates, clip_by_global_norm, global_norm
+from ..runtime.monitor import synchronize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,6 +300,8 @@ class Trainer:
         self._pending_sync = False
         self.gather_events: list[tuple[str, int]] = []
         self.last_step_fn: Callable | None = None
+        self.runtime = None                 # the AdaptiveRuntime of run(autotune=)
+        self.telemetry = NULL_TELEMETRY     # the bundle of run(telemetry=)
         if tc.overlap == "fused":
             _require_fused(self.compressor)
 
@@ -365,6 +372,9 @@ class Trainer:
         if not self.sharded or not self._pending_sync:
             return state
         self._pending_sync = False
+        if self.telemetry.enabled:
+            self.telemetry.events.emit("flush", step=int(state["step"]),
+                                       reason="deferred-allgather")
         if self.group is None:
             return state
         schedule = self.compressor.plan_phase(self.plan, 0, world=self.dp_world)
@@ -453,22 +463,98 @@ class Trainer:
         return out
 
     def run(self, state: dict, batches: Iterable[dict], steps: int | None = None,
-            log=print) -> dict:
+            log=print, autotune=None, telemetry=None, guards=None,
+            faults=None) -> dict:
+        """Host loop.  ``autotune`` (None | True | ``AutotuneConfig`` | a live
+        ``AdaptiveRuntime``) arms the adaptive runtime: measured-CCR
+        probes, hysteresis re-planning and timeline tracing.  A live
+        ``AdaptiveRuntime`` keeps its monitor and controller across chunked
+        ``run`` calls (checkpoint-every loops).  A step is timed only when
+        the runtime will probe after it (``due_next``), and that step alone
+        ends in a device synchronisation.
+
+        ``telemetry`` (None | directory path | ``repro_torch.obs.Telemetry``)
+        records a run manifest and step records into the event log, the
+        step counter, loss and gradient norm into the registry, and the
+        adaptive runtime's spans and decisions into the bundle, all at the
+        log cadence, where the metrics are read anyway.
+
+        With ``autotune=None`` and ``telemetry=None`` the loop is the static
+        one.  ``guards`` and ``faults`` (the resilience runtime) are not
+        ported and raise ``NotImplementedError``."""
+        if guards is not None or faults is not None:
+            raise NotImplementedError(
+                "guards= and faults= (the resilience runtime, repro.resilience) "
+                "are not ported; ROADMAP.md queue 1, 'Observability and resilience'")
         steps = steps if steps is not None else self.tc.steps
+        tel = as_telemetry(telemetry)
+        if tel.enabled:
+            self.telemetry = tel
+            tel.manifest_once(
+                role="train",
+                config=dataclasses.asdict(self.tc),
+                plan={
+                    "digest": plan_digest(self.plan),
+                    "num_buckets": self.plan.num_buckets,
+                    "num_phases": self.num_phases,
+                    "bucket_bytes_target": self.plan.bucket_bytes_target,
+                },
+                world=self.dp_world,
+                mesh=None,
+            )
+        rt = None
+        if autotune is not None and autotune is not False:
+            from ..runtime import AdaptiveRuntime, as_autotune_config
+
+            if isinstance(autotune, AdaptiveRuntime):
+                rt = self.runtime = autotune
+            else:
+                rt = self.runtime = AdaptiveRuntime(self, as_autotune_config(autotune))
+            if tel.enabled:
+                rt.attach_telemetry(tel)
+        steps_c = tel.registry.counter("train_steps_total", "optimizer steps completed")
+        loss_g = tel.registry.gauge("train_loss", "last logged total loss")
+        gnorm_g = tel.registry.gauge("train_grad_norm",
+                                     "last logged global gradient norm")
         it = iter(batches)
         t0 = time.perf_counter()
         for i in range(steps):
-            state, metrics = self.step(state, next(it))
+            batch = next(it)
+            phase = state["step"] % self.num_phases
+            timed = rt is not None and rt.due_next()
+            t_step = time.perf_counter() if timed else 0.0
+            state, metrics = self.step(state, batch)
+            steps_c.inc()
             self._pending_sync = self.sharded
+            if rt is not None:
+                wall = None
+                if timed:
+                    synchronize(state["params"][0].device)
+                    wall = time.perf_counter() - t_step
+                state = rt.after_step(state, batch, wall_s=wall, log=log)
             if (i + 1) % self.tc.log_every == 0 or i == 0:
                 m = {k: float(v) for k, v in metrics.items()}   # syncs the device
                 m["step"] = state["step"]
                 m["wall_s"] = time.perf_counter() - t0
                 self.history.append(m)
+                if tel.enabled:
+                    loss_g.set(m["total_loss"])
+                    gnorm_g.set(m["grad_norm"])
+                    tel.events.emit(
+                        "step", step=int(state["step"]), loss=m["total_loss"],
+                        grad_norm=m["grad_norm"], wall_s=m["wall_s"],
+                        phase=int(phase),
+                        metrics={k: v for k, v in m.items()
+                                 if k not in ("step", "wall_s")},
+                    )
                 if log:
+                    # only total_loss and grad_norm are certain to be there
+                    shown = m.get("loss", m["total_loss"])
                     log(
-                        f"step {state['step']:>5d}  loss {m['loss']:.4f}  "
+                        f"step {state['step']:>5d}  loss {shown:.4f}  "
                         f"gnorm {m['grad_norm']:.3f}  t {m['wall_s']:.1f}s"
                     )
+        if rt is not None:
+            rt.finish()
         # sharded sync: the last step's deferred gather has no next step
         return self.flush_sync(state)

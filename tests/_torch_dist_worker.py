@@ -1,6 +1,7 @@
 """Workers of the port's multi-process gloo tests (``test_torch_multiworker.py``,
 ``test_torch_sharded.py``, ``test_torch_checkpoint.py``,
-``test_torch_sparsify.py``).
+``test_torch_sparsify.py``).  ``adaptive_worker`` runs the adaptive runtime
+on every rank.
 
 It imports only torch, numpy and ``repro_torch``, so spawned processes start
 without JAX.  Each rank trains the REDUCED gpt2-paper once per entry of
@@ -302,6 +303,69 @@ def sparse_worker(rank, world, init_file, in_npz, out_prefix, ratio):
             synced, sent = stage.execute_bucket(x.clone(), key, group)
             out[f"{name}/synced"] = synced.numpy()
             out[f"{name}/sent"] = sent.numpy()
+        np.savez(f"{out_prefix}{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def adaptive_worker(rank, world, init_file, out_prefix, tc_kw, data_kw, lr, steps,
+                    ccrs):
+    """The adaptive runtime on ``world`` gloo workers, SGD from the model of
+    seed 0, ``steps`` steps on each rank's rows, three runs:
+
+    * ``skew``: a synthetic probe that reports ``ccrs[rank]``, so that the
+      ranks' own CCRs fall on either side of a band edge;
+    * ``real``: the real ``PhaseProbe`` on every step (the schedule-only
+      program's all-reduces on the group), never re-planning;
+    * ``static``: ``autotune=None``.
+
+    Writes each run's final interval, re-plan steps, the ``(t_full,
+    t_comp, t_comm)`` of every sample the controller saw, the decisions'
+    measured CCRs, and the params and residuals, to
+    ``<out_prefix><rank>.npz``."""
+    from repro_torch import optim
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, make_loader
+    from repro_torch.models import build_model
+    from repro_torch.runtime import AutotuneConfig, synthetic_probe
+    from repro_torch.train import TrainConfig, Trainer
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        loader = make_loader(DataConfig(**data_kw), device="cpu")
+        local = data_kw["global_batch"] // world
+        rows = slice(rank * local, (rank + 1) * local)
+        runs = {
+            "skew": AutotuneConfig(measure_every=1, warmup_steps=1, window=1, patience=1,
+                                   cooldown_steps=0,
+                                   probe=synthetic_probe(0.01, ccrs[rank])),
+            "real": AutotuneConfig(measure_every=1, warmup_steps=0, max_replans=0,
+                                   probe_warmup=1, probe_iters=1),
+            "static": None,
+        }
+        out = {}
+        for name, autotune in runs.items():
+            model = build_model(get_reduced("gpt2-paper"), device="cpu", seed=0)
+            tr = Trainer(model, optim.sgd(lr, momentum=0.9), TrainConfig(**tc_kw),
+                         group=dist.group.WORLD)
+            batches = ({k: v[rows] for k, v in loader.make(s).items()}
+                       for s in range(steps))
+            state = tr.run(tr.init_state(), batches, steps=steps, log=None,
+                           autotune=autotune)
+            out[f"{name}/interval"] = np.array(tr.tc.interval)
+            if tr.runtime is not None:
+                ctrl = tr.runtime.controller
+                out[f"{name}/replan_steps"] = np.array(ctrl.replan_steps, np.int64)
+                out[f"{name}/measured_ccr"] = np.array(
+                    [d.measured_ccr for d in ctrl.decisions], np.float64)
+                out[f"{name}/samples"] = np.array(
+                    [(s.t_full, s.t_comp, s.t_comm) for s in tr.runtime.monitor.samples()],
+                    np.float64)
+            for part, leaves in (("params", state["params"]), ("resid", state["comp"])):
+                for path, x in zip(tr.leaf_names, leaves):
+                    out[f"{name}/{part}:{path}"] = x.detach().numpy().copy()
         np.savez(f"{out_prefix}{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

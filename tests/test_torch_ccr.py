@@ -1,8 +1,11 @@
-"""The port's analytic CCR (``core/ccr.py``) and parameter count against
+"""The port's CCR (``core/ccr.py``) and parameter count against
 ``repro.core.ccr`` and ``repro.models.count_params``: the same numbers on
 the same inputs, with the hardware passed explicitly (the port's spec is
-the paper's V100 + 30 Gbps environment, and it carries no TPU figure)."""
+the paper's V100 + 30 Gbps environment, and it carries no TPU figure).
+The measured profiler ``measure_ccr`` is held against the reference's
+under a fake clock, never the wall clock."""
 import dataclasses
+import types
 
 import jax
 import pytest
@@ -91,3 +94,48 @@ def test_compressed_ccr_equals_reference(reduced, name, opts, world):
         assert ccr.compressed_ccr(ts, t_comp=t_comp, world=world, link_bw=1e9,
                                   hw=V100) == \
             rccr.compressed_ccr(rs, t_comp=t_comp, world=world, link_bw=1e9, hw=R_V100)
+
+
+class FakeClock:
+    """``time.perf_counter`` as the module sees it; each step callable
+    advances it by its own duration."""
+
+    def __init__(self):
+        self.now = 0.0
+        self.calls = {}
+
+    def perf_counter(self):
+        return self.now
+
+    def step(self, name, dt):
+        def run():
+            self.now += dt
+            self.calls[name] = self.calls.get(name, 0) + 1
+        return run
+
+
+@pytest.mark.parametrize("full,comp,comm", [(0.3, 0.2, None), (0.2, 0.25, None),
+                                            (0.3, 0.2, 0.15), (0.3, 0.2, 0.05),
+                                            (0.125, 0.0, 0.0)])
+@pytest.mark.parametrize("warmup,iters", [(0, 1), (2, 5), (1, 2)])
+def test_measure_ccr_under_a_fake_clock_equals_reference(monkeypatch, full, comp, comm,
+                                                         warmup, iters):
+    results = []
+    for mod in (ccr, rccr):
+        clock = FakeClock()
+        monkeypatch.setattr(mod, "time",
+                            types.SimpleNamespace(perf_counter=clock.perf_counter))
+        comm_only = None if comm is None else clock.step("comm", comm)
+        res = mod.measure_ccr(clock.step("full", full), clock.step("comp", comp),
+                              step_comm_only=comm_only, warmup=warmup, iters=iters)
+        assert clock.calls == {k: warmup + iters for k in ("full", "comp", "comm")
+                               if k != "comm" or comm is not None}
+        results.append(res)
+    got, want = results
+    assert got == want
+    assert set(got) == ({"t_full", "t_comp", "t_comm", "ccr"}
+                        | ({"t_comm_direct"} if comm is not None else set()))
+    assert got["t_full"] == pytest.approx(full) and got["t_comp"] == pytest.approx(comp)
+    t_comm = max(full - comp, 0.0, comm or 0.0)
+    assert got["t_comm"] == pytest.approx(t_comm)
+    assert got["ccr"] == pytest.approx(t_comm / max(comp, 1e-12))

@@ -423,3 +423,70 @@ def test_sparsifying_stages_on_cuda_match_the_cpu(n):
     assert int(i1.min()) >= 0 and int(i1.max()) < n
     synced, sent = RandomK(0.01).execute_bucket(x.cuda(), key, None)
     assert torch.equal(synced, sent) and torch.equal(synced[i1], x.cuda()[i1])
+
+
+def _reduced_trainer(**options):
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, make_loader
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_reduced("gpt2-paper")
+    tr = Trainer(build_model(cfg, device="cuda", seed=0), adamw(1e-3),
+                 TrainConfig(interval=2, bucket_bytes=1 << 13, max_buckets=64,
+                             log_every=1, **options))
+    loader = make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                    global_batch=4, corpus_tokens=1 << 14),
+                         device="cuda")
+    return tr, loader
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [{}, {"arena": True}, {"overlap": "fused"}],
+                         ids=["defaults", "arena", "fused"])
+def test_phase_probe_on_cuda_leaves_the_state_bitwise(options):
+    """The real probe runs the full and compute-only steps on the card from
+    the live state; afterwards params, Adam's m and v and the residuals are
+    ``torch.equal`` to their clones from before, and the probe launched the
+    EF kernel on every segment of each of its 2 x (warmup + iters) steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernels have no CPU mode")
+    from repro_torch.runtime import PhaseProbe
+
+    tr, loader = _reduced_trainer(**options)
+    state = tr.run(tr.init_state(), iter([loader.make(s) for s in range(2)]), steps=2,
+                   log=None)
+    parts = state["params"] + state["opt"]["m"] + state["opt"]["v"] + state["comp"]
+    before = [x.detach().clone() for x in parts]
+    counter = pack_ef_cast if options.get("arena") else ef_update
+    launches = counter.launches
+    sample = PhaseProbe(tr, warmup=1, iters=2)(state, loader.make(2), 0)
+    torch.cuda.synchronize()
+    assert counter.launches - launches == 2 * 3 * tr.plan.num_segments
+    assert all(torch.equal(a, b) for a, b in zip(parts, before))
+    assert sample.t_comp > 0 and sample.t_full > 0 and sample.t_comm >= 0
+
+
+@pytest.mark.cuda
+def test_probe_due_step_synchronizes_the_card(monkeypatch):
+    """``Trainer.run`` waits for the card on probe-due steps only: with a
+    probe after steps 1 and 3 of 5, ``torch.cuda.synchronize`` runs twice
+    in the loop (the synthetic probe reads no clock and syncs nothing);
+    without ``autotune``, never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.runtime import AutotuneConfig, synthetic_probe
+
+    calls = []
+    sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: (calls.append(device), sync(device)))
+    tr, loader = _reduced_trainer()
+    it = iter(loader)
+    state = tr.run(tr.init_state(), it, steps=3, log=None)
+    assert calls == []
+    tr.run(state, it, steps=5, log=None, autotune=AutotuneConfig(
+        measure_every=2, warmup_steps=1, probe=synthetic_probe(0.01, 2.0)))
+    assert len(calls) == 2 and all(torch.device(d).type == "cuda" for d in calls)
+    assert tr.runtime.monitor.summary()["steps_recorded"] == 2

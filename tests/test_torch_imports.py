@@ -53,3 +53,20 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
                        text=True, env=env, timeout=300, cwd=ROOT)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "BAD []" in r.stdout, r.stdout
+
+
+NEW_MODULES = ("core.perfmodel", "runtime", "runtime.monitor", "runtime.controller",
+               "runtime.trace", "obs", "obs.registry", "obs.events", "obs.telemetry")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_adaptive_runtime_and_obs_modules_are_checked(module):
+    """The adaptive runtime, the perf model and the telemetry bundle are
+    among the files both checks above walk; the event schema they validate
+    against ships inside the port."""
+    base = PORT.joinpath(*module.split("."))
+    path = base.with_suffix(".py")
+    if not path.exists():
+        path = base / "__init__.py"
+    assert path in FILES
+    assert (PORT / "obs" / "event_schema.json").is_file()

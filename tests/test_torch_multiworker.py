@@ -26,7 +26,12 @@ import numpy as np
 import pytest
 import torch.multiprocessing as mp
 
-from _torch_dist_worker import assert_quantized_wire_close, train_worker, wire_drift
+from _torch_dist_worker import (
+    adaptive_worker,
+    assert_quantized_wire_close,
+    train_worker,
+    wire_drift,
+)
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 WORLD = 2
@@ -133,13 +138,11 @@ def _run_reference(init, out):
     assert r.returncode == 0, r.stderr[-4000:]
 
 
-def _run_port(tmp_path, init):
-    ctx = mp.start_processes(
-        train_worker,
-        args=(WORLD, str(tmp_path / "rendezvous"), init, str(tmp_path / "port"),
-              PORT_RUNS, DATA, "sgd", LR, STEPS, _init_comp(init)),
-        nprocs=WORLD, join=False, start_method="spawn",
-    )
+def _spawn(worker, args, tmp_path, prefix):
+    """Run ``worker(rank, *args)`` on ``WORLD`` spawned processes; -> each
+    rank's ``<prefix><rank>.npz``."""
+    ctx = mp.start_processes(worker, args=args, nprocs=WORLD, join=False,
+                             start_method="spawn")
     for _ in range(600):
         if ctx.join(timeout=1):
             break
@@ -148,7 +151,14 @@ def _run_port(tmp_path, init):
             p.kill()
         raise AssertionError("gloo workers did not finish within 600 s")
     assert not any(p.is_alive() for p in ctx.processes)
-    return [dict(np.load(tmp_path / f"port{r}.npz")) for r in range(WORLD)]
+    return [dict(np.load(tmp_path / f"{prefix}{r}.npz")) for r in range(WORLD)]
+
+
+def _run_port(tmp_path, init):
+    return _spawn(train_worker,
+                  (WORLD, str(tmp_path / "rendezvous"), init, str(tmp_path / "port"),
+                   PORT_RUNS, DATA, "sgd", LR, STEPS, _init_comp(init)),
+                  tmp_path, "port")
 
 
 @pytest.fixture(scope="module")
@@ -341,6 +351,38 @@ def test_two_worker_gloo_powersgd_matches_reference_cpu_mesh(runs):
             np.testing.assert_array_equal(v, ranks[1][f"powersgd/{part}:{key}"])
     assert any(not np.array_equal(v, ranks[1][f"powersgd/resid:{key}"])
                for key, v in _part("powersgd", ranks[0], "resid").items())
+
+
+def test_two_worker_gloo_adaptive_ranks_make_the_same_decisions(tmp_path):
+    """Each rank runs its own ``AdaptiveRuntime``.  With a synthetic probe
+    that reports CCR 1.2 on rank 0 (inside I = 2's band) and 3.4 on rank 1
+    (I = 4), both ranks see the group's maximum and re-plan at the same
+    step to I = 4, so their plans' collectives keep matching; their params
+    stay equal bit for bit.  The real probe's samples (its schedule-only
+    all-reduces on the group) are the same on both ranks, and a run that
+    never re-plans with it equals the ``autotune=None`` run bit for bit."""
+    ranks = _spawn(adaptive_worker,
+                   (WORLD, str(tmp_path / "rendezvous"), str(tmp_path / "adaptive"),
+                    dict(TC, interval=2), DATA, LR, STEPS, (1.2, 3.4)),
+                   tmp_path, "adaptive")
+    params = [k for k in ranks[0] if k.startswith("static/params:")]
+    assert len(params) > 8
+    for got in ranks:
+        assert int(got["skew/interval"]) == 4 and list(got["skew/replan_steps"]) == [1]
+        # rank 1's t_comm over the common t_comp
+        np.testing.assert_array_equal(got["skew/measured_ccr"],
+                                      [0.01 * 3.4 / 0.01] * (STEPS - 1))
+        assert int(got["real/interval"]) == 2 and len(got["real/replan_steps"]) == 0
+        assert got["real/samples"].shape == (STEPS, 3) and (got["real/samples"] > 0).all()
+        for key in params:
+            np.testing.assert_array_equal(got[key.replace("static", "real", 1)], got[key],
+                                          err_msg=key)
+            resid = key.replace("params", "resid")
+            np.testing.assert_array_equal(got[resid.replace("static", "real", 1)],
+                                          got[resid], err_msg=resid)
+    for key in ranks[0]:
+        if "resid" not in key:
+            np.testing.assert_array_equal(ranks[0][key], ranks[1][key], err_msg=key)
 
 
 if __name__ == "__main__":
