@@ -102,6 +102,21 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            ``api.tune(measured=True)`` at full width (each row's analytic
            speedup on the paper's V100 spec beside the CCR measured on
            the card)
+  resilience  the resilience runtime at full width: ``guards=True`` (no
+           faults) for 5 steps on the defaults equals the unguarded run on
+           the same batches by ``torch.equal`` (steps 1-4 ms of both, peak
+           memory, the rollback copies' bytes, one copy's and one residual
+           norm's device ms); the chaos gate's scenario
+           (``launch/chaos_gate.run_chaos``: covap I=2,
+           ``grad_nan@6,ef_blowup@10,grad_inf@14x3,kill@17``) takes every
+           rung and the kill -> restore -> resume, ends at step 20 with a
+           finite loss and events valid and 1:1 with the counters (the
+           save, restore and verify seconds printed); and on one
+           full-width step's arena planes one ``grad_nan`` gives
+           ``plane_nonfinite_counts`` exactly one non-finite element.
+           ``ef_update.launches`` == segments x the steps each run executed
+           (replays and the chaos run's loss step included),
+           ``pack_ef_cast.launches`` == segments in the plane step
   overlap  last of the card runs (the steps after a profiled one run
            slower), after a fresh fused run of 5 steps: one post and one
            fused step under ``torch.profiler``: the host
@@ -2058,6 +2073,173 @@ def phase_adaptive(cfg, group, smi: str) -> int:
     return total
 
 
+def state_bytes(state) -> int:
+    parts = state_parts(state)
+    return sum(x.numel() * x.element_size() for leaves in parts.values() for x in leaves)
+
+
+def phase_resilience(cfg, group, smi: str) -> tuple[dict, int]:
+    """The resilience runtime at full width in the one-rank NCCL group:
+
+    1. guards armed, no faults (``guards=True``: ``sync_every=4``, the
+       residual watchdog every 8 steps), 5 steps on the defaults over the
+       batches of an unguarded run: params, m, v and residuals
+       ``torch.equal``; steps 1-4 in ms beside the unguarded run's, peak
+       memory, the rollback copies' bytes, and one copy's and one
+       residual norm's device ms;
+    2. the chaos gate's scenario (``launch.chaos_gate.run_chaos``: covap
+       I=2, ``FAULT_SPEC``, the gate's ``GuardConfig``) at full width: every
+       rung taken, ``kill`` -> restore -> resume once, ``final_step`` 20, a
+       finite loss, events valid and 1:1 with the counters, the gate's pass
+       rule; ``ef_update`` launched on every segment of each step run,
+       replays and the loss step included;
+    3. the plane guard: one full-width step's arena planes (``arena=True``,
+       ``pack_ef_cast``), one ``grad_nan`` from ``corrupt_planes``, and
+       ``plane_nonfinite_counts`` finds exactly one non-finite element.
+    -> (``ef_update``'s launches by run, ``pack_ef_cast``'s launches)."""
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.core.stages import StepSync
+    from repro_torch.launch import chaos_gate
+    from repro_torch.resilience import (ResilienceRuntime, corrupt_planes,
+                                        plane_nonfinite_counts)
+    from repro_torch.resilience.guards import residual_leaves, residual_norm_async
+    from repro_torch.train import loss_and_grads
+
+    t_phase = time.perf_counter()
+    batches = ckpt_batches(cfg)
+    launches = {}
+
+    # 1. guards without faults: the run is unchanged
+    runs = {}
+    for label in ("unguarded", "guarded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        counters = zero_counters()
+        tr, state = fresh_trainer(cfg, group)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        rt = ResilienceRuntime(tr, guards=True) if label == "guarded" else None
+        state = tr.run(state, iter(batches), steps=STEPS, log=None, guards=rt)
+        torch.cuda.synchronize()
+        hist = tr.history
+        runs[label] = dict(
+            parts=state_parts(state), losses=[h["loss"] for h in hist],
+            ms=[1e3 * (b["wall_s"] - a["wall_s"]) for a, b in zip(hist, hist[1:])],
+            peak=torch.cuda.max_memory_allocated() / 2**30, base=base,
+            counts={k: fn.launches for k, fn in counters.items()})
+        segs = tr.plan.num_segments
+        check(runs[label]["counts"] == launch_counts(ef_update=STEPS * segs),
+              f"resilience {label}: launches {runs[label]['counts']}, want ef_update "
+              f"{STEPS * segs}")
+        if rt is not None:
+            check(rt.summary()["trips"] == 0 and rt._win.step == 4
+                  and rt._prev_win.step == 0,
+                  f"resilience guarded: summary {rt.summary()}, windows "
+                  f"{rt._win.step}, {rt._prev_win.step}")
+            snap_bytes, one = rt.snapshot_bytes, state_bytes(state)
+            check(snap_bytes == 2 * one, f"resilience: rollback copies hold {snap_bytes} "
+                  f"B, the state {one} B")
+            copy_ms = device_timed(lambda: rt._slots[0].fill(state, tr), reps=5, warmup=1)
+            leaves = residual_leaves(state["comp"])
+            norm_ms = device_timed(lambda: residual_norm_async(leaves), reps=10)
+        launches[f"resilience {label}"] = runs[label]["counts"]["ef_update"]
+        del tr, state, rt
+    got, want = runs["guarded"], runs["unguarded"]
+    for part in want["parts"]:
+        check(all(torch.equal(a, b) for a, b in zip(got["parts"][part], want["parts"][part])),
+              f"resilience: guards changed the {part}")
+    check(got["losses"] == want["losses"], f"resilience: losses {got['losses']} "
+          f"guarded, {want['losses']} unguarded")
+    print(f"[resilience] guards=True (sync_every 4, residual watchdog every 8 steps), "
+          f"no faults, {STEPS} steps on the defaults: params, m, v, residuals "
+          f"torch.equal to the unguarded run; steps 1-{STEPS - 1} ms "
+          f"{[round(v, 2) for v in got['ms']]} guarded vs "
+          f"{[round(v, 2) for v in want['ms']]} unguarded; peak {got['peak']:.2f} GiB "
+          f"({got['base']:.2f} held before the run, the unguarded run's clones "
+          f"included) vs {want['peak']:.2f} GiB ({want['base']:.2f} held before): "
+          f"{got['peak'] - got['base']:.2f} vs {want['peak'] - want['base']:.2f} GiB "
+          f"above the run's start; rollback "
+          f"copies {snap_bytes} B (2 x {one} B); one copy {copy_ms:.3f} device ms, one "
+          f"residual norm {norm_ms:.3f} device ms ({smi})", flush=True)
+    runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the chaos gate's scenario at full width
+    counters = zero_counters()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as td:
+        t0 = time.perf_counter()
+        out = chaos_gate.run_chaos(td, cfg, device="cuda", group=group)
+        torch.cuda.synchronize()
+        chaos_s = time.perf_counter() - t0
+        ck = f"{td}/ck"
+        last = checkpoint.latest_step(ck)
+        t0 = time.perf_counter()
+        checkpoint.verify(ck, last)
+        verify_s = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    tr = out.pop("trainer")
+    segs2 = tr.plan.num_segments
+    want_ef = (out["steps_run"] + 1) * segs2            # the loss step included
+    s = out["summary"]
+    ok = chaos_gate.passed(out)
+    check(ok, f"resilience chaos: the gate failed: {chaos_gate.chaos_line(out, ok)}, "
+          f"{s}, events {out['events']}, counters {out['counters']}")
+    check(counts == launch_counts(ef_update=want_ef),
+          f"resilience chaos: launches {counts}; {out['steps_run']} steps run + the loss "
+          f"step on {segs2} segments: ef_update {want_ef}")
+    launches["resilience chaos"] = counts["ef_update"]
+    timings = out["timings"]
+    print(f"[resilience] chaos gate at full width ({cfg.name}, covap I={tr.tc.interval}, "
+          f"{segs2} segments, seq 1024 x batch 8, spec {chaos_gate.FAULT_SPEC}): "
+          f"{chaos_gate.chaos_line(out, ok)}; final step {out['final_step']}, "
+          f"{out['steps_run']} steps run; trips {s['trips_by_guard']} at "
+          f"{out['trips']}; actions {[(a['step'], a['action']) for a in out['actions']]}; "
+          f"faults fired {s['faults']['by_kind']}; guard-owned saves "
+          f"{[round(v, 3) for v in timings['save']]} s, rewind restores "
+          f"{[round(v, 3) for v in timings['restore']]} s, kill restore "
+          f"{out['resume_s']:.3f} s, verify of step {last} {verify_s:.3f} s; the "
+          f"scenario took {chaos_s:.1f} s; launches {counts} ({smi})", flush=True)
+    del tr, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the plane guard on one full-width step's arena planes
+    counters = zero_counters()
+    tr, state = fresh_trainer(cfg, group, {"arena": True})
+    grads, _ = loss_and_grads(tr.model, state["params"], batches[0], group)
+    sync = StepSync(tr.compressor, tr._phase_fn(0).comm_schedule, grads, state["comp"],
+                    step=0, group=group)
+    for b in sync.todo():
+        sync.start(b, sync.grad_slices(b, grads))
+        sync.finish(b)
+    planes = sync.planes
+    clean = plane_nonfinite_counts(planes)
+    _, sites = corrupt_planes(planes, "grad_nan", seed=0, step=0)
+    counts_nf = plane_nonfinite_counts(planes)
+    plane_ms = device_timed(lambda: plane_nonfinite_counts(planes), reps=10)
+    pack = {k: fn.launches for k, fn in counters.items()}
+    check(sum(clean) == 0 and sum(counts_nf) == 1 and counts_nf[sites[0][0]] == 1,
+          f"resilience plane guard: counts {clean} clean, {counts_nf} after one NaN at "
+          f"{sites}")
+    check(pack == launch_counts(pack_ef_cast=tr.plan.num_segments),
+          f"resilience plane guard: launches {pack}")
+    print(f"[resilience] plane guard: one full-width step's arena planes "
+          f"({[p.numel() for p in planes]} elements, {[str(p.dtype) for p in planes]}); "
+          f"one grad_nan at (plane, index) {sites[0]} -> plane_nonfinite_counts "
+          f"{counts_nf}; the call (one reduction per plane, one transfer) "
+          f"{plane_ms:.3f} device ms; launches {pack} ({smi})", flush=True)
+    del tr, state, grads, sync, planes
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[resilience] phase took {time.perf_counter() - t_phase:.1f} s ({smi})",
+          flush=True)
+    return launches, pack["pack_ef_cast"]
+
+
 def phase_oktopk_parity(tr, state, loader, group) -> None:
     """On the same gradients and residuals, ``oktopk`` in the one-rank
     group against ``topk``: the synced values and the new residuals bit for
@@ -2301,6 +2483,9 @@ def main() -> int:
             del tr, state, loader
             torch.cuda.empty_cache()
         records[0]["launches_by_run"]["adaptive"] = phase_adaptive(cfg, group, smi)
+        by_run, plane_pack = phase_resilience(cfg, group, smi)
+        records[0]["launches_by_run"].update(by_run)
+        records[1]["launches_by_run"]["resilience plane guard"] = plane_pack
         # last, since the steps that follow a profiled one run slower: a
         # fresh fused run, then one profiled post and fused step
         tr, state, loader, launches = phase_train(

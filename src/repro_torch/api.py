@@ -59,11 +59,6 @@ class IntervalChoice:
     step_flops_per_chip: float
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported; ROADMAP.md queue 1, {item!r}")
-
-
 def resolve_interval(interval, cfg, *, global_batch: int, seq_len: int,
                      dp_world: int, hw: HardwareSpec | None = None
                      ) -> IntervalChoice:
@@ -138,6 +133,7 @@ class FitResult:
     schedules: list[CommSchedule]
     autotune: dict | None = None   # the AdaptiveRuntime's summary (adaptive mode)
     telemetry: Any = None          # the repro_torch.obs.Telemetry when armed
+    resilience: dict | None = None  # the ResilienceRuntime's summary (guards mode)
 
     @property
     def final_interval(self) -> int:
@@ -196,14 +192,10 @@ def fit(arch: str = "gpt2-paper", *, reduced: bool = True, compressor: str = "co
     ``autotune`` passes an ``AutotuneConfig`` (or True) to tune the policy;
     it may also be given with a numeric ``interval``.  ``telemetry`` (None
     | directory path | ``repro_torch.obs.Telemetry``) records the run; the
-    bundle comes back as ``FitResult.telemetry``.
-
-    Not ported (they raise ``NotImplementedError``): ``guards`` and
-    ``faults``, the resilience runtime."""
-    for value, what in ((guards, "guards"), (faults, "faults")):
-        if value is not None:
-            raise _not_ported(f"{what} (the resilience runtime)",
-                              "Observability and resilience")
+    bundle comes back as ``FitResult.telemetry``.  ``guards`` and ``faults``
+    arm the resilience runtime (``Trainer.run``'s arguments); its summary
+    (trips, actions by rung, faults fired) comes back as
+    ``FitResult.resilience``."""
     cfg = _config(arch, reduced=reduced, vocab_size=vocab_size)
     dp_world = world_size(group) if group is not None else dp_workers
     choice = resolve_interval(interval, cfg, global_batch=global_batch,
@@ -226,12 +218,14 @@ def fit(arch: str = "gpt2-paper", *, reduced: bool = True, compressor: str = "co
         autotune = True
     tel = as_telemetry(telemetry)
     state = tr.run(state, iter(batches), steps=steps, log=log, autotune=autotune,
-                   telemetry=tel)
+                   telemetry=tel, guards=guards, faults=faults)
     return FitResult(trainer=tr, state=state, history=tr.history,
                      interval=choice.interval, ccr=choice.ccr,
                      schedules=tr.schedules(),
                      autotune=tr.runtime.summary() if tr.runtime is not None else None,
-                     telemetry=tel if tel.enabled else None)
+                     telemetry=tel if tel.enabled else None,
+                     resilience=(tr.resilience.summary() if tr.resilience is not None
+                                 else None))
 
 
 def plan_report(arch: str = "gpt2-paper", *, reduced: bool = True,

@@ -27,6 +27,15 @@ runtime: one ``AdaptiveRuntime`` for the whole run re-plans the interval
 from the measured CCR and prints an ``[autotune]`` summary line at the end.
 ``--telemetry-dir D`` streams ``events.jsonl`` into D and writes
 ``metrics.prom``, ``metrics.json`` and ``trace.json`` there at the end.
+
+``--guards`` arms the resilience runtime (numeric guards and the
+skip-step -> EF-flush -> checkpoint-rewind ladder; the rewind target is
+the ``--ckpt-dir`` / ``--ckpt-every`` checkpoint); ``--inject-faults SPEC``
+(``kind@step[xTIMES][*SCALE]``, implies ``--guards``) injects seeded
+faults, sites drawn from ``--fault-seed``.  One ``ResilienceRuntime``
+spans the chunked checkpoint-every calls and prints ``[resilience]``
+lines; a ``kill`` fault ends the process with ``InjectedCrash``, and
+``--resume`` restarts from the last checkpoint.
 """
 from __future__ import annotations
 
@@ -97,6 +106,15 @@ def main(argv=None):
     ap.add_argument("--adaptive", action="store_true",
                     help="arm the adaptive runtime: re-plan the interval "
                          "online from the measured CCR")
+    ap.add_argument("--guards", action="store_true",
+                    help="arm the resilience runtime: numeric guards on every "
+                         "step and the skip-step -> EF-flush -> checkpoint-"
+                         "rewind ladder (rewind needs --ckpt-dir/--ckpt-every)")
+    ap.add_argument("--inject-faults", default="",
+                    help="seeded chaos schedule, e.g. 'grad_nan@10,ef_blowup@20x2,"
+                         "kill@30' (kind@step[xTIMES][*SCALE]; implies --guards)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault-site selection")
     ap.add_argument("--telemetry-dir", default="",
                     help="write events.jsonl (streamed), metrics.prom, "
                          "metrics.json and trace.json into this directory")
@@ -170,6 +188,22 @@ def main(argv=None):
         from ..runtime import AdaptiveRuntime
 
         autotune = AdaptiveRuntime(tr)
+    resilience = None
+    if args.guards or args.inject_faults:
+        # one runtime across the chunked calls: the ladder's budgets and the
+        # faults' firing counts must not reset at checkpoint boundaries
+        from ..resilience import GuardConfig, ResilienceRuntime, parse_fault_spec
+
+        gcfg = GuardConfig(ckpt_dir=args.ckpt_dir or None,
+                           ckpt_every=args.ckpt_every if args.ckpt_dir else 0)
+        plan = (parse_fault_spec(args.inject_faults, seed=args.fault_seed)
+                if args.inject_faults else None)
+        resilience = ResilienceRuntime(tr, guards=gcfg, faults=plan)
+        msg = "guards armed (skip-step -> EF-flush -> rewind)"
+        if plan is not None:
+            msg += (f"; injecting {len(plan.events)} fault(s): "
+                    f"{','.join(f'{e.kind}@{e.step}' for e in plan.events)}")
+        print(f"[resilience] {msg}")
     telemetry = None
     if args.telemetry_dir:
         from ..obs import Telemetry
@@ -184,7 +218,7 @@ def main(argv=None):
         if args.ckpt_dir and args.ckpt_every > 0:
             chunk = min(chunk, args.ckpt_every)
         state = tr.run(state, loader, steps=chunk, autotune=autotune,
-                       telemetry=telemetry)
+                       telemetry=telemetry, guards=resilience)
         done += chunk
         if args.ckpt_dir and (args.ckpt_every > 0 or done >= args.steps):
             path = checkpoint.save_train_state(
@@ -203,6 +237,11 @@ def main(argv=None):
         s = tr.runtime.summary()
         print(f"[autotune] measured CCR {(s['measured_ccr'] or 0.0):.3f}, "
               f"interval {s['interval']}, {s['replans']} re-plan(s)")
+    if resilience is not None:
+        rs = resilience.summary()
+        print(f"[resilience] {rs['trips']} guard trip(s) {rs['trips_by_guard']}, "
+              f"{rs['actions']} recovery action(s) {rs['actions_by_rung']}"
+              + (f", faults fired {rs['faults']['by_kind']}" if "faults" in rs else ""))
     if telemetry is not None:
         if tr.runtime is not None:
             tr.runtime.finish()     # the planned per-bucket spans -> trace

@@ -30,9 +30,9 @@ resolve ``"auto"`` first (``repro_torch.api.resolve_interval``, which
 ``api.fit`` and the CLI call).  :meth:`Trainer.replan` adopts another
 interval between steps, carrying the EF residuals across
 (``runtime.transitions``); ``Trainer.run(autotune=...)`` re-plans online
-from the measured CCR (``runtime.controller``), and ``telemetry=`` records
-the run (``obs``).  Hierarchical pods and the resilience runtime are not
-ported.
+from the measured CCR (``runtime.controller``), ``telemetry=`` records
+the run (``obs``), and ``guards=`` / ``faults=`` arm the resilience
+runtime (``resilience``).  Hierarchical pods are not ported.
 """
 from __future__ import annotations
 
@@ -301,6 +301,7 @@ class Trainer:
         self.gather_events: list[tuple[str, int]] = []
         self.last_step_fn: Callable | None = None
         self.runtime = None                 # the AdaptiveRuntime of run(autotune=)
+        self.resilience = None              # the ResilienceRuntime of run(guards=, faults=)
         self.telemetry = NULL_TELEMETRY     # the bundle of run(telemetry=)
         if tc.overlap == "fused":
             _require_fused(self.compressor)
@@ -375,24 +376,29 @@ class Trainer:
         if self.telemetry.enabled:
             self.telemetry.events.emit("flush", step=int(state["step"]),
                                        reason="deferred-allgather")
+        self.settle_gather(state, self.compressor, self.plan)
+        return state
+
+    def settle_gather(self, state: dict, compressor, plan) -> None:
+        """The gather of :meth:`flush_sync` under ``compressor`` and ``plan``
+        (the recovery runtime settles a rollback copy taken under an earlier
+        plan with it).  A no-op without a group."""
         if self.group is None:
-            return state
-        schedule = self.compressor.plan_phase(self.plan, 0, world=self.dp_world)
+            return
+        schedule = compressor.plan_phase(plan, 0, world=self.dp_world)
         shapes = [tuple(p.shape) for p in state["params"]]
 
         def gather(tree):
             if (isinstance(tree, (list, tuple)) and len(tree) == len(shapes)
                     and all(isinstance(x, torch.Tensor) and tuple(x.shape) == s
                             for x, s in zip(tree, shapes))):
-                sharded_param_allgather(self.compressor, schedule, tree,
-                                        group=self.group)
+                sharded_param_allgather(compressor, schedule, tree, group=self.group)
             elif isinstance(tree, dict):
                 for v in tree.values():
                     gather(v)
 
         gather(state["params"])
         gather(state["opt"])
-        return state
 
     def init_state(self, seed: int | None = None) -> dict:
         """Fresh optimizer and EF state over the model's parameters; with a
@@ -479,13 +485,18 @@ class Trainer:
         adaptive runtime's spans and decisions into the bundle, all at the
         log cadence, where the metrics are read anyway.
 
-        With ``autotune=None`` and ``telemetry=None`` the loop is the static
-        one.  ``guards`` and ``faults`` (the resilience runtime) are not
-        ported and raise ``NotImplementedError``."""
-        if guards is not None or faults is not None:
-            raise NotImplementedError(
-                "guards= and faults= (the resilience runtime, repro.resilience) "
-                "are not ported; ROADMAP.md queue 1, 'Observability and resilience'")
+        ``guards`` (None | True | ``GuardConfig`` | dict of overrides | a live
+        ``ResilienceRuntime``) arms the resilience runtime: numeric guards on
+        each step's metrics and the skip-step -> EF-flush -> checkpoint-rewind
+        ladder; ``faults`` (None | spec string | ``FaultPlan`` |
+        ``FaultInjector``) arms seeded fault injection.  A live runtime keeps
+        its ladder and fault budgets across chunked ``run`` calls.  Its
+        checks run before the adaptive runtime sees the state, so that a
+        poisoned step feeds no probe; with faults and an armed adaptive
+        runtime, ``ccr_skew`` rides the runtime's probe.
+
+        With ``autotune``, ``telemetry``, ``guards`` and ``faults`` all None
+        the loop is the static one."""
         steps = steps if steps is not None else self.tc.steps
         tel = as_telemetry(telemetry)
         if tel.enabled:
@@ -512,6 +523,22 @@ class Trainer:
                 rt = self.runtime = AdaptiveRuntime(self, as_autotune_config(autotune))
             if tel.enabled:
                 rt.attach_telemetry(tel)
+        res = None
+        if guards is not None or faults is not None:
+            from ..resilience import ResilienceRuntime
+
+            if isinstance(guards, ResilienceRuntime):
+                res = self.resilience = guards
+            else:
+                res = self.resilience = ResilienceRuntime(self, guards=guards,
+                                                          faults=faults)
+            if tel.enabled:
+                res.attach_telemetry(tel)
+            if (res.injector is not None and rt is not None
+                    and getattr(rt._probe, "skewed_by", None) is not res.injector):
+                # ccr_skew rides the probe: the wrapper shadows the method,
+                # once per runtime (a chunked loop passes the same runtimes)
+                rt._probe = res.injector.wrap_probe(rt._probe)
         steps_c = tel.registry.counter("train_steps_total", "optimizer steps completed")
         loss_g = tel.registry.gauge("train_loss", "last logged total loss")
         gnorm_g = tel.registry.gauge("train_grad_norm",
@@ -520,12 +547,19 @@ class Trainer:
         t0 = time.perf_counter()
         for i in range(steps):
             batch = next(it)
+            if res is not None:
+                # guard-owned checkpoint -> rollback copy -> fault injection
+                state, batch = res.pre_step(state, batch)
             phase = state["step"] % self.num_phases
             timed = rt is not None and rt.due_next()
             t_step = time.perf_counter() if timed else 0.0
             state, metrics = self.step(state, batch)
             steps_c.inc()
             self._pending_sync = self.sharded
+            if res is not None:
+                # before the adaptive runtime: a poisoned step must not feed
+                # the probe or cross a re-plan boundary
+                state = res.post_step(state, metrics)
             if rt is not None:
                 wall = None
                 if timed:
@@ -554,6 +588,10 @@ class Trainer:
                         f"step {state['step']:>5d}  loss {shown:.4f}  "
                         f"gnorm {m['grad_norm']:.3f}  t {m['wall_s']:.1f}s"
                     )
+        if res is not None:
+            # drain the deferred checks (may recover: the state can then sit
+            # behind the loop's nominal target)
+            state = res.finalize(state)
         if rt is not None:
             rt.finish()
         # sharded sync: the last step's deferred gather has no next step

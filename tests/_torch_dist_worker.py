@@ -1,7 +1,8 @@
 """Workers of the port's multi-process gloo tests (``test_torch_multiworker.py``,
 ``test_torch_sharded.py``, ``test_torch_checkpoint.py``,
-``test_torch_sparsify.py``).  ``adaptive_worker`` runs the adaptive runtime
-on every rank.
+``test_torch_sparsify.py``, ``test_torch_resilience.py``).  ``adaptive_worker``
+runs the adaptive runtime on every rank; ``chaos_worker`` and
+``residual_fault_worker`` the resilience runtime.
 
 It imports only torch, numpy and ``repro_torch``, so spawned processes start
 without JAX.  Each rank trains the REDUCED gpt2-paper once per entry of
@@ -366,6 +367,189 @@ def adaptive_worker(rank, world, init_file, out_prefix, tc_kw, data_kw, lr, step
             for part, leaves in (("params", state["params"]), ("resid", state["comp"])):
                 for path, x in zip(tr.leaf_names, leaves):
                     out[f"{name}/{part}:{path}"] = x.detach().numpy().copy()
+        np.savez(f"{out_prefix}{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _write_chaos(out_prefix, rank, params, meta):
+    import json
+
+    np.savez(f"{out_prefix}{rank}.npz",
+             **{f"p{i}": p.detach().numpy() for i, p in enumerate(params)})
+    with open(f"{out_prefix}{rank}.json", "w") as f:
+        json.dump(meta, f)
+
+
+def chaos_worker(rank, world, init_file, td, out_prefix):
+    """The chaos gate's scenario (``repro_torch.launch.chaos_gate.run_chaos``,
+    REDUCED, covap ``I=2``) on ``world`` gloo workers, the checkpoints
+    shared under ``td``.  Writes the final
+    params to ``<out_prefix><rank>.npz`` and the trips, actions, final
+    step, loss, summary and the gate's verdict to ``<out_prefix><rank>.json``."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import chaos_gate
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        cfg = get_reduced("gpt2-paper").with_(vocab_size=chaos_gate.REDUCED_DATA["vocab_size"])
+        out = chaos_gate.run_chaos(
+            td, cfg, device="cpu", group=dist.group.WORLD,
+            seq_len=chaos_gate.REDUCED_DATA["seq_len"], global_batch=world,
+            corpus_tokens=chaos_gate.REDUCED_DATA["corpus_tokens"],
+            tc_kw=chaos_gate.REDUCED_TC)
+        _write_chaos(out_prefix, rank, out["state"]["params"],
+                     {k: out[k] for k in ("trips", "actions", "final_step", "loss",
+                                          "summary", "resumed_from")}
+                     | {"passed": chaos_gate.passed(out)})
+    finally:
+        dist.destroy_process_group()
+
+
+def residual_fault_worker(rank, world, init_file, td, out_prefix, spec, agree, steps,
+                          interval):
+    """``steps`` iterations of the chaos gate's trainer (REDUCED, covap at
+    ``interval``, AdamW) under guards (lag-one, the residual watchdog every 2
+    steps, no checkpoints) with ``spec[rank]`` as this rank's faults.
+    ``agree=False`` replaces the runtime's maximum of the residual norms
+    over the group by this rank's own norm.  Writes as
+    :func:`chaos_worker`."""
+    from repro_torch.api import _worker_batches
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import chaos_gate
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.resilience import recovery
+    from repro_torch.train import TrainConfig, Trainer
+
+    torch.set_num_threads(1)
+    if not agree:
+        recovery._group_max = lambda values, group: None
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        data = chaos_gate.REDUCED_DATA
+        model = build_model(get_reduced("gpt2-paper").with_(vocab_size=data["vocab_size"]),
+                            device="cpu", seed=0)
+        tr = Trainer(model, adamw(chaos_gate.LR),
+                     TrainConfig(compressor="covap", interval=interval, log_every=1000,
+                                 **chaos_gate.REDUCED_TC),
+                     group=dist.group.WORLD)
+        loader = _worker_batches(DataConfig(global_batch=world, **data), "cpu",
+                                 dist.group.WORLD)
+        guards = {k: v for k, v in chaos_gate.GUARDS.items() if k != "ckpt_every"}
+        state = tr.run(tr.init_state(), loader, steps=steps, log=None, guards=guards,
+                       faults=spec[rank])
+        rt = tr.resilience
+        _write_chaos(out_prefix, rank, state["params"],
+                     {"trips": [(t.step, t.guard) for t in rt.guards.trips],
+                      "actions": rt.actions, "final_step": state["step"]})
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_skip_worker(rank, world, init_file, td, out_prefix, tc_kw, steps, fault_step):
+    """Skip-step under ``tc_kw`` (sharded sync) on ``world`` gloo workers:
+    ``grad_nan@<fault_step>`` with lag-one guards over ``steps`` global
+    batches, then a clean run over the same batches without the poisoned
+    one and the detection step's.  Writes both runs' params, Adam moments
+    and residuals (after ``run``'s flush) under ``healed/`` and ``replay/``
+    keys and their steps to ``<out_prefix><rank>.npz``."""
+    from repro_torch.api import _worker_batches
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, Trainer
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        cfg = get_reduced("gpt2-paper").with_(vocab_size=256)
+        dc = DataConfig(vocab_size=256, seq_len=16, global_batch=2 * world,
+                        corpus_tokens=1 << 12)
+        it = _worker_batches(dc, "cpu", dist.group.WORLD)
+        batches = [next(it) for _ in range(steps)]
+        keep = batches[:fault_step] + batches[fault_step + 2:]
+        out = {}
+        for name, run_batches, kw in (
+                ("healed", batches, dict(guards={"sync_every": 1},
+                                         faults=f"grad_nan@{fault_step}")),
+                ("replay", keep, {})):
+            tr = Trainer(build_model(cfg, device="cpu", seed=0), adamw(3e-3),
+                         TrainConfig(**tc_kw), group=dist.group.WORLD)
+            state = tr.run(tr.init_state(), iter(run_batches), steps=len(run_batches),
+                           log=None, **kw)
+            _dump_state(out, name, tr, state)
+        np.savez(f"{out_prefix}{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dump_state(out, name, tr, state):
+    out[f"{name}/step"] = np.array(state["step"])
+    for part, leaves in (("p", state["params"]), ("m", state["opt"]["m"]),
+                         ("v", state["opt"]["v"]), ("r", state["comp"])):
+        for i, x in enumerate(leaves):
+            out[f"{name}/{part}{i}"] = x.detach().numpy().copy()
+    if tr.resilience is not None:
+        out[f"{name}/actions"] = np.array([a["action"] for a in tr.resilience.actions])
+
+
+def sharded_replan_skip_worker(rank, world, init_file, td, out_prefix, tc_kw, steps):
+    """Skip-step across a re-plan under ``tc_kw`` (sharded sync, covap at
+    ``I=4``) on ``world`` gloo workers, guards with ``sync_every=2``: the
+    window opening at step 2 is copied while step 1's head all-gather is
+    pending; a synthetic probe (CCR 0.5, read from step 3 on) re-plans to
+    ``I=1`` after step 3; ``grad_nan@3`` trips, read at iteration 5, and
+    rolls back to that copy.  Then the clean run: steps 0-1 under ``I=4``,
+    ``replan(1)``, and the batches the healed run trained on after its
+    recovery.  Writes both as :func:`sharded_skip_worker` does, with the
+    healed run's transitions."""
+    from repro_torch.api import _worker_batches
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import AutotuneConfig, synthetic_probe
+    from repro_torch.train import TrainConfig, Trainer
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        cfg = get_reduced("gpt2-paper").with_(vocab_size=256)
+        dc = DataConfig(vocab_size=256, seq_len=16, global_batch=2 * world,
+                        corpus_tokens=1 << 12)
+        it = _worker_batches(dc, "cpu", dist.group.WORLD)
+        batches = [next(it) for _ in range(steps)]
+
+        def trainer():
+            tr = Trainer(build_model(cfg, device="cpu", seed=0), adamw(3e-3),
+                         TrainConfig(**tc_kw, interval=4), group=dist.group.WORLD)
+            return tr, tr.init_state()
+
+        out = {}
+        tr, state = trainer()
+        probe = synthetic_probe(0.01, 0.5)
+        state = tr.run(state, iter(batches), steps=steps, log=None,
+                       guards={"sync_every": 2}, faults="grad_nan@3",
+                       autotune=AutotuneConfig(probe=probe, measure_every=1,
+                                               warmup_steps=3, window=1, patience=1,
+                                               cooldown_steps=0))
+        _dump_state(out, "healed", tr, state)
+        out["healed/transitions"] = np.array(
+            [(r.step, r.old_interval, r.new_interval) for r in tr.transitions])
+        out["healed/policies"] = np.array([r.policy for r in tr.transitions])
+        tr, state = trainer()
+        state = tr.run(state, iter(batches[:2]), steps=2, log=None)
+        state, _ = tr.replan(1, state)
+        state = tr.run(state, iter(batches[5:]), steps=steps - 5, log=None)
+        _dump_state(out, "replay", tr, state)
         np.savez(f"{out_prefix}{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

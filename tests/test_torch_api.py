@@ -5,9 +5,11 @@
 the same row order), ``fit(interval="auto")`` picks the reference's
 interval and trains within the trainer tests' tolerance of the reference's
 ``fit``, and ``fit(interval="adaptive")`` with a synthetic probe re-plans
-as the reference's does.  What is not ported (the resilience runtime's
-``guards`` and ``faults``) raises ``NotImplementedError``."""
+as the reference's does.  ``guards`` and ``faults`` (the resilience runtime)
+run beside the adaptive and telemetry options and return the runtime's
+summary as ``FitResult.resilience``."""
 import json
+import types
 
 import jax
 import numpy as np
@@ -22,6 +24,7 @@ from repro.runtime import synthetic_probe as r_synthetic_probe
 
 import repro_torch.api as api
 import repro_torch.configs as tconfigs
+import repro_torch.core.ccr as ccr_mod
 import repro_torch.obs as obs
 from repro_torch.interop import params_from_jax
 from repro_torch.runtime import AutotuneConfig, synthetic_probe
@@ -90,13 +93,24 @@ def test_fit_runs_on_the_card_unless_asked_for_the_cpu():
                                 {"autotune": True, "faults": "grad_nan@1"},
                                 {"telemetry": "dir", "guards": {"sync_every": 2}},
                                 {"guards": True}, {"faults": "grad_nan@1"}])
-def test_unported_fit_options_raise(kw):
-    """``guards`` and ``faults`` (the resilience runtime) raise before
-    anything is built, with or without the ported adaptive and telemetry
-    options beside them."""
+def test_unported_fit_options_raise(kw, tmp_path):
+    """``guards`` and ``faults`` (the resilience runtime), once refused, run
+    with or without the adaptive and telemetry options beside them:
+    ``FitResult.resilience`` is the runtime's summary, a fault fires once,
+    and without guards nothing recovers (the negative control)."""
     args = dict(FIT, **kw)
-    with pytest.raises(NotImplementedError, match="resilience.*ROADMAP.md queue 1"):
-        api.fit("gpt2-paper", device="cpu", **args)
+    if args.get("telemetry") == "dir":
+        args["telemetry"] = str(tmp_path / "tel")
+    got = api.fit("gpt2-paper", device="cpu", **args)
+    s = got.resilience
+    assert s == got.trainer.resilience.summary()
+    assert ("faults" in s) == ("faults" in kw)
+    if "faults" in kw:
+        assert s["faults"]["by_kind"] == {"grad_nan": 1}
+    if "guards" not in kw:
+        assert s["trips"] == s["actions"] == 0
+    if "telemetry" in kw:
+        got.telemetry.close()
 
 
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
@@ -186,7 +200,23 @@ def test_fit_adaptive_replans_like_the_reference():
     assert got.telemetry is None
 
 
-def test_fit_adaptive_arms_the_real_probe_and_telemetry(tmp_path):
+class PinnedClock:
+    """``time.perf_counter`` as ``repro_torch.core.ccr`` reads it: the k-th
+    interval ``measure_ccr`` times lasts ``durations[k % 3]`` (its full,
+    compute-only and schedule-only programs, in that order), whatever the
+    machine's load."""
+
+    def __init__(self, durations):
+        self.durations, self.now, self.reads = durations, 0.0, 0
+
+    def perf_counter(self):
+        if self.reads % 2:
+            self.now += self.durations[(self.reads // 2) % len(self.durations)]
+        self.reads += 1
+        return self.now
+
+
+def test_fit_adaptive_arms_the_real_probe_and_telemetry(tmp_path, monkeypatch):
     got = api.fit("gpt2-paper", device="cpu", interval="adaptive", steps=2, log_every=1,
                   seq_len=16, global_batch=4, vocab_size=128,
                   telemetry=str(tmp_path / "tel"))
@@ -196,10 +226,16 @@ def test_fit_adaptive_arms_the_real_probe_and_telemetry(tmp_path):
     got.telemetry.close()
     # one worker: the measured comm is about 0, so two probes (the default
     # patience) re-plan I = 4 to 1, where EF is off and the residual is
-    # dropped (the reference's rule, its test_transition_reinit_...)
+    # dropped (the reference's rule, its test_transition_reinit_...).  The
+    # real PhaseProbe runs its three programs; the times it reads are pinned
+    # to a one-worker decomposition (full = compute-only, schedule-only at
+    # the launch floor), so that a loaded machine cannot move the CCR
+    clock = PinnedClock((2e-3, 2e-3, 1e-5))
+    monkeypatch.setattr(ccr_mod, "time", types.SimpleNamespace(perf_counter=clock.perf_counter))
     one = api.fit("gpt2-paper", device="cpu", interval=4, steps=2, seq_len=16,
                   global_batch=4, vocab_size=128, autotune=AutotuneConfig(
                       measure_every=1, warmup_steps=0, probe_warmup=0, probe_iters=1))
+    assert clock.reads == 2 * 6            # two probes, three timed programs each
     assert one.interval == 4 and one.final_interval == 1
     (rep,) = one.autotune["transitions"]
     assert (rep["old_interval"], rep["new_interval"], rep["policy"]) == (4, 1, "reinit")

@@ -490,3 +490,78 @@ def test_probe_due_step_synchronizes_the_card(monkeypatch):
         measure_every=2, warmup_steps=1, probe=synthetic_probe(0.01, 2.0)))
     assert len(calls) == 2 and all(torch.device(d).type == "cuda" for d in calls)
     assert tr.runtime.monitor.summary()["steps_recorded"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grad_nan", "grad_inf", "grad_bitflip"])
+def test_fault_corruption_and_restore_in_place_on_cuda(kind):
+    """The injector writes into the live CUDA tensors (the model's params),
+    the same sites and values as on the CPU, and skip-step's restore copies
+    the rollback point back into those same tensors: after a NaN at step 3
+    (``sync_every=1``) the run equals the clean replay bit for bit on the
+    card, and every param is still the model's tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.resilience import corrupt_tree
+
+    tr, loader = _reduced_trainer()
+    state = tr.init_state()
+    cpu = [p.detach().cpu() for p in state["params"]]
+    ptrs = [p.data_ptr() for p in state["params"]]
+    _, sites = corrupt_tree(state["params"], kind, seed=3, step=5, count=5)
+    _, cpu_sites = corrupt_tree(cpu, kind, seed=3, step=5, count=5)
+    assert sites == cpu_sites and [p.data_ptr() for p in state["params"]] == ptrs
+    for p, c in zip(state["params"], cpu):
+        assert torch.equal(p.cpu().view(torch.int32), c.view(torch.int32))
+
+    batches = [loader.make(s) for s in range(8)]
+    tr, _ = _reduced_trainer()
+    healed = tr.run(tr.init_state(), iter(batches), steps=8, log=None,
+                    guards={"sync_every": 1}, faults="grad_nan@3")
+    assert healed["step"] == 6
+    assert all(a is b for a, b in zip(healed["params"],
+                                      (p for _, p in tr.model.named_leaves())))
+    tr2, _ = _reduced_trainer()
+    replay = tr2.run(tr2.init_state(), iter(batches[:3] + batches[5:8]), steps=6, log=None)
+    for part in ("params", "m", "v", "comp"):
+        got = healed[part] if part in ("params", "comp") else healed["opt"][part]
+        want = replay[part] if part in ("params", "comp") else replay["opt"][part]
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), part
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [{}, {"arena": True}], ids=["defaults", "arena"])
+def test_guarded_run_on_cuda_equals_the_unguarded_run(options):
+    """Guards on the defaults (``sync_every=4``, the watchdog every 8 steps)
+    leave the card's run bit for bit, with the EF kernel launched on every
+    segment of every step, as unguarded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    counter = pack_ef_cast if options.get("arena") else ef_update
+    runs = []
+    for guards in (None, True):
+        tr, loader = _reduced_trainer(**options)
+        launches = counter.launches
+        state = tr.run(tr.init_state(), iter([loader.make(s) for s in range(9)]), steps=9,
+                       log=None, guards=guards)
+        torch.cuda.synchronize()
+        assert counter.launches - launches == 9 * tr.plan.num_segments
+        runs.append(state["params"] + state["opt"]["m"] + state["opt"]["v"]
+                    + state["comp"])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert tr.resilience.summary()["trips"] == 0
+
+
+@pytest.mark.cuda
+def test_plane_nonfinite_counts_on_cuda_planes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.resilience import corrupt_planes, plane_nonfinite_counts
+
+    planes = [torch.randn(n, device="cuda") for n in (1_000_003, 4096, 65_537)]
+    assert plane_nonfinite_counts(planes) == [0, 0, 0]
+    _, sites = corrupt_planes(planes, "grad_nan", seed=1, step=2)
+    counts = plane_nonfinite_counts(planes)
+    assert sum(counts) == 1 and counts[sites[0][0]] == 1
+    _, more = corrupt_planes(planes, "grad_inf", seed=1, step=3, count=3)
+    assert sum(plane_nonfinite_counts(planes)) == 1 + len(set(more) - set(sites))

@@ -439,10 +439,18 @@ def test_schedule_only_fn_without_group_and_workload_ccr():
 
 
 def test_resilience_arguments_raise():
-    _, _, tr, state = _trainers(2)
+    """``guards`` and ``faults``, once refused, arm the resilience runtime of
+    ``Trainer.run`` (``test_torch_resilience.py`` holds it against the
+    reference)."""
+    from repro_torch.resilience import ResilienceRuntime
+
+    loader = make_loader(DataConfig(**DATA), device="cpu")
     for kw in ({"guards": True}, {"faults": "grad_nan@1"}):
-        with pytest.raises(NotImplementedError, match="resilience"):
-            tr.run(state, iter([]), steps=1, log=None, **kw)
+        _, _, tr, state = _trainers(2)
+        state = tr.run(state, iter([loader.make(s) for s in range(2)]), steps=2,
+                       log=None, **kw)
+        assert isinstance(tr.resilience, ResilienceRuntime) and state["step"] == 2
+        assert (tr.resilience.guards is None) == ("faults" in kw)
 
 
 def test_reattaching_the_same_telemetry_changes_nothing():
