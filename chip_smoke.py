@@ -126,6 +126,22 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            under post none (the counterpart of
            ``launch/hlo_analysis.check_interleaving``; one card shows where
            each bucket is issued, not overlap across cards)
+  launch   ``python -m torch.distributed.run --standalone --nproc-per-node 1
+           -m repro_torch.launch.train`` at full width (seq 1024, global
+           batch 8, I=4, 5 steps) in a one-rank NCCL group with
+           ``--history-out``: exit code 0, its history's losses equal an
+           in-process run on the same seed and batches bit for bit, its own
+           ``[kernels]`` launches ``ef_update`` once per segment a step;
+           prints its step ms and tok/s
+  pods     hierarchical pods at full width (``pod_interval=2``, a one-rank
+           intra-pod and a one-rank cross-pod group), on the post form and
+           on sharded+arena: 5 steps equal the flat run of the form bit for
+           bit (params, m, v, residuals, losses), ``ef_update`` /
+           ``pack_ef_cast`` once per segment a step; one reconcile's device
+           ms and bytes; the full-width plan's bytes per link for each phase
+           at 2 pods x 8 workers
+           (``[launch]`` and ``[pods]`` run after ``[sparse]``, before
+           ``[adaptive]``)
   small    REDUCED gpt2-paper trained 5 steps on the card and on the CPU
            from the same parameters and batches, on the defaults, with
            ``arena=True`` and with ``powersgd`` (the CPU run is the path the
@@ -1690,9 +1706,10 @@ def comp_parts(comp) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     return list(comp), []
 
 
-def fresh_trainer(cfg, group, options=None, device="cuda"):
+def fresh_trainer(cfg, group, options=None, device="cuda", pod_group=None):
     """A trainer as :func:`phase_train` builds it (the model from seed 0,
-    AdamW on the same schedule), and its fresh state."""
+    AdamW on the same schedule), and its fresh state; ``pod_group`` makes it
+    hierarchical with ``options["pod_interval"] > 1``."""
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.train import TrainConfig, Trainer
@@ -1700,7 +1717,7 @@ def fresh_trainer(cfg, group, options=None, device="cuda"):
     model = build_model(cfg, device=device, seed=0)
     opt = adamw(cosine_warmup(1.5e-4, STEPS // 10 + 1, STEPS))
     tr = Trainer(model, opt, TrainConfig(steps=STEPS, log_every=1, **(options or {})),
-                 group=group)
+                 group=group, pod_group=pod_group)
     return tr, tr.init_state()
 
 
@@ -2285,6 +2302,158 @@ def phase_oktopk_parity(tr, state, loader, group) -> None:
           f"values)", flush=True)
 
 
+def launch_cli_args(history_out: str) -> list[str]:
+    """The ``[launch]`` CLI arguments: full-width gpt2-paper as
+    :func:`phase_train` runs it (seq 1024, global batch 8, I = 4, AdamW's
+    default schedule over ``STEPS`` steps, seed 0)."""
+    return ["--arch", "gpt2-paper", "--steps", str(STEPS), "--seq-len", "1024",
+            "--global-batch", "8", "--interval", "4", "--log-every", "1",
+            "--history-out", history_out]
+
+
+def phase_launch(cfg, group) -> int:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    repro_torch.launch.train`` at full width in a one-rank NCCL group (the
+    CLI joins it from the launcher's environment): its exit code, its
+    ``[launch]`` and ``[done]`` lines, and its ``--history-out`` losses
+    against an in-process run on the same seed and batches, bit for bit.
+    The subprocess's own launch counts (its ``[kernels]`` line, counted from
+    0 in a fresh process) must be ``ef_update`` once per segment a step.
+    -> those launches."""
+    import os
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    with tempfile.TemporaryDirectory() as td:
+        hist_path = os.path.join(td, "history.json")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+               *launch_cli_args(hist_path)]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
+                           timeout=600)
+        secs = time.perf_counter() - t0
+        check(r.returncode == 0, f"[launch] the launcher exited {r.returncode}: "
+              f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        with open(hist_path) as f:
+            hist = json.load(f)
+    lines = {line.split("]")[0] + "]": line for line in r.stdout.splitlines()
+             if line.startswith("[")}
+    check("[launch] 1 rank(s), 1 pod(s) x 1, backend nccl" in lines.get("[launch]", ""),
+          f"[launch] no one-rank NCCL group: {lines.get('[launch]')}")
+    check(lines.get("[done]", "").startswith(f"[done] step {STEPS} ({STEPS} committed)"),
+          f"[launch] {lines.get('[done]')}")
+    counts = json.loads(lines["[kernels]"].split("launches ", 1)[1])
+    tr, state = fresh_trainer(cfg, group, {"interval": 4})
+    segs = tr.plan.num_segments
+    check(counts == launch_counts(ef_update=STEPS * segs),
+          f"[launch] the launched run's launches {counts}; the plan has {segs} segments")
+    state = tr.run(state, iter(ckpt_batches(cfg)), steps=STEPS, log=None)
+    want = [h["loss"] for h in tr.history]
+    got = [h["loss"] for h in hist["history"]]
+    check(got == want, f"[launch] history losses {got} != in-process {want}")
+    check(hist["interval"] == 4 and sorted(hist) == ["config", "history", "interval"],
+          f"[launch] history keys {sorted(hist)}, interval {hist['interval']}")
+    walls = [h["wall_s"] for h in hist["history"]]
+    step_ms = [round(1e3 * (b - a), 2) for a, b in zip(walls, walls[1:])]
+    print(f"[launch] torch.distributed.run, 1 process, one-rank NCCL group: "
+          f"{lines['[done]']}; steps 1-{STEPS - 1} ms {step_ms}; "
+          f"{(STEPS - 1) * 8 * 1024 / (walls[-1] - walls[0]):.0f} tok/s after step 0; "
+          f"losses {got} == the in-process run's, bit for bit; launches {counts}; "
+          f"the command took {secs:.1f} s", flush=True)
+    del tr, state
+    torch.cuda.empty_cache()
+    return counts["ef_update"]
+
+
+# [pods]: the hierarchical step's forms, each beside its flat run, and the
+# pod interval (phases: lcm(4, 2) = 4)
+POD_INTERVAL = 2
+POD_RUNS = (
+    ("post", {}, "ef_update"),
+    ("sharded+arena", {"sync": "sharded", "arena": True}, "pack_ef_cast"),
+)
+
+
+def phase_pods(cfg, group) -> dict:
+    """Hierarchical pods at full width (``pod_interval=2``) with a one-rank
+    intra-pod and a one-rank cross-pod NCCL group, on the post form and on
+    sharded+arena: 5 steps each equal the flat run of the same form on the
+    same batches bit for bit (params, Adam's m and v, residuals, losses):
+    with one pod the reconcile is a pack -> slice -> exchange -> unpack
+    round trip.  One reconcile's device ms and bytes are timed, and the
+    full-width plan's bytes per link are printed for every phase at 2 pods
+    x 8 workers.  -> each form's kernel launches."""
+    import torch.distributed as dist
+
+    from repro_torch.core import get_compressor
+    from repro_torch.train import hierarchical_schedules, pod_reconcile
+
+    intra, pods = dist.new_group([0]), dist.new_group([0])
+    batches = ckpt_batches(cfg)
+    out = {}
+    for label, options, kernel in POD_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr, state = fresh_trainer(cfg, group, options)
+        state = tr.run(state, iter(batches), steps=STEPS, log=None)
+        want, want_losses = state_parts(state), [h["loss"] for h in tr.history]
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr, state = fresh_trainer(cfg, intra, dict(options, pod_interval=POD_INTERVAL),
+                                  pod_group=pods)
+        check(tr.hierarchical and tr.num_phases == 4 and tr.n_pods == 1,
+              f"pods {label}: hierarchical {tr.hierarchical}, {tr.num_phases} phases")
+        counters = zero_counters()
+        state = tr.run(state, iter(batches), steps=STEPS, log=None)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        segs = tr.plan.num_segments
+        check(counts == launch_counts(**{kernel: STEPS * segs}),
+              f"pods {label}: launches {counts}; the plan has {segs} segments")
+        got, losses = state_parts(state), [h["loss"] for h in tr.history]
+        check(losses == want_losses, f"pods {label}: losses {losses} != flat {want_losses}")
+        for part in ("params", "m", "v", "residual"):
+            check(len(got[part]) == len(want[part]) and all(
+                torch.equal(a, b) for a, b in zip(got[part], want[part])),
+                f"pods {label}: {part} differs from the flat run")
+        fn = tr._phase_fn(0)
+        sched = fn.pod_schedule
+        ms = device_timed(lambda: pod_reconcile(state["params"], sched, group=intra,
+                                                pod_group=pods, owned_only=tr.sharded,
+                                                layout=fn.pod_layout))
+        check(all(torch.equal(a, b) for a, b in zip(state["params"], got["params"])),
+              f"pods {label}: the timed reconciles changed the params")
+        nbytes = sched.bytes_per_worker
+        # pack reads the params and writes the planes, the exchange reads and
+        # writes them, the unpack reads them and writes the params
+        print(f"[pods] {label}: pod_interval {POD_INTERVAL}, 1 pod x 1, "
+              f"{tr.num_phases} phases; 5 steps == the flat run bit for bit (params, "
+              f"m, v, residuals, losses {[round(v, 4) for v in losses]}); launches "
+              f"{counts}; one reconcile (phase 0, {len(sched.selected)} of "
+              f"{tr.plan.num_buckets} buckets, {nbytes} B exchanged) {ms:.3f} device ms, "
+              f"{6 * nbytes / (ms * 1e-3) / 1e12:.2f} TB/s of pack + exchange + "
+              f"unpack traffic", flush=True)
+        out[f"pods {label}"] = counts[kernel]
+        plan = tr.plan
+        del tr, state, got, want
+        torch.cuda.empty_cache()
+    for sync in ("allreduce", "sharded"):
+        comp = get_compressor("covap", interval=4, **({"sync": sync} if sync != "allreduce"
+                                                      else {}))
+        scheds = hierarchical_schedules(comp, plan, pod_interval=POD_INTERVAL, sync=sync,
+                                        intra_world=8, n_pods=2)
+        rows = [f"phase {s.phase}: exposed {s.exposed_bytes_by_link()}"
+                + (f" deferred {s.deferred_bytes_by_link()}" if s.deferred_calls else "")
+                for s in scheds]
+        print(f"[pods] full-width plan at 2 pods x 8, {sync}, bytes per worker by "
+              f"link: {'; '.join(rows)}", flush=True)
+    return out
+
+
 def phase_small() -> None:
     """REDUCED gpt2-paper on the card against the port on the CPU, on the
     defaults, with ``arena=True`` and with ``powersgd`` (whose Q is drawn on
@@ -2482,6 +2651,10 @@ def main() -> int:
                 phase_oktopk_parity(tr, state, loader, group)
             del tr, state, loader
             torch.cuda.empty_cache()
+        records[0]["launches_by_run"]["launch"] = phase_launch(cfg, group)
+        pods = phase_pods(cfg, group)
+        records[0]["launches_by_run"]["pods post"] = pods["pods post"]
+        records[1]["launches_by_run"]["pods sharded+arena"] = pods["pods sharded+arena"]
         records[0]["launches_by_run"]["adaptive"] = phase_adaptive(cfg, group, smi)
         by_run, plane_pack = phase_resilience(cfg, group, smi)
         records[0]["launches_by_run"].update(by_run)

@@ -195,7 +195,10 @@ def fit(arch: str = "gpt2-paper", *, reduced: bool = True, compressor: str = "co
     bundle comes back as ``FitResult.telemetry``.  ``guards`` and ``faults``
     arm the resilience runtime (``Trainer.run``'s arguments); its summary
     (trips, actions by rung, faults fired) comes back as
-    ``FitResult.resilience``."""
+    ``FitResult.resilience``.  The run returns when ``steps`` steps are
+    committed (``state["step"] == steps``), replays after a recovery
+    included; the reference returns after ``steps`` executions, which can
+    leave the state behind."""
     cfg = _config(arch, reduced=reduced, vocab_size=vocab_size)
     dp_world = world_size(group) if group is not None else dp_workers
     choice = resolve_interval(interval, cfg, global_batch=global_batch,
@@ -217,8 +220,14 @@ def fit(arch: str = "gpt2-paper", *, reduced: bool = True, compressor: str = "co
     if interval == "adaptive" and autotune is None:
         autotune = True
     tel = as_telemetry(telemetry)
-    state = tr.run(state, iter(batches), steps=steps, log=log, autotune=autotune,
+    it = iter(batches)
+    state = tr.run(state, it, steps=steps, log=log, autotune=autotune,
                    telemetry=tel, guards=guards, faults=faults)
+    # a recovery can set the state back: run on, with the same runtimes,
+    # until ``steps`` steps are committed
+    while state["step"] < steps:
+        state = tr.run(state, it, steps=steps - state["step"], log=log,
+                       autotune=tr.runtime, telemetry=tel, guards=tr.resilience)
     return FitResult(trainer=tr, state=state, history=tr.history,
                      interval=choice.interval, ccr=choice.ccr,
                      schedules=tr.schedules(),

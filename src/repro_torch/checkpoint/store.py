@@ -318,6 +318,7 @@ def _ranks(group) -> tuple[int, int]:
 def save_train_state(
     directory: str, state: dict, *, interval: int | None = None,
     extra: dict | None = None, names: Sequence[str] | None = None, group=None,
+    shared: bool = True,
 ) -> str:
     """Persist a trainer state (``params``/``opt``/``comp``/``step``).
 
@@ -327,13 +328,17 @@ def save_train_state(
     is its index).  With a ``group`` of several ranks every rank calls
     this, after ``Trainer.flush_sync`` (``Trainer.run`` ends with it), and
     each rank's comp state is saved; only rank 0 publishes, and every rank
-    returns after the publish."""
+    returns after the publish.  ``shared=False`` (hierarchical pods, whose
+    params and moments differ between pods) has every rank save its whole
+    state, and marks the manifest ``per_rank``."""
     meta = dict(extra or {})
     if interval is not None:
         meta["interval"] = int(interval)
     meta["has_comp_state"] = _has_tensors(state.get("comp", ()))
     W, rank = _ranks(group)
     meta["world"] = W
+    if not shared and W > 1:
+        meta["per_rank"] = True
     tree = {k: _by_name(state[k], names) for k in _STATE_KEYS if k in state}
     step = int(state["step"])
     if W == 1:
@@ -346,7 +351,8 @@ def save_train_state(
         written = _write_payload(os.path.join(tmp, ARRAYS), tree)
     else:
         written = _write_payload(os.path.join(tmp, _rank_file(rank)),
-                                 {"comp": tree.get("comp", ())})
+                                 tree if meta.get("per_rank")
+                                 else {"comp": tree.get("comp", ())})
     every = [None] * W
     dist.all_gather_object(every, written, group=group)
     if rank == 0:
@@ -376,7 +382,9 @@ def restore_train_state(
     size, params and opt still restore and the comp state keeps its fresh
     initialisation, with ``extra["comp_restored"] = False`` so that callers
     can warn about the dropped residual.  With a group each rank reads its
-    own comp state."""
+    own comp state, and its whole state from a ``per_rank`` checkpoint
+    (``save_train_state(shared=False)``), which restores only at the world
+    size it was saved at."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -387,10 +395,21 @@ def restore_train_state(
     d = _step_dir(directory, step)
     like = {k: _by_name(like_state[k], names) for k in _STATE_KEYS if k in like_state}
     shared = {k: v for k, v in like.items() if k != "comp"}
-    tree = _fill(shared, manifest["leaves"], os.path.join(d, ARRAYS))
+    W, rank = _ranks(group)
+    own_leaves, own_path = manifest["leaves"], os.path.join(d, ARRAYS)
+    if rank and str(rank) in manifest.get("ranks", {}):
+        entry = manifest["ranks"][str(rank)]
+        own_leaves, own_path = entry["leaves"], os.path.join(d, entry["file"])
+    if extra.get("per_rank"):
+        if int(extra.get("world", 1)) != W:
+            raise ValueError(
+                f"checkpoint {d} holds a per-rank state of {extra.get('world')} "
+                f"ranks; this run has {W}")
+        tree = _fill(shared, own_leaves, own_path)
+    else:
+        tree = _fill(shared, manifest["leaves"], os.path.join(d, ARRAYS))
     comp_restored = True
     if "comp" in like:
-        W, rank = _ranks(group)
         saved_world = int(extra.get("world", 1))
         like_has = _has_tensors(like["comp"])
         if saved_world != W:
@@ -401,13 +420,8 @@ def restore_train_state(
                     f"worker(s), this run has {W}: the EF residuals start from "
                     f"zero", RuntimeWarning, stacklevel=2)
         else:
-            if rank == 0:
-                leaves, path = manifest["leaves"], os.path.join(d, ARRAYS)
-            else:
-                entry = manifest["ranks"][str(rank)]
-                leaves, path = entry["leaves"], os.path.join(d, entry["file"])
             try:
-                tree["comp"] = _fill(like["comp"], leaves, path, "comp/")
+                tree["comp"] = _fill(like["comp"], own_leaves, own_path, "comp/")
                 # a saved residual read into a like state with no comp
                 # leaves succeeds trivially: the save-time marker catches
                 # that direction

@@ -35,19 +35,27 @@ class HardwareSpec:
 
     ``peak_flops`` (FLOP/s at the compute dtype), ``hbm_bw`` (device memory,
     bytes/s), ``ici_bw`` (bytes/s of the link the data-parallel collectives
-    cross, the reference's name for it) and ``mfu`` (the model-FLOPs
-    utilisation assumed)."""
+    cross, the reference's name for it; NVLink inside a node), ``mfu`` (the
+    model-FLOPs utilisation assumed) and ``dcn_bw`` (bytes/s per device
+    across pods, the network between nodes; ``None``: the same as
+    ``ici_bw``)."""
 
     peak_flops: float
     hbm_bw: float
     ici_bw: float
     mfu: float
+    dcn_bw: float | None = None
+
+    def __post_init__(self):
+        if self.dcn_bw is None:
+            object.__setattr__(self, "dcn_bw", self.ici_bw)
 
     @staticmethod
     def cloud_v100_30gbps() -> "HardwareSpec":
-        """The paper's environment: V100 + 30 Gbps Ethernet."""
+        """The paper's environment: V100 + 30 Gbps Ethernet, between the
+        nodes too (``dcn_bw == ici_bw``)."""
         return HardwareSpec(peak_flops=125e12, hbm_bw=900e9, ici_bw=30e9 / 8,
-                            mfu=0.35)
+                            mfu=0.35, dcn_bw=30e9 / 8)
 
 
 def allreduce_bytes_on_wire(payload_bytes: float, world: int) -> float:

@@ -134,6 +134,25 @@ def start_all_gather_tiled(shard: torch.Tensor, group):
     return out, dist.all_gather_into_tensor(out, shard, group=group, async_op=True)
 
 
+def all_gather_tiled(shard: torch.Tensor, group) -> torch.Tensor:
+    """:func:`start_all_gather_tiled`, waited for.  ``shard`` itself with no
+    group."""
+    if group is None:
+        return shard
+    out, work = start_all_gather_tiled(shard, group)
+    work.wait()
+    return out
+
+
+def pod_shard_exchange(x: torch.Tensor, pod_group) -> torch.Tensor:
+    """Cross-pod mean of an owned shard, in place: the slow-link half of
+    the two-level hierarchical sync.  ``x`` is the ``1/W_intra`` shard this
+    worker owns (or the whole bucket with one worker a pod); the exchange
+    averages it with the same shard of the peer worker in every other pod.
+    The identity with no pod group."""
+    return pmean(x, pod_group)
+
+
 class Compressor:
     """Base class.  Subclasses set ``name`` and implement the plan/execute
     pair (``plan_phase`` + ``execute``)."""
@@ -180,6 +199,10 @@ def get_compressor(name: str, **kw) -> Compressor:
             f"compressor {name!r} is not ported; have {sorted(_REGISTRY)}"
         )
     return _REGISTRY[name](**kw)
+
+
+def available() -> list[str]:
+    return sorted(_REGISTRY)
 
 
 def dense_bytes(plan: BucketPlan) -> int:

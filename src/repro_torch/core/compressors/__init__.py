@@ -1,7 +1,14 @@
 """GC scheme registry: COVAP, the ``none``/``fp16`` baselines, the
 block-scaled FP8 wire, EFsignSGD, PowerSGD, and the sparsifiers Top-k, DGC,
 Random-k and Ok-topk."""
-from .base import Compressor, SyncStats, dense_bytes, get_compressor, register
+from .base import (
+    Compressor,
+    SyncStats,
+    available,
+    dense_bytes,
+    get_compressor,
+    register,
+)
 from .covap import COVAP
 from .fp8wire import FP8Wire
 from .oktopk import OkTopK
@@ -13,6 +20,7 @@ from .sparsify import DGC, RandomK, TopK
 __all__ = [
     "Compressor",
     "SyncStats",
+    "available",
     "dense_bytes",
     "get_compressor",
     "register",

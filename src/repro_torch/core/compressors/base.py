@@ -5,6 +5,7 @@ from __future__ import annotations
 from ..comm import (  # noqa: F401
     Compressor,
     SyncStats,
+    available,
     dense_bytes,
     get_compressor,
     pmean,
@@ -14,6 +15,7 @@ from ..comm import (  # noqa: F401
 
 __all__ = [
     "Compressor",
+    "available",
     "SyncStats",
     "dense_bytes",
     "get_compressor",

@@ -36,3 +36,18 @@ class EFSchedule:
 
 def init_residual(params: list[torch.Tensor]) -> list[torch.Tensor]:
     return [torch.zeros_like(p) for p in params]
+
+
+def compensate(grads: list[torch.Tensor], residual: list[torch.Tensor],
+               coeff: float) -> list[torch.Tensor]:
+    """``t = g + coeff * r`` per leaf (line 2 of Algorithm 1), two roundings
+    as the reference's eager form."""
+    return [g + coeff * r.to(g.dtype) for g, r in zip(grads, residual)]
+
+
+def residual_update(t: list[torch.Tensor], sent: list[torch.Tensor]
+                    ) -> list[torch.Tensor]:
+    """``residual' = t - g'`` per leaf (line 4 of Algorithm 1); ``sent`` is
+    the local pre-reduction contribution where it was communicated and zero
+    elsewhere."""
+    return [a - b for a, b in zip(t, sent)]

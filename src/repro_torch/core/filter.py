@@ -11,6 +11,13 @@ from __future__ import annotations
 from .bucketing import BucketPlan
 
 
+def is_selected(bucket_idx: int, step: int, interval: int) -> bool:
+    """The paper's selection rule, verbatim."""
+    if interval <= 1:
+        return True
+    return (bucket_idx + step) % interval == 0
+
+
 def selected_buckets(num_buckets: int, phase: int, interval: int) -> tuple[int, ...]:
     """Indices of buckets communicated at any step with ``step % I == phase``."""
     if interval <= 1:
@@ -29,3 +36,9 @@ def compression_ratio(plan: BucketPlan, interval: int) -> float:
         return 1.0
     per_step = [selected_numel(plan, p, interval) for p in range(interval)]
     return plan.total_numel() / max(sum(per_step) / interval, 1)
+
+
+def schedule_table(num_buckets: int, interval: int, steps: int) -> list[list[int]]:
+    """The bucket selection of each of ``steps`` iterations."""
+    return [[b for b in range(num_buckets) if is_selected(b, s, interval)]
+            for s in range(steps)]

@@ -5,9 +5,8 @@ bucket-timeline simulator of its Figs. 1/4/5/11: the counterpart of
 All times in seconds; all speedups relative to single-worker linear scaling
 (upper limit = P, the number of workers).
 
-The port's ``CollectiveCall`` has no ``link`` yet (hierarchical pods are not
-ported): every call crosses the data-parallel link, which keeps the
-reference's name ``"ici"`` wherever a per-link bandwidth mapping is given.
+A per-link bandwidth mapping prices each ``CollectiveCall`` on its own
+``link`` (``"ici"`` intra-pod, ``"dcn"`` across pods).
 """
 from __future__ import annotations
 
@@ -17,14 +16,6 @@ from typing import Mapping, Sequence, Union
 import torch
 
 from .bucketing import build_ready_order
-
-#: the link a call without a ``link`` of its own crosses
-DEFAULT_LINK = "ici"
-
-
-def _link(call) -> str:
-    return getattr(call, "link", DEFAULT_LINK)
-
 
 # ---- eq (1)/(2): plain DP ---------------------------------------------------
 
@@ -202,8 +193,8 @@ def pack_overhead_s(schedule, *, hbm_bw: float, ef: bool = False) -> float:
 # ---- schedule-driven timeline (plan/execute split) --------------------------
 
 #: a single scalar bandwidth (every call shares one link — the flat-mesh
-#: model) or a per-link mapping like ``{"ici": bw}`` matched against each
-#: call's link (``DEFAULT_LINK`` for every call of the port today).
+#: model) or a per-link mapping like ``{"ici": bw, "dcn": bw}`` matched
+#: against each ``CollectiveCall.link`` (hierarchical pods).
 LinkBandwidth = Union[float, Mapping[str, float]]
 
 
@@ -236,7 +227,7 @@ def schedule_comm_times(
     if schedule.granularity != "bucket":
         # leaf-granularity schemes have no bucket timeline; spread evenly
         total = sum(
-            c.wire_bytes(world) / _bw_for(link_bw, _link(c))
+            c.wire_bytes(world) / _bw_for(link_bw, c.link)
             for c in schedule.calls
         )
         return [total / plan.num_buckets] * plan.num_buckets
@@ -252,7 +243,7 @@ def schedule_comm_times(
             pairs.append((int(idx), call))
     for b, call in pairs:
         # += : a bucket may carry several calls (e.g. oktopk route+gather)
-        times[b] += call.wire_bytes(world) / _bw_for(link_bw, _link(call))
+        times[b] += call.wire_bytes(world) / _bw_for(link_bw, call.link)
     return times
 
 
@@ -313,7 +304,7 @@ def simulate_schedule(
         sim = simulate_overlap(t_before, comp, comm)
     if isinstance(link_bw, Mapping):
         t_deferred = sum(
-            c.wire_bytes(world) / _bw_for(link_bw, _link(c))
+            c.wire_bytes(world) / _bw_for(link_bw, c.link)
             for c in getattr(schedule, "deferred_calls", ())
         )
     else:

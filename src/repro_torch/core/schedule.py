@@ -1,15 +1,18 @@
 """Static communication schedules: the *plan* half of the plan/execute split
-(``repro.core.schedule`` without the per-link split of hierarchical pods).
+(the counterpart of ``repro.core.schedule``).
 
 Bucket selection is a static function of ``(phase, interval)``, so each
 phase's ``CommSchedule`` records which buckets are communicated, with which
 collective, at which wire dtype, and exactly how many bytes each worker
-injects, before any step runs.
+injects, before any step runs.  In a two-level hierarchy (hierarchical pods)
+each call names the link it crosses: ``"ici"`` for the intra-pod group
+(NVLink inside a node), ``"dcn"`` for the cross-pod group (the network
+between nodes).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Iterable, Sequence
 
 from .bucketing import BucketPlan, Segment
 
@@ -20,7 +23,7 @@ class CollectiveCall:
     this phase.  ``payload_bytes`` counts the bytes one worker injects once;
     ring amplification is applied by :meth:`wire_bytes`."""
 
-    target: str                # "bucket:3" | "param-bucket:3"
+    target: str                # "bucket:3" | "param-bucket:3" | "pod-bucket:1"
     op: str                    # "all_reduce" | "reduce_scatter" | "all_gather" | "all_to_all"
     wire_dtype: str            # dtype name of the wire payload
     payload_bytes: int
@@ -28,6 +31,12 @@ class CollectiveCall:
     # planned in this phase but issued at the head of the next step, where
     # it overlaps the forward pass (sharded sync's param all-gather)
     deferred: bool = False
+    # the link this call crosses: "ici" (intra-pod, and every call of a flat
+    # plan) or "dcn" (the cross-pod exchange)
+    link: str = "ici"
+    # the call's own group size where it differs from the schedule's world
+    # (hierarchical plans); 0: the world passed to ``wire_bytes``
+    world: int = 0
 
     @property
     def bytes_per_worker(self) -> int:
@@ -40,7 +49,9 @@ class CollectiveCall:
         times, an all-to-all keeps ``1/W`` of its buffer local.  A
         reduce-scatter's ``payload_bytes`` is the full input buffer, an
         all-gather's the local shard, an all-to-all's the buffer it
-        sends."""
+        sends.  A call with its own ``world`` ignores the argument."""
+        if self.world:
+            world = self.world
         if world <= 1:
             return 0.0
         b = float(self.bytes_per_worker)
@@ -118,6 +129,37 @@ class CommSchedule:
         w = self.world if world is None else world
         return sum(c.wire_bytes(w) for c in self.calls)
 
+    # ---- per-link accounting (hierarchical pods) ---------------------------
+    @property
+    def links(self) -> tuple[str, ...]:
+        """Distinct links this phase touches, "ici" first."""
+        seen = {c.link for c in self.calls} | {c.link for c in self.deferred_calls}
+        return tuple(sorted(seen, key=lambda l: (l != "ici", l)))
+
+    @staticmethod
+    def _by_link(calls, value) -> dict:
+        out: dict = {}
+        for c in calls:
+            out[c.link] = out.get(c.link, 0) + value(c)
+        return out
+
+    def exposed_bytes_by_link(self) -> dict[str, int]:
+        """Per-link injected bytes of the exposed calls."""
+        return self._by_link(self.calls, lambda c: c.bytes_per_worker)
+
+    def deferred_bytes_by_link(self) -> dict[str, int]:
+        return self._by_link(self.deferred_calls, lambda c: c.bytes_per_worker)
+
+    def exposed_wire_bytes_by_link(self, world: int | None = None) -> dict[str, float]:
+        """Ring-amplified wire bytes of the exposed calls by link (the
+        adaptive controller's slowest-link numerator)."""
+        w = self.world if world is None else world
+        return self._by_link(self.calls, lambda c: c.wire_bytes(w))
+
+    def deferred_wire_bytes_by_link(self, world: int | None = None) -> dict[str, float]:
+        w = self.world if world is None else world
+        return self._by_link(self.deferred_calls, lambda c: c.wire_bytes(w))
+
     def issue_order(self) -> tuple[int, ...]:
         """Indices into ``calls`` in backward readiness order, the order the
         fused overlap issues this phase's collectives; plan order without
@@ -153,6 +195,10 @@ class CommSchedule:
             out["exposed_bytes_per_worker"] = self.exposed_bytes_per_worker
             out["deferred_bytes_per_worker"] = self.deferred_bytes_per_worker
             out["total_bytes_per_worker"] = self.total_bytes_per_worker
+        if self.links not in (("ici",), ()):
+            out["links"] = list(self.links)
+            out["exposed_bytes_by_link"] = self.exposed_bytes_by_link()
+            out["deferred_bytes_by_link"] = self.deferred_bytes_by_link()
         return out
 
 
@@ -163,8 +209,12 @@ def plan_all_phases(compressor, plan: BucketPlan, *, world: int = 1
     return tuple(compressor.plan_phase(plan, p, world=world) for p in range(n))
 
 
+def cycle_bytes_per_worker(schedules: Iterable[CommSchedule]) -> int:
+    return sum(s.bytes_per_worker for s in schedules)
+
+
 def mean_bytes_per_step(schedules: Sequence[CommSchedule]) -> float:
     schedules = tuple(schedules)
     if not schedules:
         return 0.0
-    return sum(s.bytes_per_worker for s in schedules) / len(schedules)
+    return cycle_bytes_per_worker(schedules) / len(schedules)

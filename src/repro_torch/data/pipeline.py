@@ -73,3 +73,18 @@ class ShardedLoader:
 def make_loader(cfg: DataConfig, num_workers: int = 1, worker: int = 0, *,
                 device: str | torch.device = "cuda") -> ShardedLoader:
     return ShardedLoader(cfg, num_workers, worker, device=device)
+
+
+def synth_batch(seed: int, cfg, shape_kind: str, batch: int, seq: int, *,
+                device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """A random batch for smoke tests: uniform ``tokens`` (and ``labels``
+    for ``shape_kind="train"``) in ``[0, cfg.vocab_size)``, int64, drawn
+    from a torch generator seeded with ``seed`` (the reference draws from a
+    ``jax.random`` key, so the values differ; the shapes and range agree)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    shape = (batch, seq)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen)}
+    if shape_kind == "train":
+        out["labels"] = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+    dev = resolve_device(device)
+    return {k: v.to(dev) for k, v in out.items()}

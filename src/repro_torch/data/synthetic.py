@@ -3,11 +3,17 @@
 
 ``markov_corpus`` produces *learnable* token streams (a random sparse
 first-order Markov chain): a model that trains correctly drives the loss
-well below the unigram entropy.
+well below the unigram entropy.  ``zipf_tokens`` gives heavy-tailed unigram
+data for throughput-only runs.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def zipf_tokens(rng: np.random.Generator, n: int, vocab: int, a: float = 1.3):
+    toks = rng.zipf(a, size=n).astype(np.int64)
+    return (toks % vocab).astype(np.int32)
 
 
 def markov_corpus(

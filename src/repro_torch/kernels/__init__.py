@@ -20,12 +20,24 @@ from .ref import (
 from .sign_compress import sign_compress, sign_compress_partials
 from .topk_threshold import sample_threshold, threshold_filter
 
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel wrapper's launches in this process, by name (the matmul
+    as ``"lowrank.matmul"``)."""
+    fns = {f.__name__: f for f in (ef_update, pack_ef_cast, quantize_fp8,
+                                   dequantize_fp8, sign_compress, threshold_filter)}
+    fns["lowrank.matmul"] = matmul
+    return {name: int(f.launches) for name, f in fns.items()}
+
+
 __all__ = [
     "dequantize_fp8",
     "dequantize_fp8_ref",
     "ef_update",
     "ef_update_cuda",
     "ef_update_ref",
+    "launch_counts",
     "matmul",
     "matmul_ref",
     "pack_ef_cast",

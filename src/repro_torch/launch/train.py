@@ -1,7 +1,23 @@
-"""End-to-end training driver of the port (one worker).
+"""End-to-end training driver of the port: one worker, or one process per
+GPU under ``torch.distributed.run``.
 
     python -m repro_torch.launch.train --arch gpt2-paper --reduced \
         --interval auto --steps 20 --seq-len 128 --global-batch 8 --device cpu
+
+    python -m torch.distributed.run --standalone --nproc-per-node 8 \
+        -m repro_torch.launch.train --pods 2 --pod-interval 2 ...
+
+Under ``torch.distributed.run`` (its ``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` environment) every process joins the default group (NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``), ``--pods N`` cuts the
+world into N pods (``launch.mesh.build_groups``) and ``--pod-interval P >
+1`` reconciles them every P steps a bucket (hierarchical COVAP); at the
+default ``--pod-interval 1`` every step syncs over the whole world, as one
+flat group.  Each rank trains on its contiguous rows of every global batch,
+and only rank 0 prints and writes ``--history-out``.  ``--dp-workers`` is
+the modelled world of ``--interval auto`` only when there is no group; with
+one, the world the gradients sync over is (the intra-pod world when
+hierarchical).
 
 Prints the same ``[ccr]`` (with ``--interval auto``, the default),
 ``[plan]``, ``[schedule]``, ``[model]``, per-step loss and ``[done]`` lines
@@ -35,37 +51,52 @@ the ``--ckpt-dir`` / ``--ckpt-every`` checkpoint); ``--inject-faults SPEC``
 faults, sites drawn from ``--fault-seed``.  One ``ResilienceRuntime``
 spans the chunked checkpoint-every calls and prints ``[resilience]``
 lines; a ``kill`` fault ends the process with ``InjectedCrash``, and
-``--resume`` restarts from the last checkpoint.
+``--resume`` restarts from the last checkpoint.  The run ends when the
+committed step (``state["step"]``, which a recovery can set back) is
+``--steps`` past where it started; ``[done]`` reports it, and tok/s counts
+committed steps only.
+
+``--history-out F`` writes ``{"config", "interval", "history"}`` as JSON,
+as the reference's CLI does.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import checkpoint
-from ..api import resolve_interval
+from ..api import _worker_batches, resolve_interval
 from ..configs import get_config, get_reduced
 from ..data import DataConfig, make_loader
+from ..kernels import launch_counts
 from ..models import build_model
 from ..optim import adamw, cosine_warmup, sgd
 from ..train.trainer import TrainConfig, Trainer
+from ..core.comm import world_size
+from .mesh import build_groups, init_from_env, launched
 
 
-def pick_interval(args, cfg) -> int:
+def pick_interval(args, cfg, dp_world: int, say=print) -> int:
     """``api.resolve_interval``: ``I = ceil(analytic_ccr)`` for ``auto``,
-    modelled on the paper's environment for a ``--dp-workers`` run."""
+    modelled on the paper's environment for a ``dp_world``-worker run."""
     choice = resolve_interval(
         args.interval if args.interval in ("auto", "adaptive") else int(args.interval),
         cfg,
         global_batch=args.global_batch, seq_len=args.seq_len,
-        dp_world=max(args.dp_workers, 1),
+        dp_world=max(dp_world, 1),
     )
     if choice.auto:
-        print(f"[ccr] analytic CCR={choice.ccr:.2f} -> interval I={choice.interval}")
+        say(f"[ccr] analytic CCR={choice.ccr:.2f} -> interval I={choice.interval}")
     return choice.interval
+
+
+def _quiet(*args, **kwargs) -> None:
+    pass
 
 
 def main(argv=None):
@@ -118,16 +149,48 @@ def main(argv=None):
     ap.add_argument("--telemetry-dir", default="",
                     help="write events.jsonl (streamed), metrics.prom, "
                          "metrics.json and trace.json into this directory")
+    ap.add_argument("--history-out", default="",
+                    help="write {config, interval, history} as JSON here")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods the torch.distributed.run world is cut into "
+                         "(hierarchical COVAP with --pod-interval > 1; at "
+                         "--pod-interval 1 the world syncs as one group)")
+    ap.add_argument("--pod-interval", type=int, default=1,
+                    help="cross-pod reconciliation interval: each bucket's "
+                         "params are averaged across pods every P steps "
+                         "(1: no pod level, every step syncs over the world)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.interval == "adaptive":
         # as api.fit: the analytic pick first, then the online runtime
         args.adaptive = True
+    groups = None
+    device = args.device
+    if launched():
+        device = init_from_env(args.device)
+        groups = build_groups(args.pods)
+    elif args.pods > 1:
+        raise SystemExit("--pods needs a process group: start the CLI under "
+                         "python -m torch.distributed.run")
+    try:
+        _train(args, groups, device)
+    finally:
+        if groups is not None:
+            dist.destroy_process_group()
 
+
+def _train(args, groups, device) -> None:
+    say = print if groups is None or groups.rank == 0 else _quiet
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    interval = pick_interval(args, cfg)
-    model = build_model(cfg, device=args.device, seed=args.seed)
+    # hierarchical only with a pod interval: at --pod-interval 1 every step
+    # syncs over the whole world, pods or not, as the reference's
+    # pod_interval=1 on a ("pod", "data") mesh does
+    hier = groups is not None and groups.n_pods > 1 and args.pod_interval > 1
+    group = (groups.intra if hier else groups.world) if groups else None
+    interval = pick_interval(args, cfg, world_size(group) if groups else args.dp_workers,
+                             say)
+    model = build_model(cfg, device=device, seed=args.seed)
     if args.optimizer == "adam":
         opt = adamw(cosine_warmup(args.lr, args.steps // 10 + 1, args.steps))
     else:
@@ -135,13 +198,18 @@ def main(argv=None):
 
     tc = TrainConfig(compressor=args.compressor, interval=interval,
                      log_every=args.log_every, steps=args.steps,
-                     arena=args.arena, sync=args.sync, overlap=args.overlap)
-    tr = Trainer(model, opt, tc)
-    print(f"[plan] {tr.plan.num_buckets} buckets, "
+                     arena=args.arena, sync=args.sync, overlap=args.overlap,
+                     pod_interval=args.pod_interval)
+    tr = Trainer(model, opt, tc, group=group,
+                 pod_group=groups.cross if hier else None)
+    if groups is not None:
+        say(f"[launch] {groups.world_size} rank(s), {groups.n_pods} pod(s) x "
+            f"{groups.intra_size}, backend {dist.get_backend()}, device {device}")
+    say(f"[plan] {tr.plan.num_buckets} buckets, "
           f"target {tr.plan.bucket_bytes_target/1e6:.1f} MB, "
           f"{tr.num_phases} phase executable(s)")
     sr = tr.schedule_report()
-    print(f"[schedule] mean {sr['mean_bytes_per_step']/1e6:.3f} MB/step "
+    say(f"[schedule] mean {sr['mean_bytes_per_step']/1e6:.3f} MB/step "
           f"per worker (dense {sr['dense_bytes']/1e6:.3f} MB, "
           f"volume ratio {sr['volume_ratio']:.2f}x) — static plan, no tracing")
     if args.sync == "sharded":
@@ -149,21 +217,30 @@ def main(argv=None):
         # forward pass waits for each where it first reads it: before the
         # embedding, before layer i (ParamGather.before_layer), or before
         # the final norm and head
-        print(f"[schedule] sharded: "
+        say(f"[schedule] sharded: "
               f"{sr['mean_exposed_wire_bytes_per_step']/1e6:.3f} MB/step "
               f"exposed wire (RS), "
               f"{sr['mean_deferred_bytes_per_step']/1e6:.3f} MB/step "
               f"deferred param AG riding the next forward pass")
+    if tr.hierarchical:
+        n = len(tr.schedules())
+        by_link = {}
+        for sched in tr.schedules():
+            for link, v in sched.exposed_bytes_by_link().items():
+                by_link[link] = by_link.get(link, 0) + v / n
+        say(f"[pods] {tr.n_pods} pods x {tr.dp_world}, pod interval "
+            f"{tc.pod_interval}, {tr.num_phases} phases; mean bytes/step per "
+            f"worker: " + ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in by_link.items()))
+    ckpt_kw = {"names": tr.leaf_names, "group": tr.world_group}
 
     state = tr.init_state()
     if args.resume and args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
-        state, extra = checkpoint.restore_train_state(args.ckpt_dir, state,
-                                                      names=tr.leaf_names)
-        print(f"[ckpt] resumed step {state['step']} "
+        state, extra = checkpoint.restore_train_state(args.ckpt_dir, state, **ckpt_kw)
+        say(f"[ckpt] resumed step {state['step']} "
               f"(EF state: {extra.get('has_comp_state')}, "
               f"saved interval: {extra.get('interval')})")
         if not extra.get("comp_restored", True):
-            print("[ckpt] WARNING: saved compressor state is incompatible with "
+            say("[ckpt] WARNING: saved compressor state is incompatible with "
                   "this config (EF on/off changed, or another world size "
                   f"than the saved {extra.get('world', 1)}); residual "
                   "re-initialised")
@@ -172,15 +249,16 @@ def main(argv=None):
             # boundary through the runtime's transition logic
             state, rep = tr.replan(interval, state, step=state["step"],
                                    old_interval=extra["interval"])
-            print(f"[ckpt] interval {extra['interval']} -> {interval}: "
+            say(f"[ckpt] interval {extra['interval']} -> {interval}: "
                   f"residual {rep.policy} "
                   f"(norm {rep.norm_before:.3e} -> {rep.norm_after:.3e})")
     n_params = sum(p.numel() for p in state["params"])
-    print(f"[model] {cfg.name}: {n_params/1e6:.1f}M params")
+    say(f"[model] {cfg.name}: {n_params/1e6:.1f}M params")
 
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                     global_batch=args.global_batch)
-    loader = iter(make_loader(dc, device=args.device))
+    loader = (iter(_worker_batches(dc, device, groups.world)) if groups is not None
+              else iter(make_loader(dc, device=device)))
     autotune = None
     if args.adaptive:
         # one runtime for the whole run: the chunked (checkpoint-every)
@@ -203,51 +281,62 @@ def main(argv=None):
         if plan is not None:
             msg += (f"; injecting {len(plan.events)} fault(s): "
                     f"{','.join(f'{e.kind}@{e.step}' for e in plan.events)}")
-        print(f"[resilience] {msg}")
+        say(f"[resilience] {msg}")
     telemetry = None
     if args.telemetry_dir:
         from ..obs import Telemetry
 
         telemetry = Telemetry(args.telemetry_dir)
-        print(f"[telemetry] streaming events to "
+        say(f"[telemetry] streaming events to "
               f"{os.path.join(args.telemetry_dir, 'events.jsonl')}")
     t0 = time.perf_counter()
-    done = 0
-    while done < args.steps:
-        chunk = args.steps - done
+    start = int(state["step"])
+    target = start + args.steps
+    # loop on the committed step: a recovery can set the state back, so a
+    # chunk may commit fewer steps than it runs
+    while state["step"] < target:
+        chunk = target - state["step"]
         if args.ckpt_dir and args.ckpt_every > 0:
             chunk = min(chunk, args.ckpt_every)
         state = tr.run(state, loader, steps=chunk, autotune=autotune,
-                       telemetry=telemetry, guards=resilience)
-        done += chunk
-        if args.ckpt_dir and (args.ckpt_every > 0 or done >= args.steps):
+                       telemetry=telemetry, guards=resilience, log=say)
+        if args.ckpt_dir and (args.ckpt_every > 0 or state["step"] >= target):
             path = checkpoint.save_train_state(
-                args.ckpt_dir, state, interval=tr.tc.interval, names=tr.leaf_names)
-            print(f"[ckpt] saved {path} (params + opt + EF residuals)")
+                args.ckpt_dir, state, interval=tr.tc.interval,
+                shared=not tr.hierarchical, **ckpt_kw)
+            say(f"[ckpt] saved {path} (params + opt + EF residuals)")
             if telemetry is not None:
                 telemetry.events.emit("checkpoint", step=int(state["step"]), path=path)
     if model.embed["table"].is_cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    tokens = args.steps * args.global_batch * args.seq_len
+    committed = int(state["step"]) - start
+    tokens = committed * args.global_batch * args.seq_len
     last = tr.history[-1]
-    print(f"[done] {wall:.1f}s, {tokens/wall:.0f} tok/s, "
-          f"final loss {last.get('loss', last['total_loss']):.4f}")
+    say(f"[done] step {state['step']} ({committed} committed), {wall:.1f}s, "
+        f"{tokens/wall:.0f} tok/s, final loss {last.get('loss', last['total_loss']):.4f}")
+    say(f"[kernels] launches {json.dumps(launch_counts())}")
     if args.adaptive and tr.runtime is not None:
         s = tr.runtime.summary()
-        print(f"[autotune] measured CCR {(s['measured_ccr'] or 0.0):.3f}, "
+        say(f"[autotune] measured CCR {(s['measured_ccr'] or 0.0):.3f}, "
               f"interval {s['interval']}, {s['replans']} re-plan(s)")
     if resilience is not None:
         rs = resilience.summary()
-        print(f"[resilience] {rs['trips']} guard trip(s) {rs['trips_by_guard']}, "
+        say(f"[resilience] {rs['trips']} guard trip(s) {rs['trips_by_guard']}, "
               f"{rs['actions']} recovery action(s) {rs['actions_by_rung']}"
               + (f", faults fired {rs['faults']['by_kind']}" if "faults" in rs else ""))
+    if args.history_out and say is print:
+        os.makedirs(os.path.dirname(args.history_out) or ".", exist_ok=True)
+        with open(args.history_out, "w") as f:
+            json.dump({"config": vars(args), "interval": interval,
+                       "history": tr.history}, f, indent=1)
+        say(f"[history] {args.history_out}")
     if telemetry is not None:
         if tr.runtime is not None:
             tr.runtime.finish()     # the planned per-bucket spans -> trace
         paths = telemetry.save()
         telemetry.close()
-        print(f"[telemetry] {paths['snapshot']}  {paths['prom']}  "
+        say(f"[telemetry] {paths['snapshot']}  {paths['prom']}  "
               f"{paths['trace']} (open in Perfetto)")
 
 

@@ -1,16 +1,24 @@
 """The dense decoder family in PyTorch (gpt2-paper)."""
+from ..configs.base import InputShape
 from .model import (
     DecoderLM,
     build_model,
+    build_param_specs,
     count_params,
+    long_context_variant,
+    model_flops,
     padded_vocab,
     param_shapes,
 )
 
 __all__ = [
     "DecoderLM",
+    "InputShape",
     "build_model",
+    "build_param_specs",
     "count_params",
+    "long_context_variant",
+    "model_flops",
     "padded_vocab",
     "param_shapes",
 ]

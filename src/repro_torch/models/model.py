@@ -22,8 +22,18 @@ from . import transformer
 from .layers import embed, normal_init, truncated_normal_init
 
 
+LONG_CONTEXT_WINDOW = 8192  # sliding-window variant used for long_500k
+
+
 def padded_vocab(cfg: ArchConfig) -> int:
     return int(math.ceil(cfg.vocab_size / 128) * 128)
+
+
+def long_context_variant(cfg: ArchConfig) -> ArchConfig:
+    """The sliding-window variant that makes a dense arch runnable at 500k
+    decode, as the reference picks it (the port's attention has no window
+    yet, so ``build_model`` refuses the result)."""
+    return cfg.with_(sliding_window=LONG_CONTEXT_WINDOW)
 
 
 def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
@@ -41,6 +51,52 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """The parameter count of ``cfg`` (the dense family: every parameter is
     active, so ``active_only`` changes nothing)."""
     return sum(math.prod(s) for s in param_shapes(cfg).values())
+
+
+def model_flops(cfg: ArchConfig, tokens: int, kind: str = "train") -> float:
+    """MODEL_FLOPS = 6*N*D (train) / 2*N*D (inference), N = active params."""
+    n = count_params(cfg, active_only=True)
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n * tokens
+
+
+# tensor-parallel specs by leaf name, the reference's rules for the dense
+# family (the port trains data-parallel only; the specs are a plan)
+_SHARD_LAST = {"wq", "wk", "wv", "w_gate", "w_up", "head_w"}
+_SHARD_IN = {"wo", "w_down"}
+
+
+def _leaf_spec(path: tuple[str, ...], shape: tuple[int, ...], model_axis: int,
+               axis_name) -> tuple:
+    name, ndim = path[-1], len(shape)
+
+    def spec_with(axis_from_end: int) -> tuple:
+        ax = ndim - axis_from_end
+        if ax < 0 or shape[ax] % model_axis != 0:
+            return ()
+        s = [None] * ndim
+        s[ax] = axis_name
+        return tuple(s)
+
+    if name == "table":                      # input embedding: shard d_model
+        return spec_with(1)
+    if len(path) >= 2 and path[-2] == "head":
+        return spec_with(1)                  # vocab-sharded output head
+    if name in _SHARD_LAST:
+        return spec_with(1)
+    if name in _SHARD_IN:
+        return spec_with(2)
+    return ()
+
+
+def build_param_specs(cfg: ArchConfig, model_axis: int, axis_name
+                      ) -> dict[str, tuple]:
+    """Each leaf's tensor-parallel spec by dotted path, in leaf order: a
+    tuple with ``axis_name`` at the sharded dimension and ``None``
+    elsewhere, or ``()`` for a replicated leaf (a ``PartitionSpec``'s
+    entries in the reference's ``build_param_specs``)."""
+    return {path: _leaf_spec(tuple(path.split(".")), shape, model_axis, axis_name)
+            for path, shape in param_shapes(cfg).items()}
 
 
 def _nest(flat: dict[str, nn.Parameter]) -> nn.Module:
@@ -143,4 +199,8 @@ class DecoderLM(nn.Module):
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", seed: int = 0) -> DecoderLM:
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"sliding-window attention (window {cfg.sliding_window}) is not "
+            "ported; the port's attention is full")
     return DecoderLM(cfg, device=device, seed=seed)

@@ -11,6 +11,13 @@ def constant(lr: float):
     return lambda step: f32(lr)
 
 
+def linear_warmup(lr: float, warmup_steps: int):
+    def fn(step):
+        return f32(f32(lr) * min(f32(1.0), f32(step) / f32(max(warmup_steps, 1))))
+
+    return fn
+
+
 def cosine_warmup(lr: float, warmup_steps: int, total_steps: int,
                   min_ratio: float = 0.1):
     def fn(step):

@@ -279,7 +279,7 @@ class ResilienceRuntime:
             scalars.extend(metrics[k].detach().float().reshape(()) for k in ks)
         norms = [r for _, _, r in pending if r is not None]
         flat = torch.stack(scalars + norms)
-        group = self.trainer.group
+        group = self.trainer.world_group
         if norms and group is not None and world_size(group) > 1:
             _group_max(flat[len(scalars):], group)
         host = iter(flat.tolist())
@@ -386,7 +386,8 @@ class ResilienceRuntime:
         tr = self.trainer
         t0 = time.perf_counter()
         restored, _ = checkpoint.restore_train_state(cfg.ckpt_dir, state,
-                                                     names=tr.leaf_names, group=tr.group)
+                                                     names=tr.leaf_names,
+                                                     group=tr.world_group)
         self.timings["restore"].append(time.perf_counter() - t0)
         tr._pending_sync = False          # a checkpoint holds whole params
         return restored, int(last)
@@ -398,7 +399,8 @@ class ResilienceRuntime:
         t0 = time.perf_counter()
         path = checkpoint.save_train_state(cfg.ckpt_dir, state, interval=tr.tc.interval,
                                            extra={"guard_owned": True},
-                                           names=tr.leaf_names, group=tr.group)
+                                           names=tr.leaf_names, group=tr.world_group,
+                                           shared=not tr.hierarchical)
         self.timings["save"].append(time.perf_counter() - t0)
         self._last_saved_step = int(state["step"])
         if self.telemetry.enabled:

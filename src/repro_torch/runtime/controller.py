@@ -248,8 +248,9 @@ class AdaptiveRuntime:
         """The sample every rank of the trainer's group sees: each of
         ``t_full``, ``t_comp`` and ``t_comm`` at its maximum over the group,
         so that the slowest rank sets the pace and every rank's controller
-        makes the same decision.  Without a group the sample is unchanged."""
-        group = self.trainer.group
+        makes the same decision (every pod's too: the world group of a
+        hierarchical trainer).  Without a group the sample is unchanged."""
+        group = self.trainer.world_group
         if group is None:
             return sample
         t = torch.tensor([sample.t_full, sample.t_comp, sample.t_comm],
@@ -409,29 +410,32 @@ class AdaptiveRuntime:
 def exposed_comm_scale(trainer, hw: HardwareSpec | None = None) -> float:
     """The fraction of the probe's (dense all-reduce) comm term that stays
     *exposed* behind the backward pass under the trainer's sync mode, from
-    the static ``CommSchedule`` accounting.
+    the static per-link ``CommSchedule`` accounting.
 
-    ``allreduce``: all of it, 1.0.  ``sharded``: each phase's exposed wire
-    bytes (the reduce-scatters) over the link's bandwidth, against the
-    all-reduce equivalent of the same payloads, which is what the probe's
-    dense comm term measures.  With every call on one link this is exactly
-    0.5: a reduce-scatter moves ``(W-1)/W`` of the buffer where the
-    all-reduce moves ``2(W-1)/W``, and the param all-gather is deferred
-    under the next forward pass.  A single-worker trainer keeps 1.0: there
-    is no collective to halve.
+    ``allreduce``: all of it, 1.0.  ``sharded``: per phase, the slowest
+    link's exposed wire bytes over that link's bandwidth (the intra-pod
+    reduce-scatters and, with hierarchical pods, the cross-pod shard
+    exchange), against the all-reduce equivalent of the same payloads on
+    the fast link, which is what the probe's dense comm term measures.  On a
+    flat plan this is exactly 0.5: a reduce-scatter moves ``(W-1)/W`` of the
+    buffer where the all-reduce moves ``2(W-1)/W``, and the param all-gather
+    is deferred under the next forward pass.  Pods raise it by the exposed
+    cross-pod exchange.  A single-worker trainer keeps 1.0: there is no
+    collective to halve.
 
     ``hw`` (default :meth:`HardwareSpec.cloud_v100_30gbps`) supplies the
-    link's bandwidth; the port's calls all cross one link (hierarchical
-    pods are not ported), so the result does not depend on it."""
+    per-link bandwidths ``{"ici", "dcn"}``."""
     if getattr(trainer.tc, "sync", "allreduce") != "sharded":
         return 1.0
     if trainer.dp_world <= 1:
         return 1.0
     hw = hw or HardwareSpec.cloud_v100_30gbps()
+    bw = {"ici": hw.ici_bw, "dcn": hw.dcn_bw}
     num = 0.0
     den = 0.0
     for s in trainer.schedules():
-        num += s.exposed_wire_bytes(trainer.dp_world) / hw.ici_bw
+        by_link = s.exposed_wire_bytes_by_link(trainer.dp_world)
+        num += max((v / bw[l] for l, v in by_link.items()), default=0.0)
         for c in s.calls:
             wire = c.wire_bytes(trainer.dp_world)
             # all-reduce equivalent: a reduce-scatter (or all-gather) half

@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from ..core.ccr import measure_ccr
 from ..core.perfmodel import achieved_overlap_fraction
+from ..device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,13 +224,22 @@ class PhaseProbe:
         return self._compute_only[phase]
 
     def _comm_fn(self, device: torch.device) -> Callable:
-        # the dense schedule does not depend on the phase
+        # the dense schedule does not depend on the phase; a hierarchical
+        # trainer's adds every bucket's two-level cross-pod exchange
         if self._comm_only is None:
             from ..core import get_compressor
+            from ..train.trainer import plan_pod_schedule
 
             tr = self.trainer
             dense = get_compressor("none").plan_phase(tr.plan, 0, world=tr.dp_world)
+            pod_group = None
+            if tr.hierarchical:
+                pods = plan_pod_schedule(tr.plan, pod_phase=0, pod_interval=1,
+                                         intra_world=tr.dp_world, n_pods=tr.n_pods)
+                dense = dataclasses.replace(dense, calls=dense.calls + pods.calls)
+                pod_group = tr.pod_group
             self._comm_only = build_schedule_only_fn(dense, group=tr.group,
+                                                     pod_group=pod_group,
                                                      device=device)
         return self._comm_only
 
@@ -266,24 +276,29 @@ class PhaseProbe:
                            t_full=res["t_full"])
 
 
-def build_schedule_only_fn(schedule, *, group=None, device="cpu") -> Callable[[], None]:
+def build_schedule_only_fn(schedule, *, group=None, pod_group=None,
+                           device="cuda") -> Callable[[], None]:
     """A program that performs exactly the collectives a ``CommSchedule``
     plans, on zero float32 buffers, one per planned call, so that the wire
     cost of a phase can be timed alone.  It returns after a device
-    synchronisation.
+    synchronisation.  A ``"dcn"`` call all-reduces over ``pod_group``,
+    every other call over ``group``.  Runs on the GPU unless the caller
+    passes ``device="cpu"``.
 
     With no group the collectives are identities (``b + 0.0``), so the
     measured time is the launch floor: the honest answer on one worker."""
-    device = torch.device(device)
-    bufs = [torch.zeros(max(1, c.payload_bytes // 4), dtype=torch.float32, device=device)
+    device = resolve_device(device)
+    bufs = [(torch.zeros(max(1, c.payload_bytes // 4), dtype=torch.float32,
+                         device=device),
+             pod_group if c.link == "dcn" else group)
             for c in schedule.calls]
 
     def run():
         if not bufs:
             return
-        for b in bufs:
-            if group is not None:
-                dist.all_reduce(b, group=group)
+        for b, g in bufs:
+            if g is not None:
+                dist.all_reduce(b, group=g)
             else:
                 b + 0.0
         synchronize(device)

@@ -3,9 +3,12 @@ from .trainer import (
     Trainer,
     build_overlapped_step,
     build_step_fn,
+    hierarchical_schedules,
     loss_and_grads,
     make_compressor,
     make_train_state,
+    plan_pod_schedule,
+    pod_reconcile,
 )
 
 __all__ = [
@@ -13,7 +16,10 @@ __all__ = [
     "Trainer",
     "build_overlapped_step",
     "build_step_fn",
+    "hierarchical_schedules",
     "loss_and_grads",
     "make_compressor",
     "make_train_state",
+    "plan_pod_schedule",
+    "pod_reconcile",
 ]

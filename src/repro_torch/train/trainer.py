@@ -1,6 +1,6 @@
 """Data-parallel trainer: COVAP wired into the gradient synchronisation of a
-``torch.distributed`` data-parallel step (``repro.train.trainer`` without
-hierarchical pods).
+``torch.distributed`` data-parallel step (the counterpart of
+``repro.train.trainer``).
 
 * One step function per ``phase = step % I``: each phase's
   ``CommSchedule`` is planned when the step function is built, before any
@@ -32,20 +32,39 @@ interval between steps, carrying the EF residuals across
 (``runtime.transitions``); ``Trainer.run(autotune=...)`` re-plans online
 from the measured CCR (``runtime.controller``), ``telemetry=`` records
 the run (``obs``), and ``guards=`` / ``faults=`` arm the resilience
-runtime (``resilience``).  Hierarchical pods are not ported.
+runtime (``resilience``).
+
+Hierarchical pods (``TrainConfig.pod_interval > 1`` with a ``pod_group``):
+the compressor's collectives run over the intra-pod ``group`` only, and
+after the optimizer update :func:`pod_reconcile` averages the parameters
+of the buckets that the coarse filter selects at the pod level (``(b +
+step) % pod_interval == 0``) across the pods, each worker exchanging only
+the ``1/W`` shard of the bucket it owns.  Pods drift between
+reconciliations, at most ``pod_interval`` steps a bucket.  Each rank holds
+its own state; ``launch.mesh.build_groups`` builds the two groups.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Iterable
 
 import torch
 import torch.distributed as dist
 
+from ..core import arena as ar
+from ..core import bucketing as bk
 from ..core import build_plan, get_compressor
 from ..core.bucketing import BucketPlan
-from ..core.comm import Compressor, world_size
+from ..core.comm import (
+    Compressor,
+    all_gather_tiled,
+    flat_axis_index,
+    pod_shard_exchange,
+    world_size,
+)
+from ..core.filter import selected_buckets
 from ..core.overlap import (
     EMBED_STAGE,
     bucket_first_use,
@@ -54,7 +73,7 @@ from ..core.overlap import (
     sharded_param_allgather,
     supports_fused_overlap,
 )
-from ..core.schedule import CommSchedule, mean_bytes_per_step
+from ..core.schedule import CollectiveCall, CommSchedule, mean_bytes_per_step
 from ..obs import NULL_TELEMETRY, as_telemetry, plan_digest
 from ..optim import Optimizer, apply_updates, clip_by_global_norm, global_norm
 from ..runtime.monitor import synchronize
@@ -65,6 +84,7 @@ class TrainConfig:
     compressor: str = "covap"
     compressor_options: dict = dataclasses.field(default_factory=dict)
     interval: int = 4                      # COVAP I = ceil(CCR); 1 = no filter
+    pod_interval: int = 1                  # hierarchical COVAP across pods
     bucket_bytes: int = 25 * 1024 * 1024
     max_buckets: int = 128
     clip_norm: float = 0.0                 # 0 = off
@@ -145,9 +165,119 @@ def _sharded_grad_norm(synced: list[torch.Tensor], group) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def plan_pod_schedule(plan: BucketPlan, *, pod_phase: int, pod_interval: int,
+                      sync: str = "allreduce", intra_world: int = 1,
+                      n_pods: int = 1) -> CommSchedule:
+    """The static cross-pod reconciliation plan: the coarse filter's rule
+    applied at the pod level.
+
+    With ``intra_world <= 1`` each selected bucket is one f32 all-reduce of
+    its full extent over the pod group.  With ``intra_world = W > 1`` it is
+    the two-level decomposition :func:`pod_reconcile` runs: per selected
+    bucket a cross-pod (``"dcn"``) all-reduce of only the owned ``1/W``
+    shard of its W-aligned slot, at the bucket's dtype, plus, under
+    ``sync="allreduce"`` only, the intra-pod (``"ici"``) all-gather that
+    rebuilds the full slot.  Under ``sync="sharded"`` the next step's head
+    all-gather rebuilds it, so no intra-pod call is planned here."""
+    interval = max(int(pod_interval), 1)
+    sel = selected_buckets(plan.num_buckets, pod_phase % interval, interval)
+    W = max(int(intra_world), 1)
+    pod_world = int(n_pods) if int(n_pods) > 1 else 0
+    calls: list[CollectiveCall] = []
+    for b in sel:
+        bucket = plan.buckets[b]
+        if W <= 1:
+            calls.append(CollectiveCall(f"pod-bucket:{b}", "all_reduce", "float32",
+                                        bucket.numel * 4, link="dcn", world=pod_world))
+            continue
+        dt = ar.bucket_dtype(plan, bucket)
+        name = ar._dtype_name(dt)
+        shard_bytes = ar.aligned_numel(bucket.numel, W) // W * dt.itemsize
+        calls.append(CollectiveCall(f"pod-bucket:{b}", "all_reduce", name, shard_bytes,
+                                    link="dcn", world=pod_world))
+        if sync == "allreduce":
+            calls.append(CollectiveCall(f"pod-ag:{b}", "all_gather", name, shard_bytes,
+                                        link="ici", world=W))
+    return CommSchedule(
+        compressor="pod_reconcile", phase=pod_phase % interval, num_phases=interval,
+        granularity="bucket", selected=sel, calls=tuple(calls),
+        dense_bytes=sum(b.numel for b in plan.buckets) * 4, plan=plan,
+    )
+
+
+def hierarchical_schedules(compressor, plan: BucketPlan, *, pod_interval: int,
+                           sync: str = "allreduce", intra_world: int = 1,
+                           n_pods: int = 1) -> list[CommSchedule]:
+    """One merged schedule per phase of the full ``lcm(phases, pod_interval)``
+    cycle: the intra-pod gradient calls (``link="ici"``) followed by that
+    step's cross-pod reconciliation calls (``link="dcn"``, and the intra-pod
+    rebuild under allreduce sync).  Static: no group is needed to plan."""
+    n = max(compressor.num_phases(), 1)
+    total = math.lcm(n, max(int(pod_interval), 1))
+    base = [compressor.plan_phase(plan, p, world=intra_world) for p in range(n)]
+    out = []
+    for p in range(total):
+        g = base[p % n]
+        pod = plan_pod_schedule(plan, pod_phase=p % pod_interval,
+                                pod_interval=pod_interval, sync=sync,
+                                intra_world=intra_world, n_pods=n_pods)
+        ranks = g.ready_ranks
+        if ranks:
+            # pod calls issue after every gradient collective
+            ranks = ranks + tuple(range(len(ranks), len(ranks) + len(pod.calls)))
+        out.append(dataclasses.replace(g, phase=p, num_phases=total,
+                                       calls=g.calls + pod.calls, ready_ranks=ranks))
+    return out
+
+
+@torch.no_grad()
+def pod_reconcile(params: list[torch.Tensor], schedule: CommSchedule, *, group,
+                  pod_group, owned_only: bool = False,
+                  layout: ar.ArenaLayout | None = None) -> int:
+    """Hierarchical COVAP's cross-pod level, in place on ``params``: the
+    parameters of the buckets the pod schedule selects are averaged across
+    the pods.
+
+    Each selected bucket is packed into its W-aligned arena slot (W the
+    intra-pod world); worker ``w`` slices the shard ``[w*S, (w+1)*S)`` it
+    owns (under allreduce sync the params agree inside the pod, so the
+    slice is exact; under sharded sync it is the shard the optimizer just
+    updated), and :func:`~repro_torch.core.comm.pod_shard_exchange`
+    averages it over the pod group.  Then:
+
+    * ``owned_only=False`` (allreduce sync): an intra-pod all-gather
+      rebuilds the full slot on every worker;
+    * ``owned_only=True`` (sharded sync): only the owned shard changes; the
+      other positions stay stale, and the next step's head all-gather,
+      which always gathers from the shard owners, freshens them.
+
+    ``layout`` is the schedule's W-aligned layout (``arena.build_layout(
+    plan, schedule.selected, align=W)``), built here when not given.
+    Returns ``schedule.bytes_per_worker``."""
+    if not schedule.selected:
+        return schedule.bytes_per_worker
+    plan = schedule.plan
+    W = world_size(group)
+    if layout is None:
+        layout = ar.build_layout(plan, schedule.selected, align=W)
+    planes = ar.pack_leaves(layout, params)
+    w = flat_axis_index(group)
+    for b in schedule.selected:
+        view = layout.bucket_view(planes, b)
+        S = view.numel() // W
+        shard = pod_shard_exchange(view[w * S:(w + 1) * S], pod_group)
+        # one worker a pod owns the whole slot: nothing to gather (and the
+        # plan has no intra-pod call for it)
+        full = view if owned_only or W == 1 else all_gather_tiled(shard, group)
+        for seg, piece in zip(plan.buckets[b].segments, layout.unpack_bucket(b, full)):
+            bk._update_segment(params[seg.leaf_idx], seg, piece)
+    return schedule.bytes_per_worker
+
+
 def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
                   plan: BucketPlan, *, phase: int, group=None,
-                  clip_norm: float = 0.0) -> Callable:
+                  clip_norm: float = 0.0, pod_group=None,
+                  pod_interval: int = 1) -> Callable:
     """The per-phase post step: :func:`loss_and_grads`, ``compressor.execute``
     on this phase's static schedule, optional global-norm clip, optimizer
     update in place.
@@ -166,14 +296,21 @@ def build_step_fn(model, optimizer: Optimizer, compressor: Compressor,
     ``{"params", "opt", "comp", "step"}`` as :func:`make_train_state`
     builds it, and its ``params`` are the model's parameters.
     ``step_fn.update(state, grads) -> (state, grad_norm)`` is the part after
-    the backward pass, for callers that hold gradients already."""
+    the backward pass, for callers that hold gradients already.
+
+    With a ``pod_group`` and ``pod_interval > 1`` (hierarchical pods) the
+    step ends in :func:`pod_reconcile` on ``step_fn.pod_schedule``, and the
+    metrics (``grad_norm`` too) are averaged over the pod group as well, so
+    that every rank reads the same values."""
     return _build_phase_step(model, optimizer, compressor, plan, phase=phase,
-                             group=group, clip_norm=clip_norm, fused=False)
+                             group=group, clip_norm=clip_norm, fused=False,
+                             pod_group=pod_group, pod_interval=pod_interval)
 
 
 def build_overlapped_step(model, optimizer: Optimizer, compressor: Compressor,
                           plan: BucketPlan, *, phase: int, group=None,
-                          clip_norm: float = 0.0) -> Callable:
+                          clip_norm: float = 0.0, pod_group=None,
+                          pod_interval: int = 1) -> Callable:
     """The fused per-phase step (``TrainConfig(overlap="fused")``): the
     contract of :func:`build_step_fn`, with each bucket's collective started
     inside the backward pass by its hook (``core.overlap``) and waited for
@@ -184,7 +321,8 @@ def build_overlapped_step(model, optimizer: Optimizer, compressor: Compressor,
     install beside the CUDA stream each ran on."""
     _require_fused(compressor)
     return _build_phase_step(model, optimizer, compressor, plan, phase=phase,
-                             group=group, clip_norm=clip_norm, fused=True)
+                             group=group, clip_norm=clip_norm, fused=True,
+                             pod_group=pod_group, pod_interval=pod_interval)
 
 
 def _require_fused(compressor) -> None:
@@ -195,12 +333,20 @@ def _require_fused(compressor) -> None:
 
 
 def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
-                      clip_norm, fused) -> Callable:
+                      clip_norm, fused, pod_group=None, pod_interval=1) -> Callable:
     """The skeleton both steps share; only the gradient and sync block
     differs."""
     comm_schedule = compressor.plan_phase(plan, phase, world=world_size(group))
-    sharded = (getattr(compressor, "sync_mode", "allreduce") == "sharded"
-               and group is not None)
+    sync_mode = getattr(compressor, "sync_mode", "allreduce")
+    sharded = sync_mode == "sharded" and group is not None
+    pod_schedule = pod_layout = None
+    if pod_group is not None and pod_interval > 1:
+        pod_schedule = plan_pod_schedule(
+            plan, pod_phase=phase % pod_interval, pod_interval=pod_interval,
+            sync=sync_mode, intra_world=world_size(group),
+            n_pods=world_size(pod_group))
+        pod_layout = ar.build_layout(plan, pod_schedule.selected,
+                                     align=world_size(group))
     first_use = (bucket_first_use(plan, model.cfg.num_layers) if sharded
                  else None)
 
@@ -217,6 +363,9 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
             gnorm = global_norm(synced)
         updates, opt_state = optimizer.update(synced, state["opt"], params)
         apply_updates(params, updates)
+        if pod_schedule is not None:
+            pod_reconcile(params, pod_schedule, group=group, pod_group=pod_group,
+                          owned_only=sharded, layout=pod_layout)
         new_state = {"params": params, "opt": opt_state, "comp": comp_state,
                      "step": state["step"] + 1}
         return new_state, gnorm
@@ -254,9 +403,13 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
                 "stage")
         new_state, metrics["grad_norm"] = (apply(state, synced, comp_state) if fused
                                            else update(state, grads))
+        if pod_schedule is not None:
+            metrics = _pmean_metrics(metrics, pod_group)
         return new_state, metrics
 
     step_fn.comm_schedule = comm_schedule
+    step_fn.pod_schedule = pod_schedule
+    step_fn.pod_layout = pod_layout
     step_fn.gather_events = []
     step_fn.fired = []
     step_fn.hook_streams = (None, [])
@@ -279,14 +432,31 @@ class Trainer:
     metrics; exposes the static per-phase ``CommSchedule``s.
 
     ``group`` is the data-parallel process group (``None``: one worker, no
-    collectives).  Each worker feeds its own batches to :meth:`run`."""
+    collectives).  Each worker feeds its own batches to :meth:`run`.  With
+    ``TrainConfig.pod_interval > 1`` and a ``pod_group`` the trainer is
+    hierarchical: ``group`` is this rank's intra-pod group, ``pod_group``
+    its cross-pod group (``launch.mesh.build_groups``), and together they
+    must cover the default ``torch.distributed`` world."""
 
     def __init__(self, model, optimizer: Optimizer, tc: TrainConfig, *,
-                 group=None):
+                 group=None, pod_group=None):
         self.model = model
         self.optimizer = optimizer
         self.tc = tc
         self.group = group
+        self.pod_group = pod_group
+        if pod_group is not None and tc.pod_interval <= 1:
+            raise ValueError(
+                f"a pod_group needs TrainConfig.pod_interval > 1 (got "
+                f"{tc.pod_interval}): without a pod level the gradients sync "
+                "over `group` alone and the pods would never meet; pass the "
+                "whole world as `group` instead")
+        if self.hierarchical and (world_size(group) * world_size(pod_group)
+                                  != dist.get_world_size()):
+            raise ValueError(
+                f"hierarchical pods: {world_size(group)} workers a pod x "
+                f"{world_size(pod_group)} pods do not cover the world of "
+                f"{dist.get_world_size()}")
         self.compressor = make_compressor(tc)
         self.plan = build_plan(
             model.named_leaves(),
@@ -307,8 +477,26 @@ class Trainer:
             _require_fused(self.compressor)
 
     @property
+    def hierarchical(self) -> bool:
+        return self.tc.pod_interval > 1 and self.pod_group is not None
+
+    @property
+    def n_pods(self) -> int:
+        return world_size(self.pod_group) if self.hierarchical else 1
+
+    @property
+    def world_group(self):
+        """The group over which every rank must agree (guards' verdicts,
+        adaptive samples, checkpoints): the default world of a hierarchical
+        trainer, ``group`` otherwise."""
+        return dist.group.WORLD if self.hierarchical else self.group
+
+    @property
     def num_phases(self) -> int:
-        return self.compressor.num_phases()
+        base = self.compressor.num_phases()
+        if self.hierarchical:
+            return math.lcm(base, self.tc.pod_interval)
+        return base
 
     @property
     def leaf_names(self) -> list[str]:
@@ -318,14 +506,19 @@ class Trainer:
 
     @property
     def dp_world(self) -> int:
+        """World size of the compressor's collectives (the intra-pod world
+        of a hierarchical trainer)."""
         return world_size(self.group)
 
     def schedules(self) -> list[CommSchedule]:
-        """Static comm plan of every phase."""
-        return [
-            self.compressor.plan_phase(self.plan, p, world=self.dp_world)
-            for p in range(self.num_phases)
-        ]
+        """Static comm plan of every phase (hierarchical: of the full lcm
+        cycle, merged with the pod calls, :func:`hierarchical_schedules`)."""
+        if self.hierarchical:
+            return hierarchical_schedules(
+                self.compressor, self.plan, pod_interval=self.tc.pod_interval,
+                sync=self.tc.sync, intra_world=self.dp_world, n_pods=self.n_pods)
+        return [self.compressor.plan_phase(self.plan, p, world=self.dp_world)
+                for p in range(self.num_phases)]
 
     def schedule_report(self) -> dict:
         scheds = self.schedules()
@@ -356,6 +549,8 @@ class Trainer:
             self._steps[phase] = build(
                 self.model, self.optimizer, self.compressor, self.plan,
                 phase=phase, group=self.group, clip_norm=self.tc.clip_norm,
+                pod_group=self.pod_group if self.hierarchical else None,
+                pod_interval=self.tc.pod_interval,
             )
         return self._steps[phase]
 
@@ -369,7 +564,8 @@ class Trainer:
         state (Adam's m and v, SGD's mu) from their shard owners, in place,
         so every worker holds the values the allreduce path would.  A no-op
         for allreduce runs, single-worker runs and when nothing is
-        pending."""
+        pending.  Hierarchical: the gather runs inside each pod, so that
+        the pods keep their drift."""
         if not self.sharded or not self._pending_sync:
             return state
         self._pending_sync = False
@@ -511,7 +707,8 @@ class Trainer:
                     "bucket_bytes_target": self.plan.bucket_bytes_target,
                 },
                 world=self.dp_world,
-                mesh=None,
+                mesh=({"pod": self.n_pods, "data": self.dp_world}
+                      if self.hierarchical else None),
             )
         rt = None
         if autotune is not None and autotune is not False:

@@ -1,8 +1,10 @@
 """Workers of the port's multi-process gloo tests (``test_torch_multiworker.py``,
 ``test_torch_sharded.py``, ``test_torch_checkpoint.py``,
-``test_torch_sparsify.py``, ``test_torch_resilience.py``).  ``adaptive_worker``
+``test_torch_sparsify.py``, ``test_torch_resilience.py``,
+``test_torch_hierarchical.py``, ``test_torch_launch.py``).  ``adaptive_worker``
 runs the adaptive runtime on every rank; ``chaos_worker`` and
-``residual_fault_worker`` the resilience runtime.
+``residual_fault_worker`` the resilience runtime; ``hier_worker`` hierarchical
+pods; ``fit_worker`` ``api.fit(group=)``.
 
 It imports only torch, numpy and ``repro_torch``, so spawned processes start
 without JAX.  Each rank trains the REDUCED gpt2-paper once per entry of
@@ -550,6 +552,153 @@ def sharded_replan_skip_worker(rank, world, init_file, td, out_prefix, tc_kw, st
         state, _ = tr.replan(1, state)
         state = tr.run(state, iter(batches[5:]), steps=steps - 5, log=None)
         _dump_state(out, "replay", tr, state)
+        np.savez(f"{out_prefix}{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def hier_worker(rank, world, init_file, init_npz, out_prefix, n_pods, runs, data_kw,
+                lr, steps):
+    """Hierarchical pods: every rank trains REDUCED gpt2-paper (its vocab
+    from ``data_kw``) once per entry of ``runs`` (``name -> (optimizer,
+    TrainConfig kwargs)``, optimizer ``"sgd"`` with momentum 0.9 or
+    ``"adam"``) from the parameters in ``init_npz``, in the groups of
+    ``launch.mesh.build_groups(n_pods)``, on its contiguous rows (by world
+    rank) of every global batch.  Writes each run's losses, params,
+    residuals and params-shaped optimizer state (after ``run``'s flush)
+    under ``<name>/<part>:<path>`` keys, and the rank's pod as ``pod``."""
+    from repro_torch import optim
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, make_loader
+    from repro_torch.launch.mesh import build_groups
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        groups = build_groups(n_pods)
+        loader = make_loader(DataConfig(**data_kw), device="cpu")
+        local = data_kw["global_batch"] // world
+        rows = slice(rank * local, (rank + 1) * local)
+        cfg = get_reduced("gpt2-paper").with_(vocab_size=data_kw["vocab_size"])
+        out = {"pod": np.array(groups.pod)}
+        for name, (optimizer, tc_kw) in runs.items():
+            model = build_model(cfg, device="cpu")
+            with np.load(init_npz) as init:
+                model.load_state_dict({k: torch.from_numpy(init[k]) for k in init.files})
+            opt = (optim.sgd(lr, momentum=0.9) if optimizer == "sgd"
+                   else optim.adamw(lr))
+            tr = Trainer(model, opt, TrainConfig(**tc_kw),
+                         group=groups.intra, pod_group=groups.cross)
+            assert tr.hierarchical
+            batches = ({k: v[rows] for k, v in loader.make(s).items()}
+                       for s in range(steps))
+            state = tr.run(tr.init_state(), batches, steps=steps, log=None)
+            out[f"{name}/losses"] = np.array([h["loss"] for h in tr.history])
+            parts = {"params": state["params"], "resid": state["comp"]}
+            parts.update((k, v) for k, v in state["opt"].items()
+                         if isinstance(v, list) and len(v) == len(state["params"]))
+            for part, leaves in parts.items():
+                for (path, _), x in zip(model.named_leaves(), leaves):
+                    out[f"{name}/{part}:{path}"] = x.detach().numpy().copy()
+        np.savez(f"{out_prefix}{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def fit_worker(rank, world, init_file, out_prefix, fit_kw):
+    """``api.fit(group=WORLD, device="cpu", **fit_kw)`` on every rank; writes
+    the history's losses and steps."""
+    from repro_torch import api
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        r = api.fit(group=dist.group.WORLD, device="cpu", **fit_kw)
+        np.savez(f"{out_prefix}{rank}.npz",
+                 losses=np.array([h["loss"] for h in r.history]),
+                 steps=np.array([h["step"] for h in r.history]))
+    finally:
+        dist.destroy_process_group()
+
+
+def hier_resume_worker(rank, world, init_file, ckpt_dir, out_prefix, n_pods, tc_kw,
+                       data_kw, lr, steps, split):
+    """Hierarchical pods through checkpoint, guards and a re-plan, on every
+    rank (SGD, REDUCED gpt2-paper at ``data_kw``'s vocab, seed 0):
+    ``whole/`` trains ``steps`` steps; ``resumed/`` trains ``split``, saves
+    with ``shared=False`` (the pods' params differ), restores into a fresh
+    trainer and trains the rest on the same batches; ``guarded/`` trains
+    under ``guards=True`` with a ``grad_nan`` at ``split`` until ``steps``
+    are committed; ``replan/`` re-plans to ``I = 1`` after ``split`` steps
+    and trains one more.  Writes params and residuals by run, and each
+    guarded run's committed step, trips and actions."""
+    from repro_torch import checkpoint, optim
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, make_loader
+    from repro_torch.launch.mesh import build_groups
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        groups = build_groups(n_pods)
+        loader = make_loader(DataConfig(**data_kw), device="cpu")
+        local = data_kw["global_batch"] // world
+        rows = slice(rank * local, (rank + 1) * local)
+        batches = [{k: v[rows] for k, v in loader.make(s).items()}
+                   for s in range(2 * steps)]
+        cfg = get_reduced("gpt2-paper").with_(vocab_size=data_kw["vocab_size"])
+
+        def trainer():
+            tr = Trainer(build_model(cfg, device="cpu", seed=0),
+                         optim.sgd(lr, momentum=0.9), TrainConfig(**tc_kw),
+                         group=groups.intra, pod_group=groups.cross)
+            return tr, tr.init_state()
+
+        out = {}
+
+        def dump(name, state):
+            for part, leaves in (("params", state["params"]), ("resid", state["comp"]),
+                                 ("mu", state["opt"]["mu"])):
+                for i, x in enumerate(leaves):
+                    out[f"{name}/{part}:{i}"] = x.detach().numpy().copy()
+
+        tr, state = trainer()
+        dump("whole", tr.run(state, iter(batches), steps=steps, log=None))
+        tr, state = trainer()
+        state = tr.run(state, iter(batches[:split]), steps=split, log=None)
+        checkpoint.save_train_state(ckpt_dir, state, interval=tr.tc.interval,
+                                    names=tr.leaf_names, group=tr.world_group,
+                                    shared=not tr.hierarchical)
+        tr, state = trainer()
+        state, extra = checkpoint.restore_train_state(ckpt_dir, state, names=tr.leaf_names,
+                                                      group=tr.world_group)
+        assert extra["comp_restored"] and extra["per_rank"] and state["step"] == split
+        dump("resumed", tr.run(state, iter(batches[split:]), steps=steps - split,
+                               log=None))
+        tr, state = trainer()
+        it = iter(batches)
+        state = tr.run(state, it, steps=steps, log=None, guards=True,
+                       faults=f"grad_nan@{split}")
+        while state["step"] < steps:
+            state = tr.run(state, it, steps=steps - state["step"], log=None,
+                           guards=tr.resilience)
+        s = tr.resilience.summary()
+        out["guarded/step"] = np.array(state["step"])
+        out["guarded/trips"] = np.array(s["trips"])
+        out["guarded/actions"] = np.array(s["actions"])
+        dump("guarded", state)
+        tr, state = trainer()
+        state = tr.run(state, iter(batches[:split]), steps=split, log=None)
+        state, rep = tr.replan(1, state, step=state["step"])
+        assert tr.hierarchical and tr.num_phases == tc_kw["pod_interval"], tr.num_phases
+        dump("replan", tr.run(state, iter(batches[split:]), steps=1, log=None))
         np.savez(f"{out_prefix}{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

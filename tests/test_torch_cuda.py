@@ -565,3 +565,84 @@ def test_plane_nonfinite_counts_on_cuda_planes():
     assert sum(counts) == 1 and counts[sites[0][0]] == 1
     _, more = corrupt_planes(planes, "grad_inf", seed=1, step=3, count=3)
     assert sum(plane_nonfinite_counts(planes)) == 1 + len(set(more) - set(sites))
+
+
+def _one_rank_nccl():
+    """Join a one-rank NCCL default group on this process (a free local
+    port), unless one exists; -> whether this call created it."""
+    import socket
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options,kernel", [({}, "ef_update"),
+                                            ({"sync": "sharded", "arena": True},
+                                             "pack_ef_cast")],
+                         ids=["post", "sharded-arena"])
+def test_one_rank_hierarchical_step_on_cuda_equals_the_flat_step(options, kernel):
+    """Hierarchical pods (``pod_interval=2``) with a one-rank intra-pod and
+    cross-pod NCCL group: 4 REDUCED steps equal the flat run bit for bit
+    (params, moments, residuals), the reconcile a pack -> exchange ->
+    unpack round trip; the EF kernel runs once a segment a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import torch.distributed as dist
+
+    created = _one_rank_nccl()
+    try:
+        counter = {"ef_update": ef_update, "pack_ef_cast": pack_ef_cast}[kernel]
+        intra, pods = dist.new_group([0]), dist.new_group([0])
+        runs = []
+        for pod_kw, group, pod_group in (({}, dist.group.WORLD, None),
+                                         ({"pod_interval": 2}, intra, pods)):
+            tr, loader = _reduced_trainer(**options, **pod_kw)
+            tr = type(tr)(tr.model, tr.optimizer, tr.tc, group=group, pod_group=pod_group)
+            assert tr.hierarchical == bool(pod_kw)
+            launches = counter.launches
+            state = tr.run(tr.init_state(), iter([loader.make(s) for s in range(4)]),
+                           steps=4, log=None)
+            torch.cuda.synchronize()
+            assert counter.launches - launches == 4 * tr.plan.num_segments
+            runs.append(state["params"] + state["opt"]["m"] + state["opt"]["v"]
+                        + state["comp"])
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_launcher_under_torch_distributed_run_on_cuda(tmp_path):
+    """The CLI under ``torch.distributed.run`` joins a one-rank NCCL group
+    on ``cuda:0`` and commits its steps; rank 0 writes the history."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+    hist = tmp_path / "history.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "2", "--seq-len", "32", "--global-batch", "4", "--interval", "2",
+         "--log-every", "1", "--history-out", str(hist)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert "[launch] 1 rank(s), 1 pod(s) x 1, backend nccl, device cuda:0" in r.stdout
+    assert "[done] step 2 (2 committed)" in r.stdout
+    assert [h["step"] for h in json.loads(hist.read_text())["history"]] == [1, 2]

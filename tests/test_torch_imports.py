@@ -70,3 +70,13 @@ def test_adaptive_runtime_and_obs_modules_are_checked(module):
         path = base / "__init__.py"
     assert path in FILES
     assert (PORT / "obs" / "event_schema.json").is_file()
+
+
+SLICE_10_MODULES = ("launch.mesh", "launch.hier_gate", "launch.train", "train.trainer")
+
+
+@pytest.mark.parametrize("module", SLICE_10_MODULES)
+def test_launch_and_pod_modules_are_checked(module):
+    """The multi-process launcher, the process groups, the hierarchical
+    trainer and its gate are among the files both checks above walk."""
+    assert PORT.joinpath(*module.split(".")).with_suffix(".py") in FILES

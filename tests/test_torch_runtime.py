@@ -430,8 +430,12 @@ def test_only_probe_due_steps_wait_for_the_device(monkeypatch):
 def test_schedule_only_fn_without_group_and_workload_ccr():
     _, _, tr, state = _trainers(2)
     dense = get_compressor("none").plan_phase(tr.plan, 0, world=1)
-    build_schedule_only_fn(dense)()
-    build_schedule_only_fn(dense.__class__(**{**dense.__dict__, "calls": ()}))()
+    build_schedule_only_fn(dense, device="cpu")()
+    build_schedule_only_fn(dense.__class__(**{**dense.__dict__, "calls": ()}),
+                           device="cpu")()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_schedule_only_fn(dense)          # the card unless asked
     loader = make_loader(DataConfig(**DATA), device="cpu")
     out = measure_workload_ccr(tr, state, loader.make(0), warmup=0, iters=1)
     assert sorted(out["per_phase"]) == [0, 1] and out["n"] == 2
