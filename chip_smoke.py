@@ -142,10 +142,26 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            at 2 pods x 8 workers
            (``[launch]`` and ``[pods]`` run after ``[sparse]``, before
            ``[adaptive]``)
+  families the dense and MoE archs at full width (``FAMILY_RUNS``; after
+           ``[resilience]``, before ``[overlap]``): qwen1.5-0.5b's full
+           config 5 steps (``ef_update`` 114 a step; one step on the same
+           gradients against ``use_ef_kernel=False`` within ``ef_close``),
+           then with ``arena=True, sync="sharded"`` (``pack_ef_cast`` 114 a
+           step; == the post run bit for bit); deepseek-moe-16b cut to 2
+           layers (77 a step; the aux loss and each MoE layer's share of
+           assignments dropped at capacity), gemma-2b cut to 2 layers (135
+           a step; MQA, head_dim 256, a 256,000 vocab) and
+           mistral-large-123b cut to 1 layer (bf16 params and moments,
+           ``ef_update`` 0: the EF kernel takes f32 operands; a falling
+           loss), 3 steps each; each run's state bytes, COVAP bytes per
+           worker at W=8, step ms, tok/s and peak memory
   small    REDUCED gpt2-paper trained 5 steps on the card and on the CPU
            from the same parameters and batches, on the defaults, with
            ``arena=True`` and with ``powersgd`` (the CPU run is the path the
-           tests hold against the JAX reference)
+           tests hold against the JAX reference); then the six families'
+           REDUCED configs and grok-1-314b's with bf16 parameters (an f32
+           router in bf16 buckets) on the defaults, the bf16 one at 2 bf16
+           ulps
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1163,13 +1179,13 @@ def phase_adamw() -> None:
 
 def gather_order(tr) -> str:
     """The last sharded step's head all-gather, from the trainer's events:
-    the issue order, then the buckets settled before each layer (``E`` the
-    embedding, ``L<i>`` layer i, ``H`` the final norm and head).  Checks
+    the issue order, then the buckets settled before each stage (``E`` the
+    embedding, ``L<i>`` superblock i, ``H`` the final norm and head).  Checks
     that every issue precedes layer 0, issues follow the first use, and each
     bucket is settled just before the stage that first reads it."""
     from repro_torch.core.overlap import EMBED_STAGE, bucket_first_use
 
-    L = tr.model.cfg.num_layers
+    L = tr.model.num_stages
     stages = bucket_first_use(tr.plan, L)
     events = tr.gather_events
     issues = [i for k, i in events if k == "issue"]
@@ -1227,13 +1243,15 @@ def ckpt_batches(cfg, seq_len=1024, global_batch=8, device="cuda") -> list[dict]
 
 
 def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
-                group=None, label="defaults", options=None):
+                group=None, label="defaults", options=None, steps=STEPS,
+                moment_dtype=None):
     """Full-width training through ``Trainer.run`` on the ``TrainConfig``
     defaults updated with ``options``.  Returns the trainer, its state and
     the loader, and the launches of each kernel in the run
-    (``{"ef_update": n, "pack_ef_cast": m, ...}``, every kernel).  The
-    trainer's ``run_stats`` holds steps 1-4's ms, tok/s after step 0 and
-    the peak GiB."""
+    (``{"ef_update": n, "pack_ef_cast": m, ...}``, every kernel) over
+    ``steps`` steps, AdamW's moments in ``moment_dtype`` (the parameters'
+    dtype when ``None``).  The trainer's ``run_stats`` holds the ms of
+    steps 1 on, tok/s after step 0 and the peak GiB."""
     from repro_torch.data import DataConfig, make_loader
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, cosine_warmup
@@ -1247,12 +1265,13 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated() / 2**30
     model = build_model(cfg, device=device, seed=0)
-    opt = adamw(cosine_warmup(1.5e-4, STEPS // 10 + 1, STEPS))
-    tc = TrainConfig(steps=STEPS, log_every=1)
+    opt = adamw(cosine_warmup(1.5e-4, steps // 10 + 1, steps),
+                moment_dtype=moment_dtype)
+    tc = TrainConfig(steps=steps, log_every=1)
     check((tc.compressor, tc.interval, tc.overlap, tc.arena, tc.sync)
           == ("covap", 4, "post", False, "allreduce"),
           f"TrainConfig defaults moved: {tc}")
-    tc = TrainConfig(steps=STEPS, log_every=1, **(options or {}))
+    tc = TrainConfig(steps=steps, log_every=1, **(options or {}))
     tr = Trainer(model, opt, tc, group=group)
     state = tr.init_state()
     n_params = sum(p.numel() for p in state["params"])
@@ -1270,19 +1289,19 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
         fn.launches = 0
     by_route = counters[MATMUL].launches_by_route
     by_route.update(dict.fromkeys(by_route, 0))
-    state = tr.run(state, loader, steps=STEPS, log=lines.append)
+    state = tr.run(state, loader, steps=steps, log=lines.append)
     launches = {name: fn.launches for name, fn in counters.items()}
     if device != "cpu":
         torch.cuda.synchronize()
 
     hist = tr.history
     losses = [h["loss"] for h in hist]
-    check(len(hist) == STEPS, f"expected {STEPS} logged steps, got {len(hist)}")
+    check(len(hist) == steps, f"expected {steps} logged steps, got {len(hist)}")
     check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
     check(all(bool(torch.isfinite(p).all()) for p in state["params"]),
           "non-finite parameters after training")
     step_ms = [1e3 * (b["wall_s"] - a["wall_s"]) for a, b in zip(hist, hist[1:])]
-    tok_s = (STEPS - 1) * global_batch * seq_len / (hist[-1]["wall_s"] - hist[0]["wall_s"])
+    tok_s = (steps - 1) * global_batch * seq_len / (hist[-1]["wall_s"] - hist[0]["wall_s"])
     peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0
     wire = tc.compressor_options.get("wire_dtype") or "f32"
     tr.run_stats = (step_ms, tok_s, peak)
@@ -1290,14 +1309,15 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
           f"buckets / {tr.plan.num_segments} segments, {tc.compressor} "
           f"{tr.num_phases} phase(s) {tc.overlap} {tc.sync} "
           f"arena={'on' if tc.arena else 'off'} "
-          f"wire={wire}, adamw, seq {seq_len} x batch {global_batch}, world "
+          f"wire={wire}, adamw{f' ({moment_dtype} moments)' if moment_dtype else ''}, "
+          f"seq {seq_len} x batch {global_batch}, world "
           f"{tr.dp_world}: losses {[round(v, 4) for v in losses]}  step 0 "
-          f"{1e3 * hist[0]['wall_s']:.1f} ms, steps 1-{STEPS - 1} ms "
+          f"{1e3 * hist[0]['wall_s']:.1f} ms, steps 1-{steps - 1} ms "
           f"{[round(v, 2) for v in step_ms]}  {tok_s:.0f} tok/s after step 0  "
           f"peak {peak:.2f} GiB (of which {base:.2f} GiB held before the "
           f"run)  launches {launches}", flush=True)
     if tr.gather_events:
-        print(f"[train] {label}: head all-gather of step {STEPS}, by bucket: "
+        print(f"[train] {label}: head all-gather of step {steps}, by bucket: "
               f"{gather_order(tr)}", flush=True)
     return tr, state, loader, launches
 
@@ -2257,6 +2277,173 @@ def phase_resilience(cfg, group, smi: str) -> tuple[dict, int]:
     return launches, pack["pack_ef_cast"]
 
 
+# [families]: (label, arch, depth cut or None for the full config, steps,
+# TrainConfig options, AdamW's moment dtype, segments a step in the
+# reference's plan).  deepseek's 2 layers hold 1.6 B f32 parameters: the
+# functional AdamW keeps the old and the new m and v beside the params,
+# the old and new residuals, the synced gradients and the updates.  With
+# f32 moments a card run ran out of memory in the update (72.75 GiB
+# allocated, 1.38 more asked, of 79.18); bf16 moments (the
+# ``moment_dtype`` option) take 12.8 GB off
+FAMILY_RUNS = (
+    ("qwen", "qwen1.5-0.5b", None, 5, {}, None, 114),
+    ("qwen arena+sharded", "qwen1.5-0.5b", None, 5,
+     {"arena": True, "sync": "sharded"}, None, 114),
+    ("deepseek 2L", "deepseek-moe-16b", 2, 3, {}, "bfloat16", 77),
+    ("gemma 2L", "gemma-2b", 2, 3, {}, None, 135),
+    ("mistral 1L", "mistral-large-123b", 1, 3, {}, None, 74),
+)
+
+
+def f32_segments(plan) -> int:
+    """The segments whose gradient is float32: where the EF kernels engage
+    (``core.stages`` ``_use_ef_kernel``/``_use_pack_kernel`` take f32
+    operands, the reference's own dtype rule)."""
+    return sum(1 for b in plan.buckets for seg in b.segments
+               if plan.leaf_dtypes[seg.leaf_idx] == torch.float32)
+
+
+def moe_drops(tr, batch) -> list[tuple[int, int, int]]:
+    """One no-grad forward of ``batch`` with ``moe.dispatch`` observed:
+    ``(kept, assignments, capacity)`` for each MoE block, in order."""
+    from repro_torch.models import moe
+
+    seen, dispatch = [], moe.dispatch
+
+    def observe(top_e, cfg, C):
+        slot, keep = dispatch(top_e, cfg, C)
+        seen.append((int(keep.sum()), keep.numel(), C))
+        return slot, keep
+
+    moe.dispatch = observe
+    try:
+        with torch.no_grad():
+            tr.model.loss_fn(batch)
+    finally:
+        moe.dispatch = dispatch
+    return seen
+
+
+def family_ef_parity(tr, state, loader, group) -> float:
+    """One step from the trained state on the same gradients, the
+    ``ef_update`` kernel against ``use_ef_kernel=False``: params and
+    residuals within ``ef_close``.  Returns the max |diff|."""
+    from repro_torch.core import get_compressor
+    from repro_torch.train import build_step_fn, loss_and_grads
+
+    batch = loader.make(state["step"])
+    phase = state["step"] % tr.num_phases
+    grads, _ = loss_and_grads(tr.model, state["params"], batch, group)
+    out = {}
+    for name, opts in (("kernel", {}), ("plain", {"use_ef_kernel": False})):
+        comp = get_compressor("covap", interval=tr.tc.interval, **opts)
+        fn = build_step_fn(tr.model, tr.optimizer, comp, tr.plan, phase=phase,
+                           group=group)
+        new_state, _ = fn.update(clone_tree(state), grads)
+        out[name] = new_state["params"] + new_state["comp"]
+        del new_state
+    del grads
+    c = get_compressor("covap", interval=tr.tc.interval).ef_coefficient(state["step"])
+    worst = 0.0
+    for a, b, r in zip(out["kernel"], out["plain"], state["comp"] + state["comp"]):
+        check(ef_close(a, b, r, c), "families: ef_update kernel and plain disagree")
+        worst = max(worst, abs_err(a, b))
+    return worst
+
+
+def phase_families(group, smi: str) -> dict:
+    """The dense and MoE families at full width (``FAMILY_RUNS``, one-rank
+    NCCL group, seq 1024, global batch 8, COVAP I=4 with AdamW): each run's
+    EF kernel launches equal its plan's f32 segments x steps, the plan's
+    segments equal the reference's, its losses are finite.  Returns the
+    launches by run label."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import get_compressor
+    from repro_torch.models import moe, padded_vocab
+
+    t_phase = time.perf_counter()
+    launches_by_run, post = {}, None
+    for label, arch, layers, steps, options, moments, want_segs in FAMILY_RUNS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.with_(num_layers=layers)
+        tr, state, loader, launches = phase_train(cfg, group=group, label=label,
+                                                  options=options, steps=steps,
+                                                  moment_dtype=moments)
+        plan = tr.plan
+        check(plan.num_segments == want_segs,
+              f"{label}: {plan.num_segments} segments, the reference's plan has "
+              f"{want_segs}")
+        kernel = "pack_ef_cast" if options.get("arena") else "ef_update"
+        n = f32_segments(plan)
+        check(launches == launch_counts(**{kernel: steps * n}),
+              f"{label}: launches {launches} in {steps} steps; {n} f32 segments")
+        launches_by_run[label] = launches[kernel]
+        bytes_w8 = [get_compressor("covap", interval=4).plan_phase(plan, p, world=8)
+                    .bytes_per_worker for p in range(4)]
+        ms, tok_s, peak = tr.run_stats
+        cut = f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
+        print(f"[families] {label}: {arch} at full width, {cut}, "
+              f"{sum(p.numel() for p in state['params'])} params, state "
+              f"{state_bytes(state)} B (params, m, v, residuals); COVAP bytes per "
+              f"worker at W=8, phases 0-3: {bytes_w8}; step ms {[round(v, 2) for v in ms]}, "
+              f"{tok_s:.0f} tok/s, peak {peak:.2f} GiB; {kernel} {launches[kernel]} "
+              f"launches ({n} f32 segments x {steps} steps) ({smi})", flush=True)
+        losses = [h["loss"] for h in tr.history]
+        if label == "qwen":
+            worst = family_ef_parity(tr, state, loader, group)
+            print(f"[families] qwen: one step on the same gradients, ef_update "
+                  f"kernel vs use_ef_kernel=False within ef_close (max |diff| "
+                  f"{worst:.3g})", flush=True)
+            post = (tr.history, state_parts(state))
+        elif label == "qwen arena+sharded":
+            hist, want = post
+            check([h["total_loss"] for h in tr.history] == [h["total_loss"] for h in hist],
+                  f"{label}: losses {losses} differ from the post run's")
+            got = state_parts(state)
+            for part in ("params", "m", "v", "residual"):
+                diff = max(abs_err(a, b) for a, b in zip(got[part], want[part]))
+                check(all(torch.equal(a, b) for a, b in zip(got[part], want[part])),
+                      f"{label}: {part} differ from the post run's (max |diff| {diff})")
+            print(f"[families] {label} == qwen (post, ef_update) after {steps} steps "
+                  f"on the same batches, bit for bit in losses, params, m, v and "
+                  f"residuals", flush=True)
+            post = None
+            del got, want
+        elif label.startswith("deepseek"):
+            drops = moe_drops(tr, loader.make(steps))
+            k, E = cfg.experts_per_token, cfg.num_experts
+            C = moe.capacity(cfg, 8 * 1024)
+            check(all(c == C for *_, c in drops) and len(drops) == cfg.num_layers,
+                  f"{label}: capacities {drops}")
+            share = [round(1 - kept / total, 6) for kept, total, _ in drops]
+            aux = [round(h["aux_loss"], 6) for h in tr.history]
+            check(all(math.isfinite(a) and a > 0 for a in aux), f"{label}: aux {aux}")
+            print(f"[families] {label}: aux_loss {aux}; C = {C} at N = 8192, k = {k}, "
+                  f"E = {E}, cf {cfg.moe_capacity_factor}; dropped share by layer "
+                  f"on batch {steps}: {share}", flush=True)
+        elif label.startswith("gemma"):
+            print(f"[families] {label}: MQA kv heads {cfg.num_kv_heads} of "
+                  f"{cfg.num_heads}, head_dim {cfg.head_dim}, {cfg.mlp_act}, vocab "
+                  f"{cfg.vocab_size} (padded {padded_vocab(cfg)}) in "
+                  f"{1024 // cfg.xent_chunk} xent chunks; losses {losses}", flush=True)
+        elif label.startswith("mistral"):
+            dts = {p.dtype for p in state["params"]}
+            mdts = {m.dtype for m in state["opt"]["m"] + state["opt"]["v"]}
+            check(dts == mdts == {torch.bfloat16}, f"{label}: params {dts}, moments {mdts}")
+            check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+            print(f"[families] {label}: bf16 params and moments; ef_update 0 "
+                  f"launches: the gradients are bf16 and the EF kernel takes f32 "
+                  f"operands (the reference's rule, core/stages.py _use_ef_kernel); "
+                  f"losses {losses} finite and falling", flush=True)
+        del tr, state, loader
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[families] phase took {time.perf_counter() - t_phase:.1f} s ({smi})",
+          flush=True)
+    return launches_by_run
+
+
 def phase_oktopk_parity(tr, state, loader, group) -> None:
     """On the same gradients and residuals, ``oktopk`` in the one-rank
     group against ``topk``: the synced values and the new residuals bit for
@@ -2530,6 +2717,76 @@ def phase_small() -> None:
               f"{how}: {worst:.3g}; {kernel} launches {n_gpu[kernel]}", flush=True)
 
 
+# bfloat16 parameters round every step: the card's and the CPU's last-bit
+# gradient differences can move a value one bf16 ulp a step (the tests'
+# bound against the reference): 2 ulps relative, 1 ulp of the leaf's
+# largest magnitude absolute
+BF16_RTOL, BF16_ULP = 2.0 ** -6, 2.0 ** -7
+
+
+def phase_small_families() -> None:
+    """The six families' REDUCED configs (and grok-1-314b's with bfloat16
+    parameters, whose f32 router shares buckets with bf16 experts) on the
+    card against the port on the CPU: 5 SGD steps on the defaults from the
+    same parameters and batches; ``ef_update`` once per f32 segment a step
+    on the card, never on the CPU."""
+    from repro_torch.configs import get_reduced, list_archs
+    from repro_torch.data import DataConfig, make_loader
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.train import TrainConfig, Trainer
+
+    counters = kernel_counters()
+    cases = [(a, get_reduced(a)) for a in list_archs(assigned_only=True)]
+    cases.append(("grok-1-314b bf16",
+                  get_reduced("grok-1-314b").with_(param_dtype="bfloat16")))
+    for label, cfg in cases:
+        bf16 = cfg.param_dtype == "bfloat16"
+        init = build_model(cfg, device="cpu", seed=3).state_dict()
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, device=dev)
+            model.load_state_dict(init)
+            tr = Trainer(model, sgd(1e-2, momentum=0.9),
+                         TrainConfig(bucket_bytes=1 << 14, max_buckets=32,
+                                     steps=STEPS, log_every=1))
+            loader = make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                            global_batch=4, corpus_tokens=1 << 14),
+                                 device=dev)
+            before = {k: f.launches for k, f in counters.items()}
+            state = tr.run(tr.init_state(), loader, log=None)
+            out[dev] = ([h["total_loss"] for h in tr.history],
+                        [p.detach().cpu() for p in state["params"]]
+                        + [r.cpu() for r in state["comp"]],
+                        {k: f.launches - before[k] for k, f in counters.items()})
+        (l_cpu, x_cpu, n_cpu), (l_gpu, x_gpu, n_gpu) = out["cpu"], out["cuda"]
+        n = STEPS * f32_segments(tr.plan)
+        check(n_cpu == launch_counts() and n_gpu == launch_counts(ef_update=n),
+              f"small {label}: launches cpu {n_cpu}, cuda {n_gpu}, want {n}")
+        check(all(math.isclose(a, b, rel_tol=1e-3 if bf16 else 1e-4)
+                  for a, b in zip(l_gpu, l_cpu)),
+              f"small {label}: losses cuda {l_gpu} vs cpu {l_cpu}")
+        worst = 0.0
+        for a, b in zip(x_gpu, x_cpu):
+            check(a.dtype == b.dtype, f"small {label}: dtypes {a.dtype} vs {b.dtype}")
+            if bf16:
+                a, b = a.float(), b.float()
+                ok = torch.allclose(a, b, rtol=BF16_RTOL,
+                                    atol=BF16_ULP * float(b.abs().max()))
+            else:
+                ok = torch.allclose(a, b, rtol=1e-4, atol=1e-6)
+            check(ok, f"small {label}: params or residuals differ between cuda and "
+                  f"cpu (max |diff| {abs_err(a, b):.3g})")
+            worst = max(worst, abs_err(a, b))
+        how = ("losses at rtol 1e-3; params and residuals at rtol 2^-6, atol 2^-7 "
+               "of the leaf's largest" if bf16 else
+               "losses at rtol 1e-4; params and residuals at rtol 1e-4, atol 1e-6")
+        print(f"[small] {label}: REDUCED, sgd, {STEPS} steps: cuda losses "
+              f"{[round(v, 5) for v in l_gpu]} match the cpu run, {how}: max "
+              f"|diff| {worst:.3g}; ef_update launches {n_gpu['ef_update']}",
+              flush=True)
+
+
 def main() -> int:
     _, smi = phase_device()
     import torch.distributed as dist
@@ -2659,6 +2916,9 @@ def main() -> int:
         by_run, plane_pack = phase_resilience(cfg, group, smi)
         records[0]["launches_by_run"].update(by_run)
         records[1]["launches_by_run"]["resilience plane guard"] = plane_pack
+        for label, n in phase_families(group, smi).items():
+            rec = records[1] if "arena" in label else records[0]
+            rec["launches_by_run"][f"families {label}"] = n
         # last, since the steps that follow a profiled one run slower: a
         # fresh fused run, then one profiled post and fused step
         tr, state, loader, launches = phase_train(
@@ -2671,6 +2931,7 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     phase_small()
+    phase_small_families()
     idle = [r["name"] for r in records if r.get("path", "") is not None
             and not r["launches"]]
     check(not idle, f"kernels never launched on their path: {idle}")

@@ -41,7 +41,7 @@ from .core.perfmodel import (
 )
 from .core.schedule import CommSchedule, mean_bytes_per_step, plan_all_phases
 from .data import DataConfig, make_loader
-from .models import build_model, count_params, param_shapes
+from .models import build_model, count_params
 from .obs import as_telemetry
 from .optim import adamw, cosine_warmup, sgd
 from .train.trainer import TrainConfig, Trainer
@@ -102,10 +102,8 @@ def _static_setup(arch: str, *, reduced: bool, interval, seq_len: int,
     cfg = _config(arch, reduced=reduced)
     choice = resolve_interval(interval, cfg, global_batch=global_batch,
                               seq_len=seq_len, dp_world=dp_workers, hw=hw)
-    dtype = getattr(torch, cfg.param_dtype)
     plan = build_plan(
-        [(path, torch.empty(shape, dtype=dtype, device="meta"))
-         for path, shape in param_shapes(cfg).items()],
+        build_model(cfg, device="meta").named_leaves(),
         bucket_bytes=bucket_bytes, max_buckets=max_buckets,
         interval=choice.interval,
     )

@@ -1,6 +1,8 @@
-"""Architecture config schema: the fields the dense decoder reads, with the
-same defaults as ``repro.configs.base.ArchConfig``, and the named input
-shapes (``INPUT_SHAPES``)."""
+"""Architecture config schema: the fields the dense and MoE decoders read,
+with the same defaults as ``repro.configs.base.ArchConfig``, and the named
+input shapes (``INPUT_SHAPES``).  The serving field (``kv_cache_dtype``)
+and the SSM, encoder-decoder and modality fields are not carried: their
+families are not ported."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +11,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # only "dense" is ported
+    family: str                      # dense | moe (ssm | hybrid | vlm | audio unported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -18,10 +20,20 @@ class ArchConfig:
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
 
-    rope_theta: float = 10000.0
-    # carried for ``models.long_context_variant``; the port's attention is
-    # full, so ``build_model`` refuses a config with a window
+    # --- MoE ---------------------------------------------------------------
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01
+
+    # --- attention ----------------------------------------------------------
+    qkv_bias: bool = False
+    logit_softcap: float = 0.0       # final-logit softcap (gemma2)
+    attn_softcap: float = 0.0        # attention-logit softcap (gemma2)
     sliding_window: int = 0          # 0 = full attention
+    local_global: bool = False       # gemma2 alternating local/global layers
+    rope_theta: float = 10000.0
     # carried for parity with the reference config; like the reference
     # decoder, the port keeps an untied ``head.w`` and never reads it
     tie_embeddings: bool = True
@@ -41,8 +53,22 @@ class ArchConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        from ..models import model as _m  # lazy; avoids an import cycle
+
+        return _m.count_params(self)
+
+    def active_param_count(self) -> int:
+        from ..models import model as _m
+
+        return _m.count_params(self, active_only=True)
 
 
 @dataclasses.dataclass(frozen=True)

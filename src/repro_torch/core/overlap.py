@@ -54,8 +54,8 @@ from .comm import flat_axis_index, start_all_gather_tiled, world_size
 from .schedule import CommSchedule
 from .stages import StepSync, SyncPipeline
 
-# the stage of a bucket read before the embedding; stage i in [0, L) is
-# layer i, and stage L the final norm and the head after the layer loop
+# the stage of a bucket read before the embedding; stage i in [0, n) is
+# superblock i, and stage n the final norm and the head after the loop
 EMBED_STAGE = -1
 
 
@@ -77,11 +77,12 @@ def supports_sharded_sync(compressor) -> bool:
     return supports_fused_overlap(compressor)
 
 
-def bucket_first_use(plan: bk.BucketPlan, num_layers: int) -> list[int]:
+def bucket_first_use(plan: bk.BucketPlan, num_stages: int) -> list[int]:
     """Each bucket's first-use stage in the decoder's forward pass: the
     earliest over its segments, where a stacked ``stack.blocks.*`` leaf's
-    row ``r`` is read before layer ``r``, ``stack.final_norm.*`` and
-    ``head.*`` after the layer loop (stage ``num_layers``), and ``embed.*``,
+    row ``r`` is read before superblock ``r``, ``stack.final_norm.*`` and
+    ``head.*`` after the layer loop (stage ``num_stages``, the superblock
+    count ``DecoderLM.num_stages``), and ``embed.*``,
     or a leaf of unknown use, before the embedding (:data:`EMBED_STAGE`),
     so that nothing is read stale."""
     def first_use(seg: bk.Segment) -> int:
@@ -89,7 +90,7 @@ def bucket_first_use(plan: bk.BucketPlan, num_layers: int) -> list[int]:
         if path.startswith("stack.blocks."):
             return seg.row_lo
         if path.startswith(("stack.final_norm.", "head.")):
-            return num_layers
+            return num_stages
         return EMBED_STAGE
 
     return [min(map(first_use, bucket.segments)) for bucket in plan.buckets]
@@ -144,8 +145,8 @@ class ParamGather:
             self.settle(b)
 
     def before_layer(self, i: int) -> None:
-        """The model's callback before stage ``i``: layer ``i``, or the final
-        norm and head when ``i`` is the layer count."""
+        """The model's callback before stage ``i``: superblock ``i``, or the
+        final norm and head when ``i`` is the superblock count."""
         self.settle_through(i)
         self.events.append(("layer", i))
 

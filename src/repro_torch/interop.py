@@ -31,13 +31,20 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
     return out
 
 
+def _tensor(v) -> torch.Tensor:
+    """A numpy array as a tensor of its dtype; a bfloat16 array (numpy's
+    ``ml_dtypes`` extension type, which ``torch.from_numpy`` refuses) goes
+    across through its 16-bit pattern."""
+    a = np.array(v, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(tree: Mapping[str, Any], *, device="cuda") -> dict[str, torch.Tensor]:
     """Nested dict of numpy arrays -> ``{dotted path: tensor on device}``."""
     dev = resolve_device(device)
-    return {
-        path: torch.from_numpy(np.array(v, copy=True)).to(dev)
-        for path, v in _flatten(tree).items()
-    }
+    return {path: _tensor(v).to(dev) for path, v in _flatten(tree).items()}
 
 
 def params_to_numpy(params: nn.Module | Mapping[str, torch.Tensor]) -> dict[str, Any]:
@@ -61,8 +68,7 @@ def compressor_state_from_jax(state: Mapping[str, Any], *, device="cuda"
     keys and lists, each array a tensor on ``device``, each ``None`` kept."""
     dev = resolve_device(device)
     return {
-        key: [None if v is None else torch.from_numpy(np.array(v, copy=True)).to(dev)
-              for v in values]
+        key: [None if v is None else _tensor(v).to(dev) for v in values]
         for key, values in state.items()
     }
 

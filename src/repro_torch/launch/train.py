@@ -313,8 +313,10 @@ def _train(args, groups, device) -> None:
     committed = int(state["step"]) - start
     tokens = committed * args.global_batch * args.seq_len
     last = tr.history[-1]
+    aux = f", aux_loss {last['aux_loss']:.4f}" if cfg.is_moe else ""
     say(f"[done] step {state['step']} ({committed} committed), {wall:.1f}s, "
-        f"{tokens/wall:.0f} tok/s, final loss {last.get('loss', last['total_loss']):.4f}")
+        f"{tokens/wall:.0f} tok/s, final loss {last.get('loss', last['total_loss']):.4f}"
+        + aux)
     say(f"[kernels] launches {json.dumps(launch_counts())}")
     if args.adaptive and tr.runtime is not None:
         s = tr.runtime.summary()

@@ -1,4 +1,4 @@
-"""The dense decoder family in PyTorch (gpt2-paper)."""
+"""The dense and MoE decoder families in PyTorch."""
 from ..configs.base import InputShape
 from .model import (
     DecoderLM,

@@ -1,11 +1,11 @@
-"""Model primitives of the dense decoder: init, RMSNorm, embedding, RoPE and
-the gated MLP — the counterparts of ``repro.models.layers``.
+"""Model primitives of the decoders: init, RMSNorm, embedding, RoPE, the
+gated MLP and the softcap — the counterparts of ``repro.models.layers``.
 
 Conventions, as in the reference:
 * parameters are looked up by name in dict-like containers
   (``nn.ParameterDict`` in the model, plain dicts in tests);
-* stacked-layer leaves carry a leading ``(num_layers,)`` axis and are
-  indexed per layer by the layer loop;
+* stacked-layer leaves carry a leading ``(num_superblocks,)`` axis and
+  are indexed per superblock by the layer loop;
 * matmul inputs are cast to ``compute_dtype`` at the same points as the
   reference (bf16 at full width, f32 on the REDUCED config).
 """
@@ -84,3 +84,11 @@ def mlp(params, x: torch.Tensor, act: str, compute_dtype) -> torch.Tensor:
     u = xc @ params["w_up"].to(compute_dtype)
     h = _act(act, g) * u
     return h @ params["w_down"].to(compute_dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(x / cap)`` computed in f32, cast back; the identity
+    when ``cap <= 0``."""
+    if cap <= 0:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)

@@ -1,13 +1,17 @@
-"""The dense decoder as an ``nn.Module`` and its chunked softmax-xent loss —
-the counterpart of the decoder half of ``repro.models.model``.
+"""The decoder LM as an ``nn.Module`` and its chunked softmax-xent loss —
+the counterpart of the decoder half of ``repro.models.model``, for the
+dense and MoE families (full, sliding-window and gemma2's local/global
+attention; softcaps; q/k/v biases).
 
 Parameters keep the reference's paths and stacked shapes (``embed.table``,
-``head.w``, ``stack.blocks.b0.attn.wq`` of shape ``(L, d, H*hd)``, ...).
-:func:`leaves` lists them in the reference's leaf order, which is
-``jax.tree_util.tree_leaves`` of the nested dict: keys sorted at every
-level.  The bucket plan, the optimizer and the EF residuals all follow that
-order.  As in the reference, the output head is untied and the vocab is
-padded to a multiple of 128.
+``head.w``, ``stack.blocks.b0.attn.wq`` of shape ``(n, d, H*hd)`` over the
+``n`` superblocks, ...).  ``DecoderLM.named_leaves`` lists them in the reference's
+leaf order, which is ``jax.tree_util.tree_leaves`` of the nested dict:
+keys sorted at every level (``router, shared, w_down, w_gate, w_up`` under
+``moe``).  The bucket plan, the optimizer and the EF residuals all follow
+that order.  As in the reference, the output head is untied and the vocab
+is padded to a multiple of 128; the MoE router is f32 whatever the
+parameter dtype.
 """
 from __future__ import annotations
 
@@ -18,8 +22,9 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from . import moe as moe_mod
 from . import transformer
-from .layers import embed, normal_init, truncated_normal_init
+from .layers import embed, normal_init, softcap, truncated_normal_init
 
 
 LONG_CONTEXT_WINDOW = 8192  # sliding-window variant used for long_500k
@@ -30,16 +35,18 @@ def padded_vocab(cfg: ArchConfig) -> int:
 
 
 def long_context_variant(cfg: ArchConfig) -> ArchConfig:
-    """The sliding-window variant that makes a dense arch runnable at 500k
-    decode, as the reference picks it (the port's attention has no window
-    yet, so ``build_model`` refuses the result)."""
+    """The sliding-window variant that makes a full-attention arch runnable
+    at 500k decode, as the reference picks it: gemma2's local layers keep
+    their window (its global layers stay full), every other attention arch
+    gets an 8192 window."""
+    if cfg.local_global:
+        return cfg.with_(sliding_window=cfg.sliding_window or 4096)
     return cfg.with_(sliding_window=LONG_CONTEXT_WINDOW)
 
 
 def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
-    """Every parameter's shape by dotted path, in leaf order."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    """Every parameter's shape by dotted path, in leaf order (a family the
+    port lacks raises ``NotImplementedError``, naming it)."""
     V = padded_vocab(cfg)
     shapes = {"embed.table": (V, cfg.d_model), "head.w": (cfg.d_model, V)}
     for k, s in transformer.stack_param_shapes(cfg).items():
@@ -47,10 +54,31 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     return dict(sorted(shapes.items(), key=lambda kv: kv[0].split(".")))
 
 
+def _is_router(path: str) -> bool:
+    return path.endswith(".moe.router")
+
+
+def _leaf_dtype(cfg: ArchConfig, path: str) -> torch.dtype:
+    """A leaf's dtype: the config's parameter dtype, f32 for the router."""
+    return moe_mod.ROUTER_DTYPE if _is_router(path) else getattr(torch, cfg.param_dtype)
+
+
+def _is_routed_expert(path: str) -> bool:
+    parts = path.split(".")
+    return ("moe" in parts and "shared" not in parts
+            and parts[-1] in ("w_gate", "w_up", "w_down"))
+
+
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
-    """The parameter count of ``cfg`` (the dense family: every parameter is
-    active, so ``active_only`` changes nothing)."""
-    return sum(math.prod(s) for s in param_shapes(cfg).values())
+    """The parameter count of ``cfg``; ``active_only`` counts each routed
+    expert weight at ``k/E`` of its size (the experts a token reaches)."""
+    total = 0
+    for path, shape in param_shapes(cfg).items():
+        n = math.prod(shape)
+        if active_only and cfg.is_moe and _is_routed_expert(path):
+            n = int(n * cfg.experts_per_token / cfg.num_experts)
+        total += n
+    return total
 
 
 def model_flops(cfg: ArchConfig, tokens: int, kind: str = "train") -> float:
@@ -61,7 +89,8 @@ def model_flops(cfg: ArchConfig, tokens: int, kind: str = "train") -> float:
 
 
 # tensor-parallel specs by leaf name, the reference's rules for the dense
-# family (the port trains data-parallel only; the specs are a plan)
+# and MoE families (the port trains data-parallel only; the specs are a
+# plan)
 _SHARD_LAST = {"wq", "wk", "wv", "w_gate", "w_up", "head_w"}
 _SHARD_IN = {"wo", "w_down"}
 
@@ -78,6 +107,16 @@ def _leaf_spec(path: tuple[str, ...], shape: tuple[int, ...], model_axis: int,
         s[ax] = axis_name
         return tuple(s)
 
+    if "moe" in path and name in ("w_gate", "w_up", "w_down") and ndim >= 3:
+        # expert-parallel on E when divisible, else shard the ff dim (the
+        # shared expert's stacked leaves take this rule on their row axis,
+        # as in the reference)
+        e_ax = ndim - 3
+        if shape[e_ax] % model_axis == 0:
+            s = [None] * ndim
+            s[e_ax] = axis_name
+            return tuple(s)
+        return spec_with(1) if name in ("w_gate", "w_up") else spec_with(2)
     if name == "table":                      # input embedding: shard d_model
         return spec_with(1)
     if len(path) >= 2 and path[-2] == "head":
@@ -99,8 +138,29 @@ def build_param_specs(cfg: ArchConfig, model_axis: int, axis_name
             for path, shape in param_shapes(cfg).items()}
 
 
+class _Node(nn.Module):
+    """A container holding both parameters and sub-containers (``moe``:
+    its router and experts beside ``shared``), read by name like the
+    ``ParameterDict`` and ``ModuleDict`` that hold only one kind."""
+
+    def __init__(self, leaves: dict[str, nn.Parameter], groups: dict[str, nn.Module]):
+        super().__init__()
+        for k, p in leaves.items():
+            self.register_parameter(k, p)
+        for k, m in groups.items():
+            self.add_module(k, m)
+        self._names = sorted([*leaves, *groups])
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def items(self):
+        return [(k, self[k]) for k in self._names]
+
+
 def _nest(flat: dict[str, nn.Parameter]) -> nn.Module:
-    """Nested ``ModuleDict``/``ParameterDict`` containers for dotted paths."""
+    """Nested ``ModuleDict``/``ParameterDict`` containers for dotted paths
+    (a :class:`_Node` where a level holds both)."""
     groups: dict[str, dict[str, nn.Parameter]] = {}
     leaves: dict[str, nn.Parameter] = {}
     for path, p in flat.items():
@@ -110,7 +170,7 @@ def _nest(flat: dict[str, nn.Parameter]) -> nn.Module:
         else:
             leaves[head] = p
     if leaves and groups:
-        raise ValueError(f"mixed leaves and groups: {sorted(flat)}")
+        return _Node(leaves, {k: _nest(v) for k, v in groups.items()})
     if leaves:
         return nn.ParameterDict(leaves)
     return nn.ModuleDict({k: _nest(v) for k, v in groups.items()})
@@ -130,7 +190,7 @@ def _xent_chunked(head_w, x, labels, cfg):
     count = x.new_zeros((), dtype=torch.float32)
     for off in range(0, S, c):
         xk, lk = x[:, off:off + c], labels[:, off:off + c]
-        logits = (xk.to(cd) @ w).float()
+        logits = softcap((xk.to(cd) @ w).float(), cfg.logit_softcap)
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, lk.clamp(min=0)[..., None])[..., 0]
         mask = (lk >= 0).float()
@@ -140,21 +200,28 @@ def _xent_chunked(head_w, x, labels, cfg):
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder-only LM: embedding (scaled by ``sqrt(d_model)``), the
-    stacked layer loop, final RMSNorm, untied head, chunked xent."""
+    """Decoder-only LM (dense or MoE): embedding (scaled by
+    ``sqrt(d_model)``), the stacked superblock loop, final RMSNorm, untied
+    head, chunked xent (with the final-logit softcap)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda", seed: int = 0):
         super().__init__()
         self.cfg = cfg
         dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
-        dtype = getattr(torch, cfg.param_dtype)
         flat = {
-            path: nn.Parameter(torch.empty(shape, dtype=dtype, device=dev))
+            path: nn.Parameter(torch.empty(shape, dtype=_leaf_dtype(cfg, path),
+                                           device=dev))
             for path, shape in param_shapes(cfg).items()
         }
         for name, sub in _nest(flat).items():
             self.add_module(name, sub)
         self.init_params(seed)
+
+    @property
+    def num_stages(self) -> int:
+        """The layer loop's stages before the final norm and head: the
+        superblock count (``before_layer``'s last index)."""
+        return transformer.num_superblocks(self.cfg)
 
     def named_leaves(self) -> list[tuple[str, nn.Parameter]]:
         """``(path, parameter)`` in the reference's leaf order."""
@@ -163,25 +230,30 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def init_params(self, seed: int) -> None:
         """Reference init rules (N(0, 0.02) embedding, truncated normal
-        matrices, zero norm scales), drawn from a seeded ``torch.Generator``
-        on the parameters' device."""
+        matrices, the router's at scale 0.1, zero norm scales and biases),
+        drawn from a seeded ``torch.Generator`` on the parameters'
+        device."""
         dev = self.embed["table"].device
         gen = None if dev.type == "meta" else torch.Generator(dev).manual_seed(seed)
         for path, p in self.named_leaves():
             if path == "embed.table":
                 v = normal_init(p.shape, p.dtype, gen, device=dev, std=0.02)
-            elif path.endswith(".scale"):
+            elif path.endswith((".scale", ".bq", ".bk", ".bv")):
                 v = torch.zeros(p.shape, dtype=p.dtype, device=dev)
+            elif _is_router(path):
+                v = truncated_normal_init(p.shape, p.dtype, gen, device=dev,
+                                          scale=moe_mod.ROUTER_INIT_SCALE)
             else:
                 v = truncated_normal_init(p.shape, p.dtype, gen, device=dev)
             p.copy_(v)
 
     def loss_fn(self, batch: dict[str, torch.Tensor], before_layer=None,
                 params: dict | None = None):
-        """-> (total_loss, {"loss", "aux_loss"}), as the reference's
-        ``loss_fn`` returns them (the dense family has no aux loss).
-        ``before_layer`` goes to :func:`transformer.stack_train`: it is
-        called before each layer and before the final norm and head.
+        """-> (loss + aux_loss, {"loss", "aux_loss"}), as the reference's
+        ``loss_fn`` returns them (``aux_loss``, the MoE blocks' summed
+        load-balance loss, is 0 for dense).  ``before_layer`` goes to
+        :func:`transformer.stack_train`: it is called before each
+        superblock and before the final norm and head.
         ``params`` replaces the module's parameters: a nested dict by path
         (``core.overlap.install_hooks``) whose leaves :mod:`.transformer` describes; a
         deferred leaf is assembled where the forward pass first reads it."""
@@ -191,16 +263,13 @@ class DecoderLM(nn.Module):
             "embed": self.embed, "stack": self.stack, "head": self.head}
         x = embed(transformer.resolve(tree["embed"]["table"], cd), batch["tokens"], cd)
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=x.device)
-        x = transformer.stack_train(tree["stack"], x, cfg, before_layer)
+        x, aux = transformer.stack_train(tree["stack"], x, cfg, before_layer)
         loss = _xent_chunked(transformer.resolve(tree["head"]["w"], cd), x,
                              batch["labels"], cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"loss": loss, "aux_loss": aux}
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", seed: int = 0) -> DecoderLM:
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"sliding-window attention (window {cfg.sliding_window}) is not "
-            "ported; the port's attention is full")
+    """The decoder of a dense or MoE config; other families raise
+    ``NotImplementedError`` naming the family."""
     return DecoderLM(cfg, device=device, seed=seed)

@@ -1,7 +1,12 @@
-"""Decoder stack of the dense family: per-layer parameters stacked over a
-leading ``(num_layers,)`` axis and consumed by a loop over the layer index
-(the reference scans over the same stacked leaves).  ``cfg.remat`` wraps
-each layer in ``torch.utils.checkpoint``, which changes memory, not values.
+"""Decoder stack of the dense and MoE families: a loop over superblocks.
+
+A *superblock* is the repeating unit of the architecture: one block for
+plain dense and MoE, a (local, global) pair for gemma2.  Each block's
+parameters are stacked over a leading ``(num_superblocks,)`` axis under
+``blocks.b{j}`` and consumed by a loop over the superblock index (the
+reference scans over the same stacked leaves).  ``cfg.remat`` wraps each
+superblock in ``torch.utils.checkpoint``, which changes memory, not
+values.
 
 The parameters come as a nested container whose leaves are tensors, as the
 module holds them, or as a replacement tree (``core.overlap.install_hooks``):
@@ -15,25 +20,62 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import mlp, rmsnorm
+
+def superblock_kinds(cfg) -> list[tuple[str, int]]:
+    """``[(kind, window)]`` for each block of one superblock."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    if cfg.local_global:
+        return [("attn", cfg.sliding_window or 4096), ("attn", 0)]
+    return [("attn", cfg.sliding_window)]
+
+
+def num_superblocks(cfg) -> int:
+    """The stacked leaves' row count: the loop's stages before the final
+    norm and head."""
+    kinds = superblock_kinds(cfg)
+    n, r = divmod(cfg.num_layers, len(kinds))
+    if r:
+        raise ValueError(
+            f"{cfg.name}: num_layers={cfg.num_layers} not divisible by "
+            f"superblock size {len(kinds)}")
+    return n
+
+
+def _block_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """One attention block's leaf shapes (one row), by path under it."""
+    d, f = cfg.d_model, cfg.d_ff
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = {
+        "attn.wq": (d, H * hd),
+        "attn.wk": (d, K * hd),
+        "attn.wv": (d, K * hd),
+        "attn.wo": (H * hd, d),
+        "ln1.scale": (d,),
+        "ln2.scale": (d,),
+    }
+    if cfg.qkv_bias:
+        shapes.update({"attn.bq": (H * hd,), "attn.bk": (K * hd,),
+                       "attn.bv": (K * hd,)})
+    if cfg.is_moe:
+        shapes.update({f"moe.{k}": s for k, s in moe_mod.moe_param_shapes(cfg).items()})
+    else:
+        shapes.update({"mlp.w_gate": (d, f), "mlp.w_up": (d, f), "mlp.w_down": (f, d)})
+    return shapes
 
 
 def stack_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
     """Shapes of the stack's leaves, keyed by their path under ``stack``."""
-    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
-        "blocks.b0.attn.wq": (L, d, H * hd),
-        "blocks.b0.attn.wk": (L, d, K * hd),
-        "blocks.b0.attn.wv": (L, d, K * hd),
-        "blocks.b0.attn.wo": (L, H * hd, d),
-        "blocks.b0.ln1.scale": (L, d),
-        "blocks.b0.ln2.scale": (L, d),
-        "blocks.b0.mlp.w_gate": (L, d, f),
-        "blocks.b0.mlp.w_up": (L, d, f),
-        "blocks.b0.mlp.w_down": (L, f, d),
-        "final_norm.scale": (d,),
+    n = num_superblocks(cfg)
+    shapes = {
+        f"blocks.b{j}.{k}": (n,) + s
+        for j in range(len(superblock_kinds(cfg)))
+        for k, s in _block_param_shapes(cfg).items()
     }
+    shapes["final_norm.scale"] = (cfg.d_model,)
+    return shapes
 
 
 def resolve(x, dtype=None):
@@ -54,32 +96,47 @@ def _layer(tree, i: int):
     return resolve(tree[i])
 
 
-def _attn_block_train(p, x, cfg):
+def _attn_block_train(p, x, cfg, window):
+    """-> ``(x, aux)``; ``aux`` is ``None`` for a dense block."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn.attn_train(p["attn"], h, cfg)
+    x = x + attn.attn_train(p["attn"], h, cfg, window=window)
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.mlp_act, getattr(torch, cfg.compute_dtype))
+    if cfg.is_moe:
+        y, aux = moe_mod.moe_apply(p["moe"], h, cfg)
+        return x + y, aux
+    return x + mlp(p["mlp"], h, cfg.mlp_act, getattr(torch, cfg.compute_dtype)), None
 
 
-def stack_train(params, x: torch.Tensor, cfg, before_layer=None) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  ``before_layer(i)``, when given, is
-    called before layer ``i`` reads its rows, and once more with ``i =
-    num_layers`` before the final norm.  It and the read of the layer's
-    rows run outside the checkpointed layer, so the backward pass's
+def _superblock_train(p, x, aux, cfg, kinds):
+    for j, (_, window) in enumerate(kinds):
+        x, a = _attn_block_train(p[f"b{j}"], x, cfg, window)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def stack_train(params, x: torch.Tensor, cfg, before_layer=None):
+    """x: (B, S, d) -> ``(y, aux_loss)``, the sum of the blocks' aux losses
+    (0 for dense).  ``before_layer(i)``, when given, is called before
+    superblock ``i`` reads its rows, and once more with ``i =
+    num_superblocks`` before the final norm.  It and the read of the rows
+    run outside the checkpointed superblock, so the backward pass's
     recompute repeats neither."""
-    blocks = params["blocks"]["b0"]
-    for i in range(cfg.num_layers):
+    kinds = superblock_kinds(cfg)
+    n = num_superblocks(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
         if before_layer is not None:
             before_layer(i)
-        p = _layer(blocks, i)
+        p = _layer(params["blocks"], i)
         if cfg.remat:
-            x = checkpoint(
-                lambda x_, p_=p: _attn_block_train(p_, x_, cfg),
-                x, use_reentrant=False,
+            x, aux = checkpoint(
+                lambda x_, a_, p_=p: _superblock_train(p_, x_, a_, cfg, kinds),
+                x, aux, use_reentrant=False,
             )
         else:
-            x = _attn_block_train(p, x, cfg)
+            x, aux = _superblock_train(p, x, aux, cfg, kinds)
     if before_layer is not None:
-        before_layer(cfg.num_layers)
+        before_layer(n)
     final_norm = {k: resolve(v) for k, v in params["final_norm"].items()}
-    return rmsnorm(final_norm, x, cfg.norm_eps)
+    return rmsnorm(final_norm, x, cfg.norm_eps), aux

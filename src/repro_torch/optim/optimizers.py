@@ -83,14 +83,22 @@ def adamw(
     b2: float = 0.999,
     eps: float = 1e-8,
     weight_decay: float = 0.0,
+    moment_dtype: str | None = None,
 ) -> Optimizer:
+    """Adam/AdamW.  The moments are kept in ``moment_dtype`` (a torch dtype
+    name), by default in each parameter's own dtype (bf16 moments for bf16
+    parameters, as in the reference); the update is computed in f32."""
     lr_fn = _sched(lr)
+
+    def _zeros(p):
+        dt = getattr(torch, moment_dtype) if moment_dtype else p.dtype
+        return torch.zeros_like(p, dtype=dt)
 
     def init(params):
         return {
             "step": 0,
-            "m": [torch.zeros_like(p) for p in params],
-            "v": [torch.zeros_like(p) for p in params],
+            "m": [_zeros(p) for p in params],
+            "v": [_zeros(p) for p in params],
         }
 
     @torch.no_grad()

@@ -140,13 +140,14 @@ def loss_and_grads(model, params: list[torch.Tensor], batch, group=None, *,
     (``None``: no callback) goes to ``model.loss_fn``.
 
     -> ``(grads, metrics)``: the raw (un-synced) gradients in leaf order, and
-    the loss metrics averaged over the group.  The parameters' ``.grad``
-    fields are cleared again before returning."""
+    the loss metrics averaged over the group.  A leaf the loss does not
+    reach gets a zero gradient, as ``jax.grad`` gives it.  The parameters'
+    ``.grad`` fields are cleared again before returning."""
     for p in params:
         p.grad = None
     total, metrics = model.loss_fn(batch, before_layer=before_layer)
     total.backward()
-    grads = [p.grad for p in params]
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     for p in params:
         p.grad = None
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -347,8 +348,9 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
             n_pods=world_size(pod_group))
         pod_layout = ar.build_layout(plan, pod_schedule.selected,
                                      align=world_size(group))
-    first_use = (bucket_first_use(plan, model.cfg.num_layers) if sharded
-                 else None)
+    # the stacked rows are superblocks: gemma2's layer loop has half as many
+    # stages as layers, and the head is read after the last of them
+    first_use = bucket_first_use(plan, model.num_stages) if sharded else None
 
     def apply(state, synced, comp_state):
         params = state["params"]
@@ -370,11 +372,14 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
                      "step": state["step"] + 1}
         return new_state, gnorm
 
-    def update(state, grads):
+    def sync(state, grads):
         synced, comp_state, _ = compressor.execute(
             comm_schedule, grads, state["comp"], step=state["step"], group=group,
         )
-        return apply(state, synced, comp_state)
+        return synced, comp_state
+
+    def update(state, grads):
+        return apply(state, *sync(state, grads))
 
     def step_fn(state, batch):
         before_layer = None
@@ -401,8 +406,12 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
                 f"sharded sync: buckets {sorted(gather.pending)} were never "
                 "waited for: the model did not call before_layer for every "
                 "stage")
-        new_state, metrics["grad_norm"] = (apply(state, synced, comp_state) if fused
-                                           else update(state, grads))
+        if not fused:
+            synced, comp_state = sync(state, grads)
+            # the raw gradients are dead once synced: free them before the
+            # optimizer allocates its new moments
+            del grads
+        new_state, metrics["grad_norm"] = apply(state, synced, comp_state)
         if pod_schedule is not None:
             metrics = _pmean_metrics(metrics, pod_group)
         return new_state, metrics

@@ -1,0 +1,328 @@
+"""The attention families beyond gpt2-paper (qwen1.5-0.5b, gemma-2b,
+gemma2-27b, mistral-large-123b, deepseek-moe-16b, grok-1-314b) in the port
+against the JAX reference: configs, parameter paths, leaf order and dtypes,
+loss, aux loss and every gradient on the REDUCED configs, and the
+full-config bucket plans and COVAP bytes, built from ``meta`` tensors
+without allocating; the unported families' refusals; ``api.fit``,
+``api.plan_report`` and the training CLI on each arch."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.api as rapi
+import repro.configs as rconfigs
+from repro.core import build_plan as r_build_plan
+from repro.core import build_ready_order as r_build_ready_order
+from repro.core import get_compressor as r_get_compressor
+from repro.models import build_model as r_build_model
+from repro.models import build_param_specs as r_build_param_specs
+from repro.models import count_params as r_count_params
+from repro.models import long_context_variant as r_long_context_variant
+from repro.models import model_flops as r_model_flops
+
+import repro_torch.api as api
+import repro_torch.configs as tconfigs
+from repro_torch.core import build_plan, build_ready_order, get_compressor
+from repro_torch.core.overlap import EMBED_STAGE, bucket_first_use
+from repro_torch.interop import params_from_jax
+from repro_torch.launch import train as cli
+from repro_torch.models import (
+    build_model,
+    build_param_specs,
+    count_params,
+    long_context_variant,
+    model_flops,
+    param_shapes,
+)
+from repro_torch.models.transformer import num_superblocks
+
+torch.set_num_threads(2)
+
+# loss and gradients: the order of summation differs between XLA and ATen
+RTOL, ATOL = 1e-4, 1e-6
+ARCHS = tconfigs.list_archs(assigned_only=True)
+SEQ = 64     # two attention chunks, two xent chunks, gemma2's window 16 active
+
+# the depth cuts that fit one 80 GB card at full width, and the reference's
+# COVAP (I=4) bytes per worker per step at W=8 for phases 0..3
+CUTS = {
+    ("qwen1.5-0.5b", None): (100, 114, [622365696, 611183616, 622365696, 622365696]),
+    ("gemma-2b", 2): (128, 135, [1260740608, 1233821696, 1296687104, 1283899392]),
+    ("deepseek-moe-16b", 2): (66, 77, [1611038720, 1584627712, 1584627712,
+                                       1600331776]),
+    ("mistral-large-123b", 1): (71, 74, [1115160576, 1083703296, 1090019328,
+                                         1090043904]),
+}
+FULL = [(a, None) for a in ARCHS] + [k for k in CUTS if k[1] is not None]
+
+
+def _configs(arch, reduced=False, layers=None):
+    get = "get_reduced" if reduced else "get_config"
+    rcfg, cfg = getattr(rconfigs, get)(arch), getattr(tconfigs, get)(arch)
+    if layers is not None:
+        rcfg, cfg = rcfg.with_(num_layers=layers), cfg.with_(num_layers=layers)
+    return rcfg, cfg
+
+
+def _tree_paths(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_tree_paths(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def test_registry_lists_the_ported_archs_in_the_reference_s_order():
+    names = tconfigs.list_archs()
+    assert names == [a for a in rconfigs.list_archs() if a in names]
+    assert set(ARCHS) == {"qwen1.5-0.5b", "gemma-2b", "gemma2-27b",
+                          "mistral-large-123b", "deepseek-moe-16b", "grok-1-314b"}
+    assert tconfigs.list_archs(assigned_only=True) == [a for a in names
+                                                       if a != "gpt2-paper"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_fields_match_reference(arch, reduced):
+    rcfg, cfg = _configs(arch, reduced)
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(rcfg, f.name), f.name
+    assert cfg.is_moe == rcfg.is_moe
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b", "pixtral-12b",
+                                  "seamless-m4t-medium"])
+def test_unported_families_raise_naming_the_family(arch):
+    family = rconfigs.get_config(arch).family
+    for get in (tconfigs.get_config, tconfigs.get_reduced):
+        with pytest.raises(NotImplementedError, match=repr(family)):
+            get(arch)
+    with pytest.raises(NotImplementedError, match=repr(family)):
+        api.fit(arch, device="cpu", steps=1)
+    cfg = tconfigs.get_reduced("qwen1.5-0.5b").with_(family=family)
+    with pytest.raises(NotImplementedError, match=repr(family)):
+        build_model(cfg, device="meta")
+    with pytest.raises(KeyError):
+        tconfigs.get_config("llama-7b")
+
+
+def _init(arch, seed=0):
+    """The reference's REDUCED parameters, with the zero-initialised norm
+    scales and q/k/v biases set to small random values so that their
+    forward paths carry weight."""
+    rcfg = rconfigs.get_reduced(arch)
+    params = jax.tree.map(np.asarray, r_build_model(rcfg).init(jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed + 100)
+    flat = _tree_paths(params)
+
+    def perturb(tree, prefix=""):
+        for k, v in tree.items():
+            path = f"{prefix}{k}"
+            if isinstance(v, dict):
+                perturb(v, path + ".")
+            elif k in ("scale", "bq", "bk", "bv"):
+                tree[k] = (0.1 * rng.standard_normal(v.shape)).astype(v.dtype)
+
+    perturb(params)
+    assert len(_tree_paths(params)) == len(flat)
+    return params
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_aux_and_grads_match_reference(arch):
+    rcfg, cfg = _configs(arch, reduced=True)
+    rmodel = r_build_model(rcfg)
+    params = _init(arch)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, rcfg.vocab_size, size=(2, SEQ)).astype(np.int32)
+    labels = rng.integers(0, rcfg.vocab_size, size=(2, SEQ)).astype(np.int32)
+    labels[1, :5] = -1
+    (rloss, rmet), rgrads = jax.value_and_grad(rmodel.loss_fn, has_aux=True)(
+        jax.tree.map(jnp.asarray, params),
+        {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(params, device="cpu"))
+    total, met = model.loss_fn({"tokens": torch.from_numpy(tokens).long(),
+                                "labels": torch.from_numpy(labels).long()})
+    total.backward()
+    np.testing.assert_allclose(total.item(), float(rloss), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(met["loss"].detach()), float(rmet["loss"]), rtol=RTOL)
+    np.testing.assert_allclose(float(met["aux_loss"].detach()), float(rmet["aux_loss"]),
+                               rtol=RTOL, atol=ATOL)
+    assert (float(met["aux_loss"].detach()) > 0) == cfg.is_moe
+    ref_grads = _tree_paths(jax.tree.map(np.asarray, rgrads))
+    assert [p for p, _ in model.named_leaves()] == list(ref_grads)
+    for path, p in model.named_leaves():
+        np.testing.assert_allclose(p.grad.numpy(), ref_grads[path], rtol=RTOL,
+                                   atol=ATOL, err_msg=path)
+
+
+def test_gemma2_local_layer_masks_outside_its_window():
+    """gemma2's superblock is a (local, global) pair: only ``b0`` sees the
+    window, and the softcaps bound the logits; a token's loss at position
+    t does not move with a token outside the local window when the global
+    layer is switched off (its output projection zeroed)."""
+    cfg = tconfigs.get_reduced("gemma2-27b")
+    assert num_superblocks(cfg) == cfg.num_layers // 2 == 1
+    model = build_model(cfg, device="cpu", seed=0)
+    with torch.no_grad():
+        model.stack["blocks"]["b1"]["attn"]["wo"].zero_()
+        model.stack["blocks"]["b1"]["mlp"]["w_down"].zero_()
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, SEQ))).long()
+    labels = torch.full_like(tokens, -1)
+    labels[0, SEQ - 1] = 7
+    base, _ = model.loss_fn({"tokens": tokens, "labels": labels})
+    far = tokens.clone()
+    far[0, SEQ - 1 - cfg.sliding_window] = (far[0, SEQ - 1 - cfg.sliding_window] + 1) % 512
+    near = tokens.clone()
+    near[0, SEQ - cfg.sliding_window] = (near[0, SEQ - cfg.sliding_window] + 1) % 512
+    assert torch.equal(model.loss_fn({"tokens": far, "labels": labels})[0], base)
+    assert not torch.equal(model.loss_fn({"tokens": near, "labels": labels})[0], base)
+
+
+@pytest.mark.parametrize("arch,layers", FULL)
+def test_full_config_plans_equal_reference(arch, layers):
+    """Built from ``meta`` tensors (nothing allocated) against the
+    reference's plan of its ``jax.eval_shape`` tree: leaf paths, order,
+    shapes and dtypes, every bucket's segments, the four phases' COVAP
+    bytes per worker at W=8, the parameter counts and MODEL_FLOPS."""
+    rcfg, cfg = _configs(arch, layers=layers)
+    shapes = jax.eval_shape(r_build_model(rcfg).init, jax.random.PRNGKey(0))
+    rplan = r_build_plan(shapes)
+    plan = build_plan(build_model(cfg, device="meta").named_leaves())
+    rpaths = [".".join(k.key for k in p)
+              for p, _ in jax.tree_util.tree_leaves_with_path(shapes)]
+    assert list(plan.leaf_paths) == rpaths
+    assert list(param_shapes(cfg)) == rpaths
+    assert plan.leaf_shapes == rplan.leaf_shapes
+    assert [str(d).removeprefix("torch.") for d in plan.leaf_dtypes] == \
+        [str(d) for d in rplan.leaf_dtypes]
+    assert plan.bucket_bytes_target == rplan.bucket_bytes_target
+    assert [[dataclasses.astuple(s) for s in b.segments] for b in plan.buckets] == \
+        [[dataclasses.astuple(s) for s in b.segments] for b in rplan.buckets]
+    assert [(b.numel, b.nbytes, b.origin) for b in plan.buckets] == \
+        [(b.numel, b.nbytes, b.origin) for b in rplan.buckets]
+    got = [get_compressor("covap", interval=4).plan_phase(plan, p, world=8)
+           .bytes_per_worker for p in range(4)]
+    want = [r_get_compressor("covap", interval=4).plan_phase(rplan, p, world=8)
+            .bytes_per_worker for p in range(4)]
+    assert got == want
+    if (arch, layers) in CUTS:
+        nb, ns, table = CUTS[(arch, layers)]
+        assert (plan.num_buckets, plan.num_segments, got) == (nb, ns, table)
+    for active in (False, True):
+        assert count_params(cfg, active_only=active) == \
+            r_count_params(rcfg, active_only=active)
+    assert cfg.param_count() == rcfg.param_count()
+    assert cfg.active_param_count() == rcfg.active_param_count()
+    assert model_flops(cfg, 8 * 1024) == r_model_flops(rcfg, 8 * 1024)
+    if cfg.is_moe:
+        assert count_params(cfg, active_only=True) < count_params(cfg)
+
+
+@pytest.mark.parametrize("arch,layers", FULL)
+def test_ready_order_and_first_use_on_the_new_plans(arch, layers):
+    """``ReadyOrder`` equals the reference's on the full-config plans, and
+    each bucket's first-use stage is its shallowest superblock row, the
+    head's the superblock count: the stage the decoder's last
+    ``before_layer`` call reaches (gemma2 has half as many as layers)."""
+    rcfg, cfg = _configs(arch, layers=layers)
+    shapes = jax.eval_shape(r_build_model(rcfg).init, jax.random.PRNGKey(0))
+    rplan = r_build_plan(shapes)
+    model = build_model(cfg, device="meta")
+    plan = build_plan(model.named_leaves())
+    want, got = r_build_ready_order(rplan), build_ready_order(plan)
+    assert (got.bucket_layer, got.ranks, got.num_layers) == \
+        (want.bucket_layer, want.ranks, want.num_layers)
+    n = model.num_stages
+    assert n == num_superblocks(cfg) == jax.tree_util.tree_leaves(
+        shapes["stack"]["blocks"])[0].shape[0]
+    stages = bucket_first_use(plan, n)
+    for b, stage in enumerate(stages):
+        rows = [s.row_lo for s in plan.buckets[b].segments
+                if plan.leaf_paths[s.leaf_idx].startswith("stack.blocks.")]
+        tail = any(plan.leaf_paths[s.leaf_idx].startswith(("head.", "stack.final_norm."))
+                   for s in plan.buckets[b].segments)
+        embed = any(plan.leaf_paths[s.leaf_idx].startswith("embed.")
+                    for s in plan.buckets[b].segments)
+        assert stage == (EMBED_STAGE if embed else min(rows + [n] if tail else rows))
+    # every stage is one the layer loop calls before_layer for
+    assert set(stages) <= set(range(EMBED_STAGE, n + 1))
+
+
+@pytest.mark.parametrize("model_axis", [1, 16])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-moe-16b", "grok-1-314b",
+                                  "gemma2-27b"])
+def test_build_param_specs_equals_reference(arch, model_axis):
+    """The MoE rule (expert-parallel on E when it divides, else the ff
+    dim) and the bias and router leaves, at full width."""
+    rcfg, cfg = _configs(arch)
+    want = r_build_param_specs(rcfg, r_build_model(rcfg).init, model_axis, "model")
+    flat = {".".join(str(k.key) for k in path): tuple(spec) for path, spec in
+            jax.tree_util.tree_leaves_with_path(
+                want, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))}
+    got = build_param_specs(cfg, model_axis, "model")
+    assert list(got) == list(flat)
+    assert got == flat
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["gpt2-paper"])
+def test_long_context_variant_equals_reference(arch):
+    rcfg, cfg = _configs(arch)
+    got, want = long_context_variant(cfg), r_long_context_variant(rcfg)
+    assert (got.sliding_window, got.local_global) == (want.sliding_window,
+                                                      want.local_global)
+    build_model(got, device="meta")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_plan_report_equals_reference(arch):
+    kw = dict(reduced=False, interval="auto", seq_len=1024, global_batch=8)
+    got, want = api.plan_report(arch, **kw), rapi.plan_report(arch, **kw)
+    assert got == want
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fit_returns_finite_losses(arch):
+    res = api.fit(arch, reduced=True, device="cpu", interval=2, steps=3,
+                  seq_len=16, global_batch=4)
+    assert len(res.history) >= 1 and res.state["step"] == 3
+    for h in res.history:
+        assert np.isfinite(h["loss"]) and np.isfinite(h["total_loss"])
+        assert (h["aux_loss"] > 0) == tconfigs.get_reduced(arch).is_moe
+
+
+@pytest.mark.parametrize("arch", tconfigs.list_archs(assigned_only=True))
+def test_cli_trains_each_arch_on_cpu(arch, capsys):
+    cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "4",
+              "--seq-len", "16", "--global-batch", "4", "--interval", "2",
+              "--log-every", "2"])
+    out = capsys.readouterr().out
+    for tag in (f"[model] {arch}", "step     2  loss", "step     4  loss",
+                "[done] step 4 (4 committed)"):
+        assert tag in out, out
+    done = next(line for line in out.splitlines() if line.startswith("[done]"))
+    assert ("aux_loss" in done) == tconfigs.get_reduced(arch).is_moe, done
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tune_equals_reference(arch):
+    """The analytic ranking at REDUCED: the same compressors in the same
+    order, the same planned bytes, the modelled speedups to 1e-9."""
+    kw = dict(reduced=True, dp_workers=8)
+    want, got = rapi.tune(arch, **kw), api.tune(arch, **kw)
+    assert [r["compressor"] for r in got] == [r["compressor"] for r in want]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in ("mean_bytes_per_step", "volume_ratio", "num_phases", "analytic_ccr"):
+            assert g[k] == w[k], (g["compressor"], k)
+        for k in ("speedup", "overlap_frac_modeled", "pack_overhead_us"):
+            assert g[k] == pytest.approx(w[k], rel=1e-9, abs=0), (g["compressor"], k)

@@ -1,0 +1,156 @@
+"""The port's ``Trainer.run`` on the new families' REDUCED configs: COVAP
+I=4 with AdamW over a full cycle plus one step against
+``repro.train.Trainer.run`` (qwen1.5-0.5b, gemma2-27b, deepseek-moe-16b),
+the arena, sharded and fused forms against the port's own post path bit
+for bit, and a leaf outside the loss."""
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import repro.configs as rconfigs
+from repro.data import DataConfig as RDataConfig
+from repro.data import make_loader as r_make_loader
+from repro.models import build_model as r_build_model
+from repro.optim import adamw as r_adamw
+from repro.optim import cosine_warmup as r_cosine_warmup
+from repro.train.trainer import TrainConfig as RTrainConfig
+from repro.train.trainer import Trainer as RTrainer
+
+import repro_torch.configs as tconfigs
+from repro_torch.data import DataConfig, make_loader
+from repro_torch.interop import params_from_jax
+from repro_torch.models import build_model
+from repro_torch.optim import adamw, cosine_warmup
+from repro_torch.train import TrainConfig, Trainer, loss_and_grads
+
+torch.set_num_threads(2)
+
+STEPS = 5                       # a full COVAP cycle (I = 4) + 1
+TC = dict(compressor="covap", interval=4, bucket_bytes=1 << 14, max_buckets=32,
+          log_every=1, steps=STEPS)
+DATA = dict(vocab_size=512, seq_len=32, global_batch=4, corpus_tokens=1 << 14)
+LR = 1e-3
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _reference(rcfg, opt, steps=STEPS, **tc):
+    tr = RTrainer(r_build_model(rcfg), opt, RTrainConfig(**dict(TC, steps=steps, **tc)))
+    state = tr.init_state(jax.random.PRNGKey(0))
+    init = jax.tree.map(np.asarray, state["params"])
+    state = tr.run(state, iter(r_make_loader(RDataConfig(**DATA))), log=None)
+    return init, tr, state
+
+
+def _port(cfg, init, opt, steps=STEPS, group=None, **tc):
+    model = build_model(cfg, device="cpu")
+    if init is not None:
+        model.load_state_dict(params_from_jax(init, device="cpu"))
+    tr = Trainer(model, opt, TrainConfig(**dict(TC, steps=steps, **tc)), group=group)
+    state = tr.run(tr.init_state(), make_loader(DataConfig(**DATA), device="cpu"),
+                   log=None)
+    return tr, state
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-27b", "deepseek-moe-16b"])
+def test_trainer_adamw_matches_reference(arch):
+    """The tolerances of ``tests/test_torch_trainer.py``'s AdamW run:
+    losses at rtol 1e-5, params and residuals at rtol 1e-4 and ``atol = 2
+    * lr * steps`` (Adam turns an ulp of a near-zero gradient into an
+    lr-sized step), and 99.9% of param elements at rtol 1e-4, atol 1e-6."""
+    init, rtr, rstate = _reference(rconfigs.get_reduced(arch),
+                                   r_adamw(r_cosine_warmup(LR, 1, STEPS)))
+    tr, state = _port(tconfigs.get_reduced(arch), init,
+                      adamw(cosine_warmup(LR, 1, STEPS)))
+    assert state["step"] == rstate["step"] == STEPS
+    assert tr.schedule_report() == rtr.schedule_report()
+    for key in ("loss", "aux_loss", "total_loss"):
+        np.testing.assert_allclose([h[key] for h in tr.history],
+                                   [h[key] for h in rtr.history], rtol=1e-5,
+                                   atol=1e-7, err_msg=key)
+    rparams, rresid = _flat(rstate["params"]), _flat(rstate["comp"])
+    close = total = 0
+    for (path, _), p, r in zip(tr.model.named_leaves(), state["params"], state["comp"]):
+        np.testing.assert_allclose(p.detach().numpy(), rparams[path], rtol=1e-4,
+                                   atol=2 * LR * STEPS, err_msg=path)
+        np.testing.assert_allclose(r.numpy(), rresid[path], rtol=1e-4,
+                                   atol=2 * LR * STEPS, err_msg=path)
+        ok = np.isclose(p.detach().numpy(), rparams[path], rtol=1e-4, atol=1e-6)
+        close += int(ok.sum())
+        total += ok.size
+    assert close / total > 0.999
+
+
+@pytest.fixture
+def one_rank_gloo(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+FORMS = {"arena": dict(arena=True), "sharded": dict(sync="sharded"),
+         "fused": dict(overlap="fused"),
+         "fused-sharded-arena": dict(overlap="fused", sync="sharded", arena=True)}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "gemma2-27b"])
+def test_forms_equal_post_bitwise(arch, form, one_rank_gloo):
+    """Each form against the post path over a full cycle plus one step, in
+    a one-rank gloo group (sharded sync's head all-gather runs and settles
+    each bucket at its superblock; gemma2's one superblock holds two
+    layers): losses, params, Adam moments and residuals by ``torch.equal``."""
+    cfg = tconfigs.get_reduced(arch)
+    runs = {}
+    for name, opts in (("post", {}), (form, FORMS[form])):
+        tr, state = _port(cfg.with_(remat=True) if "fused" in name else cfg, None,
+                          adamw(cosine_warmup(LR, 1, STEPS)), group=one_rank_gloo,
+                          **opts)
+        runs[name] = (tr, state)
+    (tp, sp), (tf, sf) = runs["post"], runs[form]
+    assert [h["total_loss"] for h in tf.history] == [h["total_loss"] for h in tp.history]
+    for part in ("params", "comp"):
+        for a, b in zip(sf[part], sp[part]):
+            assert torch.equal(a, b), part
+    for key in ("m", "v"):
+        for a, b in zip(sf["opt"][key], sp["opt"][key]):
+            assert torch.equal(a, b), key
+    if "sharded" in form:
+        layers = [i for kind, i in tf.gather_events if kind == "layer"]
+        assert layers == list(range(tf.model.num_stages + 1))
+
+
+class _TwoLeaves:
+    """A model whose loss reads only its first leaf."""
+
+    def __init__(self):
+        self.a = torch.nn.Parameter(torch.ones(3))
+        self.b = torch.nn.Parameter(torch.ones(2, dtype=torch.bfloat16))
+
+    def loss_fn(self, batch, before_layer=None):
+        total = torch.sum(self.a * batch["x"])
+        return total, {"loss": total}
+
+
+def test_loss_and_grads_gives_zeros_for_an_unreached_leaf():
+    """As ``jax.grad`` does: a zero gradient of the leaf's shape and dtype,
+    not ``None``."""
+    m = _TwoLeaves()
+    grads, metrics = loss_and_grads(m, [m.a, m.b], {"x": torch.arange(3.0)})
+    assert torch.equal(grads[0], torch.arange(3.0))
+    assert grads[1].dtype == torch.bfloat16 and torch.equal(grads[1], torch.zeros(2, dtype=torch.bfloat16))
+    assert m.a.grad is None and m.b.grad is None
+    assert float(metrics["total_loss"]) == 3.0

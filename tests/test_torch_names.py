@@ -49,12 +49,12 @@ def test_long_context_variant_and_input_shapes_equal_reference():
     cfg, rcfg = configs.get_config("gpt2-paper"), rconfigs.get_config("gpt2-paper")
     assert models.long_context_variant(cfg).sliding_window == \
         rmodels.long_context_variant(rcfg).sliding_window == 8192
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        models.build_model(models.long_context_variant(cfg), device="meta")
+    # the port's attention has the sliding window: the variant builds
+    models.build_model(models.long_context_variant(cfg), device="meta")
     assert {k: tuple(vars(v).values()) for k, v in configs.INPUT_SHAPES.items()} == \
         {k: tuple(vars(v).values()) for k, v in rconfigs.INPUT_SHAPES.items()}
     assert models.InputShape is configs.InputShape
-    assert configs.list_archs() == ["gpt2-paper"]
+    assert "gpt2-paper" in configs.list_archs()
     assert set(configs.list_archs()) <= set(rconfigs.list_archs())
 
 

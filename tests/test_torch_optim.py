@@ -114,3 +114,41 @@ def test_update_matches_the_reference(step):
     for got, want in zip(upd + new["m"] + new["v"],
                          list(r_upd) + list(r_new["m"]) + list(r_new["v"])):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
+
+
+# one bfloat16 ulp at the bottom of a binade, relative: a moment rounded to
+# bfloat16 may land one ulp apart where the reference's jit contracts an FMA
+BF16_RTOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("param_dtype,moment_dtype", [
+    ("bfloat16", None),          # the bf16 archs' default: bf16 moments
+    ("float32", "bfloat16"),
+    ("bfloat16", "float32"),
+])
+def test_moment_dtype_matches_the_reference(param_dtype, moment_dtype):
+    """``adamw(moment_dtype=)``: the moments are kept in that dtype (by
+    default the parameter's), the update computed in float32, as
+    ``repro.optim.adamw`` does; two updates against it on the same
+    inputs."""
+    g, _, _, p = _state(5, 1)
+    pdt = getattr(torch, param_dtype)
+    params = [torch.from_numpy(x).to(pdt) for x in p]
+    r_opt = r_adamw(3e-4, weight_decay=0.01, moment_dtype=moment_dtype)
+    opt = adamw(3e-4, weight_decay=0.01, moment_dtype=moment_dtype)
+    r_params = [jnp.asarray(x.float().numpy()).astype(param_dtype) for x in params]
+    r_state, state = r_opt.init(r_params), opt.init(params)
+    mdt = getattr(torch, moment_dtype or param_dtype)
+    assert all(m.dtype == mdt for m in state["m"] + state["v"])
+    assert all(str(m.dtype) == (moment_dtype or param_dtype)
+               for m in list(r_state["m"]) + list(r_state["v"]))
+    for step in range(2):
+        grads = [np.asarray(x * (step + 1), dtype=np.float32) for x in g]
+        r_upd, r_state = r_opt.update(list(map(jnp.asarray, grads)), r_state, r_params)
+        upd, state = opt.update(list(map(torch.from_numpy, grads)), state, params)
+        assert all(m.dtype == mdt for m in state["m"] + state["v"])
+        for got, want in zip(upd + state["m"] + state["v"],
+                             list(r_upd) + list(r_state["m"]) + list(r_state["v"])):
+            np.testing.assert_allclose(got.float().numpy(),
+                                       np.asarray(want).astype(np.float32),
+                                       rtol=BF16_RTOL, atol=1e-7)

@@ -311,11 +311,12 @@ def _todays_loss(model, batch):
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=x.device)
     blocks = model.stack["blocks"]["b0"]
     for i in range(cfg.num_layers):
+        # a dense block: full attention (window 0), no aux loss
         if cfg.remat:
             x = checkpoint(lambda x_, i_=i: transformer._attn_block_train(
-                transformer._layer(blocks, i_), x_, cfg), x, use_reentrant=False)
+                transformer._layer(blocks, i_), x_, cfg, 0)[0], x, use_reentrant=False)
         else:
-            x = transformer._attn_block_train(transformer._layer(blocks, i), x, cfg)
+            x = transformer._attn_block_train(transformer._layer(blocks, i), x, cfg, 0)[0]
     x = rmsnorm(model.stack["final_norm"], x, cfg.norm_eps)
     return _xent_chunked(model.head["w"], x, batch["labels"], cfg)
 
