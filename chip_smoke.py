@@ -155,13 +155,37 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            ``ef_update`` 0: the EF kernel takes f32 operands; a falling
            loss), 3 steps each; each run's state bytes, COVAP bytes per
            worker at W=8, step ms, tok/s and peak memory
+  serve    serving at full width (after ``[families]``, before ``[overlap]``;
+           ``SERVE_CONFIG``: 8 slots, max_len 1024, page 16, prefill chunk
+           16, 64 new tokens): gpt2-paper with a bf16 KV cache, then with
+           ``kv_cache_dtype="int8"``.  Each first holds paged == dense bit
+           for bit: 8 requests (the first 8 prompts, cut to 32 tokens)
+           admitted at once beside a dense batch-8 cache built from their
+           own batch-1 ``ChunkedPrefill`` caches; the prefill logits, 4
+           generate steps' logits against ``decode_step`` on the dense cache,
+           and after each step the ``gather_caches`` of the arena against it;
+           one more generate call under ``set_sync_debug_mode("error")`` (no
+           host synchronisation), and a generate call's and a prefill
+           token's device ms beside their host ms.  Then 16 requests of
+           16-128 prompt tokens (numpy seed 0) to completion: the arena
+           (pages x page bytes, planes), ``prefill_tok_us``,
+           ``generate_tok_us``, ``insert_us``, tok/s, engine steps, finish
+           reasons, peak GiB and wall s, and the int8 arena's bytes beside
+           the bf16 one's; a ``page_starve`` run (``starve_pages`` holds the
+           whole real pool, the head is shed after ``starve_patience``
+           ticks, ``release_pages``, a request runs again); qwen1.5-0.5b at
+           its full config (24 L, q/k/v biases; 4 requests of 16-64 tokens,
+           32 new); ``python -m repro_torch.launch.serve --full --arch
+           gpt2-paper`` in a subprocess.  No kernel launches in the phase
   small    REDUCED gpt2-paper trained 5 steps on the card and on the CPU
            from the same parameters and batches, on the defaults, with
            ``arena=True`` and with ``powersgd`` (the CPU run is the path the
            tests hold against the JAX reference); then the six families'
            REDUCED configs and grok-1-314b's with bf16 parameters (an f32
            router in bf16 buckets) on the defaults, the bf16 one at 2 bf16
-           ulps
+           ulps; last, the seven archs' REDUCED configs served on the card
+           and on the CPU (``SMALL_SERVE_*``): the same tokens, finish
+           reasons and page tables, logits within 1e-4
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -182,6 +206,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM device-memory rate (NVIDIA data sheet)
@@ -303,11 +328,13 @@ def lowrank_leaves(plan) -> list[int]:
     return [i for i, s in enumerate(plan.leaf_shapes) if len(s) >= 2]
 
 
-def device_timed(fn, reps: int = 25, warmup: int = 3) -> float:
+def device_timed(fn, reps: int = 25, warmup: int = 3,
+                 sleep_cycles: int = 20_000_000) -> float:
     """Median device milliseconds of ``fn()`` over ``reps`` runs (CUDA
-    events).  A sleep kernel ahead of the start event keeps the stream busy
-    while the host enqueues ``fn``'s launches, so the events time the
-    launches back to back and not the Python that issues them."""
+    events).  A sleep kernel of ``sleep_cycles`` ahead of the start event
+    keeps the stream busy while the host enqueues ``fn``'s launches, so the
+    events time the launches back to back and not the Python that issues
+    them (while the sleep outlasts the enqueue)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -315,7 +342,7 @@ def device_timed(fn, reps: int = 25, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
         end.record()
@@ -2787,6 +2814,325 @@ def phase_small_families() -> None:
               flush=True)
 
 
+# [serve]: continuous batching at full width (no kernel lies on this path)
+SERVE_CONFIG = dict(batch_slots=8, max_len=1024, page_size=16, prefill_chunk=16,
+                    max_new_tokens=64)
+SERVE_CHECK_STEPS = 3
+SERVE_CHECK_PROMPT = 32          # the paged == dense check's prompts: at most 2 pages
+SERVE_SLEEP_CYCLES = 100_000_000  # outlasts the enqueue of a full-width decode step
+SMALL_SERVE_PROMPTS = [[5, 17, 3, 9], [88, 2], [1, 1, 1, 1, 1, 1, 1], [4, 40, 14]]
+SMALL_SERVE_CONFIG = dict(batch_slots=3, max_len=48, max_new_tokens=4, page_size=8,
+                          prefill_chunk=4)
+SMALL_SERVE_ATOL = 1e-4   # REDUCED logits, f32, card against the CPU
+
+
+def serve_prompts(n: int, lo: int, hi: int, vocab: int, seed: int = 0) -> list[list[int]]:
+    """``n`` prompts of ``lo``-``hi`` tokens from numpy's ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
+            for _ in range(n)]
+
+
+def recording_sampler(log: list):
+    """A greedy sampler that also appends every logits tensor it samples."""
+    from repro_torch.serve import greedy_sample
+
+    def sample(logits, generator=None, temperature=0.0):
+        log.append(logits)
+        return greedy_sample(logits, generator, temperature)
+
+    return sample
+
+
+def serve_paged_equals_dense(model, prompts: list[list[int]], label: str) -> None:
+    """All ``batch_slots`` slots admitted at once, then ``SERVE_CHECK_STEPS``
+    generate steps, beside a dense batch-8 cache built from the same
+    prefills (each request's own batch-1 ``ChunkedPrefill``, concatenated
+    on the batch axis) and stepped with ``decode_step``: the prefill
+    logits, every generate step's logits and, after each step, the caches
+    ``gather_caches`` reads through the page tables equal the dense ones,
+    bit for bit."""
+    from repro_torch.serve import ChunkedPrefill, Engine, ServeConfig, gather_caches
+    from repro_torch.serve.kv_arena import tree_flatten, tree_unflatten
+
+    sc = ServeConfig(**SERVE_CONFIG)
+    log: list = []
+    eng = Engine(model, None, sc, sample=recording_sampler(log))
+    check(len(prompts) == sc.batch_slots, f"[serve] {label}: {len(prompts)} prompts")
+    prefill = ChunkedPrefill(model, sc.prefill_chunk)
+    want_logits, parts = [], []
+    for p in prompts:
+        logits, pc, _ = prefill(None, model.init_caches(1, eng.layout.tokens), p)
+        want_logits.append(logits)
+        parts.append(tree_flatten(pc))
+    paths = parts[0][1]
+    dense = tree_unflatten(paths, [torch.cat(leaves, dim=1)
+                                   for leaves in zip(*(v for v, _ in parts))])
+    for p in prompts:
+        eng.submit(p)
+    tokens = torch.tensor([[int(torch.argmax(l[0, 0]))] for l in want_logits], device="cuda")
+    pos = torch.tensor([len(p) for p in prompts], device="cuda")
+    for step in range(1 + SERVE_CHECK_STEPS):
+        if step:
+            tokens = torch.tensor([[s.tokens[-1]] for s in eng.sched.slots], device="cuda")
+            pos = torch.tensor([s.pos for s in eng.sched.slots], device="cuda")
+        check(len(eng.sched.active_slots) == len(prompts) or not step,
+              f"[serve] {label}: {len(eng.sched.active_slots)} active slots")
+        want, dense = model.decode_step(None, dense, {"tokens": tokens, "pos": pos})
+        eng.step()
+        if step == 0:
+            prefills, log[:] = log[:len(prompts)], log[len(prompts):]
+            check(all(torch.equal(a, b) for a, b in zip(prefills, want_logits)),
+                  f"[serve] {label}: the engine's prefill logits differ from ChunkedPrefill's")
+        check(len(log) == 1 and torch.equal(log.pop(), want),
+              f"[serve] {label}: generate step {step} logits differ from decode_step "
+              f"on the dense cache")
+        got = gather_caches(eng.layout, eng.arena.planes, *eng.arena.device_tables())
+        for a, b, path in zip(tree_flatten(got)[0], tree_flatten(dense)[0], paths):
+            check(torch.equal(a, b), f"[serve] {label}: gathered {'/'.join(path)} "
+                  f"differs from the dense cache after generate step {step}")
+    check(all(not plane[-1].any() for plane in eng.arena.planes),
+          f"[serve] {label}: the null row is not zero")
+    # one more generate call, its inputs' transfer included, under CUDA's
+    # sync debug mode: any host synchronisation in it raises (the step's
+    # one read, the sampled tokens, comes after it)
+    active = eng.sched.active_slots
+    check(all(eng.arena.page_for(s.index, s.pos) for s in active),
+          f"[serve] {label}: no page for the next position")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = eng._generate(None, eng.arena.planes, *eng._step_inputs(active))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(logits).all()), f"[serve] {label}: nonfinite logits")
+    # where a token's time goes: device ms (launches back to back behind a
+    # sleep longer than their enqueue) against host ms of the same call
+    inputs = eng._step_inputs(active)
+    one = model.init_caches(1, eng.layout.tokens)
+    tok1 = {"tokens": torch.zeros((1, 1), dtype=torch.long, device="cuda"),
+            "pos": torch.zeros((1,), dtype=torch.long, device="cuda")}
+    times = {}
+    for what, fn in (("generate", lambda: eng._generate(None, eng.arena.planes, *inputs)),
+                     ("prefill token", lambda: model.decode_step(None, one, tok1))):
+        times[what] = (device_timed(fn, reps=10, warmup=2, sleep_cycles=SERVE_SLEEP_CYCLES),
+                       wall_timed(fn, reps=10, warmup=2))
+    print(f"[serve] {label}: paged == dense bit for bit: {len(prompts)} prefills' "
+          f"logits, {1 + SERVE_CHECK_STEPS} generate steps' logits and the gathered "
+          f"caches ({', '.join('/'.join(p) for p in paths)}) after each, all "
+          f"{len(prompts)} slots active; a generate call under "
+          f"set_sync_debug_mode('error') made no host synchronisation", flush=True)
+    print(f"[serve] {label}: " + "; ".join(
+        f"a {what} call device {d:.3f} ms, host {w:.3f} ms (device busy {d / w:.1%})"
+        for what, (d, w) in times.items()), flush=True)
+    del eng, dense, got, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_run(model, prompts: list[list[int]], sc, label: str, smi: str):
+    """Serve ``prompts`` (all submitted at once) to completion; print the
+    arena, the stage unit costs, tok/s, engine steps, finish reasons, peak
+    memory and wall seconds.  A short warm-up request runs first on the
+    same engine (reset after).  -> (engine, its metrics)."""
+    from repro_torch.serve import Engine
+
+    eng = Engine(model, None, sc)
+    eng.submit(prompts[0][:8])
+    eng.run_until_done()
+    eng.reset()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rids = [eng.submit(p) for p in prompts]
+    t0 = time.perf_counter()
+    steps = 0
+    while eng.busy:
+        eng.step()
+        steps += 1
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = eng.results
+    check(sorted(res) == sorted(rids), f"[serve] {label}: lost requests")
+    new = sum(len(res[r].tokens) for r in rids)
+    reasons: dict[str, int] = {}
+    for r in rids:
+        reasons[res[r].finish_reason] = reasons.get(res[r].finish_reason, 0) + 1
+    check(reasons == {"length": len(rids)} and new == len(rids) * sc.max_new_tokens,
+          f"[serve] {label}: finish reasons {reasons}, {new} tokens")
+    check(all(0 <= t < model.cfg.vocab_size for r in rids for t in res[r].tokens),
+          f"[serve] {label}: a token outside the vocab")
+    m = eng.metrics()
+    st = eng.stats
+    lay = eng.layout
+    print(f"[serve] {label}: {smi}; arena {eng.arena.num_pages} pages x "
+          f"{lay.page_bytes()} B = {eng.arena.nbytes()} B, planes "
+          f"{list(lay.plane_dtypes)}; {len(rids)} requests, prompts "
+          f"{min(len(p) for p in prompts)}-{max(len(p) for p in prompts)} tokens "
+          f"({st['prefill_tokens']} in all, {st['prefill_calls']} prefill calls), "
+          f"{new} generated in {steps} engine steps ({st['generate_calls']} generate "
+          f"calls); prefill_tok_us {m['prefill_tok_us']:.1f}, generate_tok_us "
+          f"{m['generate_tok_us']:.1f}, insert_us {m['insert_us']:.1f}; "
+          f"{new / wall:.1f} tok/s; finish reasons {reasons}; peak {peak:.2f} GiB; "
+          f"wall {wall:.2f} s", flush=True)
+    return eng, dict(m, tok_s=new / wall, peak_gib=peak, wall_s=wall, steps=steps,
+                     arena_bytes=eng.arena.nbytes())
+
+
+def serve_starve(model, prompt: list[int]) -> None:
+    """A ``page_starve`` fault on the engine's real ``PagePool``:
+    ``resilience.starve_pages`` holds every page, the queued request is
+    shed after ``starve_patience`` ticks, ``release_pages`` gives the pool
+    back and the next request runs to its length."""
+    from repro_torch.resilience import release_pages, starve_pages
+    from repro_torch.serve import Engine, ServeConfig
+
+    patience = 3
+    eng = Engine(model, None, ServeConfig(**dict(SERVE_CONFIG, max_new_tokens=4,
+                                                 starve_patience=patience)))
+    held = starve_pages(eng.arena.pool)
+    check(len(held) == eng.arena.num_pages and eng.arena.pool.available == 0,
+          f"[serve] starve: held {len(held)} of {eng.arena.num_pages} pages")
+    rid = eng.submit(prompt)
+    ticks = 0
+    while rid not in eng.results:
+        eng.step()
+        ticks += 1
+    comp = eng.results[rid]
+    check(comp.finish_reason == "rejected" and comp.tokens == []
+          and ticks == patience + 1 and eng.stats["starved_shed"] == 1,
+          f"[serve] starve: {comp.finish_reason} after {ticks} ticks, "
+          f"{eng.stats['starved_shed']} shed")
+    release_pages(eng.arena.pool, held)
+    rid2 = eng.submit(prompt)
+    comp2 = eng.run_until_done()[rid2]
+    check(comp2.finish_reason == "length" and len(comp2.tokens) == 4
+          and eng.arena.pool.available == eng.arena.num_pages,
+          f"[serve] starve: after the release {comp2.finish_reason}, "
+          f"{len(comp2.tokens)} tokens, {eng.arena.pool.available} pages free")
+    print(f"[serve] page_starve: starve_pages held all {len(held)} pages of the real "
+          f"PagePool; the queued request was shed as rejected after {ticks} ticks "
+          f"(starve_patience {patience}); release_pages, then a request ran to "
+          f"length ({comp2.tokens})", flush=True)
+
+
+def serve_cli() -> None:
+    """``python -m repro_torch.launch.serve --full --arch gpt2-paper`` (its
+    defaults: 8 requests, 4 slots, max_len 128) in a subprocess on the
+    card."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--full",
+                        "--arch", "gpt2-paper"], capture_output=True, text=True,
+                       env=env, cwd=ROOT, timeout=600)
+    secs = time.perf_counter() - t0
+    check(r.returncode == 0, f"[serve] the CLI exited {r.returncode}: "
+          f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    lines = [l for l in r.stdout.splitlines() if l.startswith("[serve]")]
+    check(len(lines) == 3 and lines[0].startswith("[serve] arena: 32 pages x 589824 B")
+          and "8 requests" in lines[1] and r.stdout.count("[length]") == 4,
+          f"[serve] the CLI printed {r.stdout[-2000:]}")
+    print(f"[serve] CLI --full --arch gpt2-paper on the card: {' | '.join(lines)}; "
+          f"the command took {secs:.1f} s", flush=True)
+
+
+def phase_serve(smi: str) -> None:
+    """Serving at full width (``SERVE_CONFIG``: 8 slots, max_len 1024, page
+    16, prefill chunk 16, 64 new tokens): gpt2-paper with a bf16 KV cache
+    and with ``kv_cache_dtype="int8"`` (paged == dense bit for bit, then 16
+    requests of 16-128 prompt tokens from numpy seed 0), qwen1.5-0.5b at
+    its full config (4 requests of 16-64), a ``page_starve`` run and the
+    CLI; no kernel launches on the way."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig
+
+    counters = kernel_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gpt2-paper")
+    model = build_model(cfg, device="cuda", seed=0)
+    prompts = serve_prompts(16, 16, 128, cfg.vocab_size)
+    check_prompts = [p[:SERVE_CHECK_PROMPT] for p in prompts[:8]]
+    serve_paged_equals_dense(model, check_prompts, "gpt2-paper bf16 KV")
+    _, bf16 = serve_run(model, prompts, ServeConfig(**SERVE_CONFIG), "gpt2-paper bf16 KV",
+                        smi)
+    q = build_model(cfg.with_(kv_cache_dtype="int8"), device="cuda", seed=0)
+    del model
+    serve_paged_equals_dense(q, check_prompts, "gpt2-paper int8 KV")
+    _, int8 = serve_run(q, prompts, ServeConfig(**SERVE_CONFIG), "gpt2-paper int8 KV", smi)
+    print(f"[serve] int8 KV arena {int8['arena_bytes']} B beside bf16's "
+          f"{bf16['arena_bytes']} B ({int8['arena_bytes'] / bf16['arena_bytes']:.4f}x)",
+          flush=True)
+    serve_starve(q, prompts[0])
+    del q
+    gc.collect()
+    torch.cuda.empty_cache()
+    qcfg = get_config("qwen1.5-0.5b")
+    qwen = build_model(qcfg, device="cuda", seed=0)
+    serve_run(qwen, serve_prompts(4, 16, 64, qcfg.vocab_size),
+              ServeConfig(**dict(SERVE_CONFIG, max_new_tokens=32)), "qwen1.5-0.5b full", smi)
+    del qwen
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_cli()
+    counts = {k: f.launches - before[k] for k, f in counters.items()}
+    check(counts == launch_counts(), f"[serve] kernel launches {counts}: no kernel "
+          f"lies on the serving path")
+    print(f"[serve] phase {time.perf_counter() - t0:.1f} s; kernel launches {counts}",
+          flush=True)
+
+
+def phase_serve_small() -> None:
+    """The seven archs' REDUCED configs served on the card and on the CPU
+    from the same parameters and prompts (``SMALL_SERVE_*``; MoE at the
+    drop-free capacity ``cf = E``): the same tokens, finish reasons and
+    page tables, every sampled logits row within ``SMALL_SERVE_ATOL``."""
+    from repro_torch.configs import get_reduced, list_archs
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    worst = {}
+    for arch in list_archs():
+        cfg = get_reduced(arch)
+        if cfg.num_experts:
+            cfg = cfg.with_(moe_capacity_factor=float(cfg.num_experts))
+        init = build_model(cfg, device="cpu", seed=3).state_dict()
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, device=dev)
+            model.load_state_dict(init)
+            log: list = []
+            eng = Engine(model, None, ServeConfig(**SMALL_SERVE_CONFIG),
+                         sample=recording_sampler(log))
+            rids = [eng.submit(p) for p in SMALL_SERVE_PROMPTS]
+            tables = []
+            while eng.busy:
+                eng.step()
+                tables.append(eng.arena.page_tbl.copy())
+            res = eng.run_until_done()
+            out[dev] = ([(res[r].tokens, res[r].finish_reason) for r in rids],
+                        [l.float().cpu() for l in log], tables)
+        (c_tok, c_log, c_tab), (g_tok, g_log, g_tab) = out["cpu"], out["cuda"]
+        check(g_tok == c_tok, f"[small] serve {arch}: cuda {g_tok} vs cpu {c_tok}")
+        check(len(g_tab) == len(c_tab) and all(np.array_equal(a, b)
+                                               for a, b in zip(g_tab, c_tab)),
+              f"[small] serve {arch}: page tables differ")
+        check(len(g_log) == len(c_log), f"[small] serve {arch}: sampler calls")
+        worst[arch] = max(abs_err(a, b) for a, b in zip(g_log, c_log))
+        check(worst[arch] <= SMALL_SERVE_ATOL,
+              f"[small] serve {arch}: logits max |diff| {worst[arch]:.3g}")
+    print(f"[small] serve: the seven REDUCED archs on the card == the CPU in tokens, "
+          f"finish reasons and page tables; logits max |diff| (atol "
+          f"{SMALL_SERVE_ATOL:g}) {json.dumps({a: float(f'{w:.3g}') for a, w in worst.items()})}",
+          flush=True)
+
+
 def main() -> int:
     _, smi = phase_device()
     import torch.distributed as dist
@@ -2919,6 +3265,7 @@ def main() -> int:
         for label, n in phase_families(group, smi).items():
             rec = records[1] if "arena" in label else records[0]
             rec["launches_by_run"][f"families {label}"] = n
+        phase_serve(smi)
         # last, since the steps that follow a profiled one run slower: a
         # fresh fused run, then one profiled post and fused step
         tr, state, loader, launches = phase_train(
@@ -2932,6 +3279,7 @@ def main() -> int:
         dist.destroy_process_group()
     phase_small()
     phase_small_families()
+    phase_serve_small()
     idle = [r["name"] for r in records if r.get("path", "") is not None
             and not r["launches"]]
     check(not idle, f"kernels never launched on their path: {idle}")

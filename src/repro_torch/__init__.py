@@ -2,7 +2,7 @@
 
 The package mirrors the JAX package's module names (``api``,
 ``checkpoint``, ``configs``, ``data``, ``kernels``, ``models``, ``obs``, ``optim``,
-``core``, ``runtime``, ``train``, ``launch``) so that each module has an obvious counterpart.  It imports neither JAX nor
+``core``, ``runtime``, ``serve``, ``train``, ``launch``) so that each module has an obvious counterpart.  It imports neither JAX nor
 the JAX package.  Entry points run on the GPU (``device="cuda"``) unless
 the caller passes ``device="cpu"``; they never fall back on their own.
 
@@ -28,6 +28,7 @@ _SUBMODULES = (
     "obs",
     "optim",
     "runtime",
+    "serve",
     "train",
 )
 

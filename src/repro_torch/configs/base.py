@@ -1,8 +1,8 @@
 """Architecture config schema: the fields the dense and MoE decoders read,
-with the same defaults as ``repro.configs.base.ArchConfig``, and the named
-input shapes (``INPUT_SHAPES``).  The serving field (``kv_cache_dtype``)
-and the SSM, encoder-decoder and modality fields are not carried: their
-families are not ported."""
+with the same defaults as ``repro.configs.base.ArchConfig`` (the serving
+field ``kv_cache_dtype`` included), and the named input shapes
+(``INPUT_SHAPES``).  The SSM, encoder-decoder and modality fields are not
+carried: their families are not ported."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,6 +43,7 @@ class ArchConfig:
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    kv_cache_dtype: str = ""         # "" = compute_dtype; "int8" = quantized
     remat: bool = True
     xent_chunk: int = 512            # sequence chunk for the softmax-xent loss
     attn_chunk: int = 256            # q-chunk for the streaming attention

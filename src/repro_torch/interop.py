@@ -7,7 +7,10 @@ the port's ``{dotted path: tensor}`` state dict, which
 ``DecoderLM.load_state_dict`` takes; :func:`params_to_numpy` is its inverse.
 :func:`compressor_state_from_jax` carries a leaf-granularity compressor's
 state (PowerSGD's ``{"q": [...], "residual": [...]}``) over the same way.
-None imports JAX: the caller converts arrays with ``numpy.asarray``.
+:func:`caches_from_jax` and :func:`caches_to_numpy` carry serving state
+both ways — cache trees and arena planes, bf16 and int8 leaves included —
+keeping its nesting.  None imports JAX: the caller converts arrays with
+``numpy.asarray``.
 """
 from __future__ import annotations
 
@@ -72,3 +75,35 @@ def compressor_state_from_jax(state: Mapping[str, Any], *, device="cuda"
         for key, values in state.items()
     }
 
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def caches_from_jax(tree, *, device="cuda"):
+    """A cache tree or a list of arena planes with numpy leaves (bf16 as
+    ``ml_dtypes.bfloat16``, as ``numpy.asarray`` gives them from JAX) ->
+    the same nesting with tensors on ``device``."""
+    dev = resolve_device(device)
+    return _map_tree(lambda v: _tensor(v).to(dev), tree)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16, as JAX returns it; installed with JAX
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def caches_to_numpy(tree):
+    """The port's cache tree or arena planes -> the same nesting with numpy
+    arrays, bf16 leaves as ``ml_dtypes.bfloat16`` (what the reference's
+    ``jnp.asarray`` takes)."""
+    return _map_tree(_array, tree)

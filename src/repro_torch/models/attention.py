@@ -1,8 +1,15 @@
-"""Causal self-attention with RoPE, q-chunked, with an f32 softmax — the
-training path of ``repro.models.attention.attn_train``: MHA/GQA/MQA, the
-optional q/k/v biases (``qkv_bias``), the attention-logit softcap
-(``attn_softcap``) and a sliding window.  No KV cache: decode waits for
-serving."""
+"""Causal self-attention with RoPE and an f32 softmax — the counterpart of
+``repro.models.attention``: MHA/GQA/MQA, the optional q/k/v biases
+(``qkv_bias``), the attention-logit softcap (``attn_softcap``) and a
+sliding window, on two paths:
+
+* training and prefill (``attn_train``): the whole sequence, q-chunked;
+* decode (``attn_decode``): one token per slot against a KV cache, linear
+  in ``max_len``, or rolling (slot ``pos % T``) for a windowed layer, so
+  its state is O(window).  ``kv_cache_dtype="int8"`` stores keys and
+  values quantised per (slot, position, head) with a bf16 scale.
+
+The decode step writes the new token's row into the cache in place."""
 from __future__ import annotations
 
 import torch
@@ -32,7 +39,8 @@ def _qkv(params, x, cfg):
 
 
 def _scores_softmax_value(q, k, v, mask, cfg):
-    """q: (B,Sq,K,G,hd)  k/v: (B,T,K,hd)  mask: (Sq,T) bool.
+    """q: (B,Sq,K,G,hd)  k/v: (B,T,K,hd)  mask: bool, broadcast against the
+    (B,K,G,Sq,T) scores: (Sq,T) for training, (B,1,1,1,T) for decode.
     Returns (B,Sq,K,G,hd).  The softcap applies to the scaled f32 scores,
     before the mask."""
     scale = cfg.head_dim ** -0.5
@@ -71,3 +79,98 @@ def attn_train(params, x: torch.Tensor, cfg, *, window: int = 0) -> torch.Tensor
     out = torch.cat(outs, dim=1).reshape(B, S, H * hd)
     cd = getattr(torch, cfg.compute_dtype)
     return out @ params["wo"].to(cd)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode)
+# ---------------------------------------------------------------------------
+
+def _cache_dtype(cfg) -> torch.dtype:
+    if cfg.kv_cache_dtype == "int8":
+        return torch.int8
+    return getattr(torch, cfg.kv_cache_dtype or cfg.compute_dtype)
+
+
+def init_cache(cfg, batch: int, max_len: int, *, window: int = 0, device) -> dict:
+    """Rolling cache for a windowed layer (``T = min(window, max_len)``),
+    linear otherwise; zeros.  With ``kv_cache_dtype="int8"`` keys and
+    values are int8 with a bf16 scale per (slot, position, head).  On the
+    ``meta`` device it is the shapes and dtypes only (``cache_specs``)."""
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    T = min(window, max_len) if window > 0 else max_len
+    dt = _cache_dtype(cfg)
+    c = {
+        "k": torch.zeros((batch, T, K, hd), dtype=dt, device=device),
+        "v": torch.zeros((batch, T, K, hd), dtype=dt, device=device),
+    }
+    if cfg.kv_cache_dtype == "int8":
+        c["k_scale"] = torch.zeros((batch, T, K), dtype=torch.bfloat16, device=device)
+        c["v_scale"] = torch.zeros((batch, T, K), dtype=torch.bfloat16, device=device)
+    return c
+
+
+def cache_specs(cfg, batch: int, max_len: int, *, window: int = 0) -> dict:
+    """:func:`init_cache`'s shapes and dtypes as ``meta`` tensors."""
+    return init_cache(cfg, batch, max_len, window=window, device="meta")
+
+
+def _quantize_kv(x: torch.Tensor):
+    """x: (B, K, hd) -> (int8 payload, (B, K) bf16 scale):
+    ``round(x / max(amax/127, 1e-8))`` clipped to +-127, round half to
+    even as ``jnp.round``."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def attn_decode(params, x: torch.Tensor, cache: dict, pos: torch.Tensor, cfg, *,
+                window: int = 0):
+    """One decode step.  x: (B, 1, d); pos: (B,) absolute position of the
+    new token.  Writes the token's key and value into ``cache`` in place
+    (row ``pos``, or ``pos % T`` for a windowed layer) and returns
+    ``(y (B,1,d), cache)``."""
+    B = x.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // K
+    T = cache["k"].shape[1]
+    q, k, v = _qkv(params, x, cfg)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k = rope(k, pos[:, None], cfg.rope_theta)
+
+    slot = torch.remainder(pos, T) if window > 0 else pos
+    b_idx = torch.arange(B, device=x.device)
+    if cfg.kv_cache_dtype == "int8":
+        qk, sk = _quantize_kv(k[:, 0])
+        qv, sv = _quantize_kv(v[:, 0])
+        cache["k"][b_idx, slot] = qk
+        cache["v"][b_idx, slot] = qv
+        cache["k_scale"][b_idx, slot] = sk
+        cache["v_scale"][b_idx, slot] = sv
+        new_k = _dequantize_kv(cache["k"], cache["k_scale"], k.dtype)
+        new_v = _dequantize_kv(cache["v"], cache["v_scale"], v.dtype)
+    else:
+        cache["k"][b_idx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][b_idx, slot] = v[:, 0].to(cache["v"].dtype)
+        new_k, new_v = cache["k"], cache["v"]
+
+    t_idx = torch.arange(T, device=x.device)[None, :]
+    if window > 0:
+        valid = t_idx <= torch.clamp(pos, max=T - 1)[:, None]
+    else:
+        valid = t_idx <= pos[:, None]
+    mask = valid[:, None, None, None, :]  # (B,1,1,1,T)
+
+    qh = q.reshape(B, 1, K, G, hd)
+    if new_k.dtype != qh.dtype:  # a cache dtype other than the compute dtype
+        dt = torch.promote_types(qh.dtype, new_k.dtype)
+        qh, new_k, new_v = qh.to(dt), new_k.to(dt), new_v.to(dt)
+    out = _scores_softmax_value(qh, new_k, new_v, mask, cfg)
+    out = out.reshape(B, 1, H * hd)
+    dt = torch.promote_types(out.dtype, getattr(torch, cfg.compute_dtype))
+    return out.to(dt) @ params["wo"].to(dt), cache

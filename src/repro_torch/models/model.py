@@ -1,7 +1,8 @@
 """The decoder LM as an ``nn.Module`` and its chunked softmax-xent loss —
 the counterpart of the decoder half of ``repro.models.model``, for the
 dense and MoE families (full, sliding-window and gemma2's local/global
-attention; softcaps; q/k/v biases).
+attention; softcaps; q/k/v biases) — with the serving calls
+``prefill``, ``decode_step``, ``init_caches`` and ``cache_specs``.
 
 Parameters keep the reference's paths and stacked shapes (``embed.table``,
 ``head.w``, ``stack.blocks.b0.attn.wq`` of shape ``(n, d, H*hd)`` over the
@@ -199,6 +200,12 @@ def _xent_chunked(head_w, x, labels, cfg):
     return loss_sum / torch.clamp(count, min=1.0)
 
 
+def _logits(head_w, x, cfg):
+    """(B, S, d) -> f32 logits (B, S, V), with the final-logit softcap."""
+    cd = getattr(torch, cfg.compute_dtype)
+    return softcap((x.to(cd) @ head_w.to(cd)).float(), cfg.logit_softcap)
+
+
 class DecoderLM(nn.Module):
     """Decoder-only LM (dense or MoE): embedding (scaled by
     ``sqrt(d_model)``), the stacked superblock loop, final RMSNorm, untied
@@ -215,6 +222,11 @@ class DecoderLM(nn.Module):
         }
         for name, sub in _nest(flat).items():
             self.add_module(name, sub)
+        # the embedding's scale sqrt(d_model), rounded to the compute dtype
+        # as the reference multiplies by it; built once, for the serving calls
+        self.register_buffer("_embed_scale", torch.tensor(
+            math.sqrt(cfg.d_model), dtype=getattr(torch, cfg.compute_dtype),
+            device=dev), persistent=False)
         self.init_params(seed)
 
     @property
@@ -267,6 +279,53 @@ class DecoderLM(nn.Module):
         loss = _xent_chunked(transformer.resolve(tree["head"]["w"], cd), x,
                              batch["labels"], cfg)
         return loss + aux, {"loss": loss, "aux_loss": aux}
+
+    # ---- serving -----------------------------------------------------------
+    # ``params`` is ``None`` (the module's own parameters) or the nested
+    # tree that ``loss_fn`` takes, so the calls keep the reference's
+    # ``(params, ...)`` signatures
+
+    def _tree(self, params):
+        if params is None:
+            return {"embed": self.embed, "stack": self.stack, "head": self.head}
+        return params
+
+    def _embed_tokens(self, tree, tokens):
+        cd = getattr(torch, self.cfg.compute_dtype)
+        x = embed(transformer.resolve(tree["embed"]["table"], cd), tokens, cd)
+        return x * self._embed_scale
+
+    @torch.inference_mode()
+    def prefill(self, params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Teacher-forced logits of the last ``xent_chunk`` positions,
+        (B, <=S, V) f32."""
+        cfg = self.cfg
+        tree = self._tree(params)
+        x = self._embed_tokens(tree, batch["tokens"])
+        x, _ = transformer.stack_train(tree["stack"], x, cfg)
+        c = min(cfg.xent_chunk, x.shape[1])
+        return _logits(transformer.resolve(tree["head"]["w"]), x[:, -c:], cfg)
+
+    @torch.inference_mode()
+    def decode_step(self, params, caches: dict, batch: dict[str, torch.Tensor]):
+        """One token per slot: ``batch = {"tokens": (B, 1), "pos": (B,)}``
+        -> ``(logits (B, 1, V) f32, caches)``.  The caches are written in
+        place (each slot's row at ``pos``) and returned."""
+        tree = self._tree(params)
+        x = self._embed_tokens(tree, batch["tokens"])
+        x, caches = transformer.stack_decode(tree["stack"], x, caches,
+                                             batch["pos"], self.cfg)
+        return _logits(transformer.resolve(tree["head"]["w"]), x, self.cfg), caches
+
+    def init_caches(self, batch: int, max_len: int) -> dict:
+        """Zero caches for ``batch`` slots of ``max_len`` positions on the
+        model's device (``transformer.init_caches``)."""
+        return transformer.init_caches(self.cfg, batch, max_len,
+                                       device=self.embed["table"].device)
+
+    def cache_specs(self, batch: int, max_len: int) -> dict:
+        """The caches' shapes and dtypes as ``meta`` tensors."""
+        return transformer.init_caches(self.cfg, batch, max_len, device="meta")
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", seed: int = 0) -> DecoderLM:

@@ -1,4 +1,6 @@
-"""Decoder stack of the dense and MoE families: a loop over superblocks.
+"""Decoder stack of the dense and MoE families: a loop over superblocks,
+on the training path (``stack_train``) and the decode path
+(``stack_decode`` over the stacked caches of ``init_caches``).
 
 A *superblock* is the repeating unit of the architecture: one block for
 plain dense and MoE, a (local, global) pair for gemma2.  Each block's
@@ -140,3 +142,52 @@ def stack_train(params, x: torch.Tensor, cfg, before_layer=None):
         before_layer(n)
     final_norm = {k: resolve(v) for k, v in params["final_norm"].items()}
     return rmsnorm(final_norm, x, cfg.norm_eps), aux
+
+
+# ---------------------------------------------------------------------------
+# decode (one token, stacked caches read row by row beside the params)
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg, batch: int, max_len: int, *, device) -> dict:
+    """The caches stacked over superblocks, ``{"blocks": {"b{j}": {"k":
+    (n, B, T, K, hd), ...}}}`` as in the reference (the batch axis is 1);
+    zeros, or shapes only on the ``meta`` device."""
+    n = num_superblocks(cfg)
+    caches = {}
+    for j, (_, window) in enumerate(superblock_kinds(cfg)):
+        one = attn.init_cache(cfg, batch, max_len, window=window, device="meta")
+        caches[f"b{j}"] = {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype,
+                                          device=device)
+                           for k, v in one.items()}
+    return {"blocks": caches}
+
+
+def _block_decode(p, x, cache, pos, cfg, kind, window):
+    if kind != "attn":  # mamba, mlstm, slstm: their families wait for a later slice
+        raise NotImplementedError(
+            f"block kind {kind!r} of family {cfg.family!r} is not ported")
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, cache = attn.attn_decode(p["attn"], h, cache, pos, cfg, window=window)
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        # every slot routes, active or not, as in the reference: the
+        # capacity depends on the decode batch
+        y, _ = moe_mod.moe_apply(p["moe"], h, cfg)
+    else:
+        y = mlp(p["mlp"], h, cfg.mlp_act, getattr(torch, cfg.compute_dtype))
+    return x + y, cache
+
+
+def stack_decode(params, x: torch.Tensor, caches: dict, pos: torch.Tensor, cfg):
+    """x: (B, 1, d); pos: (B,).  Each superblock reads its parameter rows
+    and writes its cache rows (views of the stacked caches) in place.
+    Returns ``(y, caches)``."""
+    kinds = superblock_kinds(cfg)
+    for i in range(num_superblocks(cfg)):
+        p = _layer(params["blocks"], i)
+        for j, (kind, window) in enumerate(kinds):
+            rows = {k: v[i] for k, v in caches["blocks"][f"b{j}"].items()}
+            x, _ = _block_decode(p[f"b{j}"], x, rows, pos, cfg, kind, window)
+    final_norm = {k: resolve(v) for k, v in params["final_norm"].items()}
+    return rmsnorm(final_norm, x, cfg.norm_eps), caches
