@@ -142,8 +142,9 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            at 2 pods x 8 workers
            (``[launch]`` and ``[pods]`` run after ``[sparse]``, before
            ``[adaptive]``)
-  families the dense and MoE archs at full width (``FAMILY_RUNS``; after
-           ``[resilience]``, before ``[overlap]``): qwen1.5-0.5b's full
+  families the dense, MoE, SSM and hybrid archs at full width
+           (``FAMILY_RUNS``; after ``[resilience]``, before ``[overlap]``):
+           qwen1.5-0.5b's full
            config 5 steps (``ef_update`` 114 a step; one step on the same
            gradients against ``use_ef_kernel=False`` within ``ef_close``),
            then with ``arena=True, sync="sharded"`` (``pack_ef_cast`` 114 a
@@ -153,8 +154,15 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            a step; MQA, head_dim 256, a 256,000 vocab) and
            mistral-large-123b cut to 1 layer (bf16 params and moments,
            ``ef_update`` 0: the EF kernel takes f32 operands; a falling
-           loss), 3 steps each; each run's state bytes, COVAP bytes per
-           worker at W=8, step ms, tok/s and peak memory
+           loss), xlstm-125m at its full config (77 a step; seq 1024 x
+           global batch 7, ``FAMILY_SHAPES``), zamba2-2.7b cut to 12 layers
+           (209 a step; two superblocks, the weight-shared block applied
+           twice), then with ``arena=True, sync="sharded"``
+           (``pack_ef_cast`` 209 a step) and with ``overlap="fused"``
+           (the shared block's bucket hooks fire once a step, after both
+           applications' gradients), each == the post run bit for bit, 3
+           steps each; each run's state bytes, COVAP bytes per worker at
+           W=8, step ms, tok/s and peak memory
   serve    serving at full width (after ``[families]``, before ``[overlap]``;
            ``SERVE_CONFIG``: 8 slots, max_len 1024, page 16, prefill chunk
            16, 64 new tokens): gpt2-paper with a bf16 KV cache, then with
@@ -175,15 +183,19 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            whole real pool, the head is shed after ``starve_patience``
            ticks, ``release_pages``, a request runs again); qwen1.5-0.5b at
            its full config (24 L, q/k/v biases; 4 requests of 16-64 tokens,
-           32 new); ``python -m repro_torch.launch.serve --full --arch
-           gpt2-paper`` in a subprocess.  No kernel launches in the phase
+           32 new); xlstm-125m and zamba2-2.7b at their full configs
+           (``SERVE_RECURRENT``: paged == dense on 8 prompts cut to 32 and
+           16 tokens, then 4 requests of 16-64 tokens, 32 new; the arena's
+           rows beside the one resident state a slot holds); ``python -m
+           repro_torch.launch.serve --full --arch gpt2-paper`` in a
+           subprocess.  No kernel launches in the phase
   small    REDUCED gpt2-paper trained 5 steps on the card and on the CPU
            from the same parameters and batches, on the defaults, with
            ``arena=True`` and with ``powersgd`` (the CPU run is the path the
-           tests hold against the JAX reference); then the six families'
-           REDUCED configs and grok-1-314b's with bf16 parameters (an f32
-           router in bf16 buckets) on the defaults, the bf16 one at 2 bf16
-           ulps; last, the seven archs' REDUCED configs served on the card
+           tests hold against the JAX reference); then the eight families'
+           archs' REDUCED configs and grok-1-314b's with bf16 parameters (an
+           f32 router in bf16 buckets) on the defaults, the bf16 one at 2
+           bf16 ulps; last, the nine archs' REDUCED configs served on the card
            and on the CPU (``SMALL_SERVE_*``): the same tokens, finish
            reasons and page tables, logits within 1e-4
 
@@ -1777,13 +1789,21 @@ def zero_counters() -> dict:
     return counters
 
 
-def state_parts(state) -> dict:
-    """A train state's tensors by part, cloned: params, Adam's m and v, the
-    residuals (PowerSGD's without its ``None`` holes) and PowerSGD's Qs."""
+def state_parts(state, clone: bool = True) -> dict:
+    """A train state's tensors by part, cloned (or the state's own with
+    ``clone=False``): params, Adam's m and v, the residuals (PowerSGD's
+    without its ``None`` holes) and PowerSGD's Qs."""
     resid, qs = comp_parts(state["comp"])
-    return {part: [x.detach().clone() for x in leaves] for part, leaves in (
-        ("params", state["params"]), ("m", state["opt"]["m"]),
-        ("v", state["opt"]["v"]), ("residual", resid), ("q", qs))}
+    return {part: [x.detach().clone() if clone else x.detach() for x in leaves]
+            for part, leaves in (
+                ("params", state["params"]), ("m", state["opt"]["m"]),
+                ("v", state["opt"]["v"]), ("residual", resid), ("q", qs))}
+
+
+def host_parts(state) -> dict:
+    """:func:`state_parts` copied to the host."""
+    return {part: [x.cpu() for x in leaves]
+            for part, leaves in state_parts(state, clone=False).items()}
 
 
 def phase_ckpt(cfg, group, label: str, options: dict, batches) -> dict:
@@ -2319,7 +2339,22 @@ FAMILY_RUNS = (
     ("deepseek 2L", "deepseek-moe-16b", 2, 3, {}, "bfloat16", 77),
     ("gemma 2L", "gemma-2b", 2, 3, {}, None, 135),
     ("mistral 1L", "mistral-large-123b", 1, 3, {}, None, 74),
+    ("xlstm", "xlstm-125m", None, 3, {}, None, 77),
+    ("zamba2 12L", "zamba2-2.7b", 12, 3, {}, None, 209),
+    ("zamba2 12L arena+sharded", "zamba2-2.7b", 12, 3,
+     {"arena": True, "sync": "sharded"}, None, 209),
+    ("zamba2 12L fused", "zamba2-2.7b", 12, 3, {"overlap": "fused"}, None, 209),
 )
+# a run's (seq_len, global_batch) where it is not (1024, 8): the mLSTM's
+# backward pass keeps its (B, 4, 384, 384) f32 state for every token (2.4
+# MB a sequence a token), and a checkpointed xlstm superblock recomputes
+# three mLSTM layers at once.  On an NVIDIA H100 80GB HBM3 (700 W) batch 8
+# ran out of memory at 76.52 GiB allocated; batch 7 peaked at 71.65 GiB,
+# batch 6 at 62.74
+FAMILY_SHAPES = {"xlstm": (1024, 7)}
+# a run held bit for bit against an earlier run of the list
+FAMILY_PARITY = {"qwen arena+sharded": "qwen", "zamba2 12L arena+sharded": "zamba2 12L",
+                 "zamba2 12L fused": "zamba2 12L"}
 
 
 def f32_segments(plan) -> int:
@@ -2379,24 +2414,30 @@ def family_ef_parity(tr, state, loader, group) -> float:
 
 
 def phase_families(group, smi: str) -> dict:
-    """The dense and MoE families at full width (``FAMILY_RUNS``, one-rank
-    NCCL group, seq 1024, global batch 8, COVAP I=4 with AdamW): each run's
-    EF kernel launches equal its plan's f32 segments x steps, the plan's
-    segments equal the reference's, its losses are finite.  Returns the
+    """The dense, MoE, SSM and hybrid families at full width
+    (``FAMILY_RUNS``, one-rank NCCL group, seq 1024, global batch 8 unless
+    ``FAMILY_SHAPES`` cuts it, COVAP I=4 with AdamW): each run's EF kernel
+    launches equal its plan's f32 segments x steps, the plan's segments
+    equal the reference's, its losses are finite; each run of
+    ``FAMILY_PARITY`` equals its post run bit for bit.  Returns the
     launches by run label."""
     from repro_torch.configs import get_config
     from repro_torch.core import get_compressor
     from repro_torch.models import moe, padded_vocab
+    from repro_torch.models.transformer import has_shared_block, superblock_kinds
 
     t_phase = time.perf_counter()
-    launches_by_run, post = {}, None
-    for label, arch, layers, steps, options, moments, want_segs in FAMILY_RUNS:
+    launches_by_run, post = {}, {}
+    for i, (label, arch, layers, steps, options, moments, want_segs) in enumerate(
+            FAMILY_RUNS):
         cfg = get_config(arch)
         if layers is not None:
             cfg = cfg.with_(num_layers=layers)
+        seq_len, batch = FAMILY_SHAPES.get(label, (1024, 8))
         tr, state, loader, launches = phase_train(cfg, group=group, label=label,
                                                   options=options, steps=steps,
-                                                  moment_dtype=moments)
+                                                  moment_dtype=moments,
+                                                  seq_len=seq_len, global_batch=batch)
         plan = tr.plan
         check(plan.num_segments == want_segs,
               f"{label}: {plan.num_segments} segments, the reference's plan has "
@@ -2410,6 +2451,8 @@ def phase_families(group, smi: str) -> dict:
                     .bytes_per_worker for p in range(4)]
         ms, tok_s, peak = tr.run_stats
         cut = f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
+        if (seq_len, batch) != (1024, 8):
+            cut += f", seq {seq_len} x global batch {batch} (cut from 1024 x 8)"
         print(f"[families] {label}: {arch} at full width, {cut}, "
               f"{sum(p.numel() for p in state['params'])} params, state "
               f"{state_bytes(state)} B (params, m, v, residuals); COVAP bytes per "
@@ -2422,21 +2465,41 @@ def phase_families(group, smi: str) -> dict:
             print(f"[families] qwen: one step on the same gradients, ef_update "
                   f"kernel vs use_ef_kernel=False within ef_close (max |diff| "
                   f"{worst:.3g})", flush=True)
-            post = (tr.history, state_parts(state))
-        elif label == "qwen arena+sharded":
-            hist, want = post
+        if label in FAMILY_PARITY.values():
+            # held on the host: zamba2's four f32 parts take 12 GB
+            post[label] = (tr.history, host_parts(state))
+        elif label in FAMILY_PARITY:
+            base = FAMILY_PARITY[label]
+            hist, want = post[base]
+            if base not in (FAMILY_PARITY.get(r[0]) for r in FAMILY_RUNS[i + 1:]):
+                del post[base]
             check([h["total_loss"] for h in tr.history] == [h["total_loss"] for h in hist],
                   f"{label}: losses {losses} differ from the post run's")
-            got = state_parts(state)
+            got = state_parts(state, clone=False)
             for part in ("params", "m", "v", "residual"):
-                diff = max(abs_err(a, b) for a, b in zip(got[part], want[part]))
-                check(all(torch.equal(a, b) for a, b in zip(got[part], want[part])),
-                      f"{label}: {part} differ from the post run's (max |diff| {diff})")
-            print(f"[families] {label} == qwen (post, ef_update) after {steps} steps "
-                  f"on the same batches, bit for bit in losses, params, m, v and "
-                  f"residuals", flush=True)
-            post = None
+                same = [torch.equal(a.cpu(), b) for a, b in zip(got[part], want[part])]
+                diff = 0.0 if all(same) else max(
+                    abs_err(a.cpu(), b) for a, b in zip(got[part], want[part]))
+                check(all(same), f"{label}: {part} differ from the post run's "
+                      f"(max |diff| {diff})")
+            fused = (f"; {check_fused_run(tr, label)}"
+                     if options.get("overlap") == "fused" else "")
+            print(f"[families] {label} == {base} (post, ef_update) after {steps} "
+                  f"steps on the same batches, bit for bit in losses, params, m, v "
+                  f"and residuals{fused}", flush=True)
             del got, want
+        if label == "xlstm":
+            kinds = [k for k, _ in superblock_kinds(cfg)]
+            print(f"[families] {label}: superblock {kinds} x {tr.model.num_stages}, "
+                  f"mLSTM head dim {2 * cfg.d_model // cfg.num_heads}; losses "
+                  f"{losses}", flush=True)
+        elif label == "zamba2 12L":
+            check(has_shared_block(cfg) and tr.model.num_stages == 2,
+                  f"{label}: {tr.model.num_stages} superblocks")
+            print(f"[families] {label}: {cfg.attn_every} Mamba2 blocks a superblock x "
+                  f"{tr.model.num_stages}, the weight-shared attention block applied "
+                  f"after each ({tr.model.num_stages} applications, one set of "
+                  f"weights); losses {losses}", flush=True)
         elif label.startswith("deepseek"):
             drops = moe_drops(tr, loader.make(steps))
             k, E = cfg.experts_per_token, cfg.num_experts
@@ -2752,7 +2815,7 @@ BF16_RTOL, BF16_ULP = 2.0 ** -6, 2.0 ** -7
 
 
 def phase_small_families() -> None:
-    """The six families' REDUCED configs (and grok-1-314b's with bfloat16
+    """The eight assigned archs' REDUCED configs (and grok-1-314b's with bfloat16
     parameters, whose f32 router shares buckets with bf16 experts) on the
     card against the port on the CPU: 5 SGD steps on the defaults from the
     same parameters and batches; ``ef_update`` once per f32 segment a step
@@ -2824,6 +2887,13 @@ SMALL_SERVE_PROMPTS = [[5, 17, 3, 9], [88, 2], [1, 1, 1, 1, 1, 1, 1], [4, 40, 14
 SMALL_SERVE_CONFIG = dict(batch_slots=3, max_len=48, max_new_tokens=4, page_size=8,
                           prefill_chunk=4)
 SMALL_SERVE_ATOL = 1e-4   # REDUCED logits, f32, card against the CPU
+# the recurrent archs served at their full configs, the prompt length of
+# their paged == dense check, and the sleep ahead of a timed call: a
+# full-width zamba2 decode step takes 54-58 host ms to enqueue (54 Mamba2
+# blocks and 9 shared-block applications), longer than
+# SERVE_SLEEP_CYCLES
+SERVE_RECURRENT = (("xlstm-125m", SERVE_CHECK_PROMPT, SERVE_SLEEP_CYCLES),
+                   ("zamba2-2.7b", 16, 5 * SERVE_SLEEP_CYCLES))
 
 
 def serve_prompts(n: int, lo: int, hi: int, vocab: int, seed: int = 0) -> list[list[int]]:
@@ -2844,7 +2914,8 @@ def recording_sampler(log: list):
     return sample
 
 
-def serve_paged_equals_dense(model, prompts: list[list[int]], label: str) -> None:
+def serve_paged_equals_dense(model, prompts: list[list[int]], label: str,
+                             sleep_cycles: int = SERVE_SLEEP_CYCLES) -> None:
     """All ``batch_slots`` slots admitted at once, then ``SERVE_CHECK_STEPS``
     generate steps, beside a dense batch-8 cache built from the same
     prefills (each request's own batch-1 ``ChunkedPrefill``, concatenated
@@ -2915,7 +2986,7 @@ def serve_paged_equals_dense(model, prompts: list[list[int]], label: str) -> Non
     times = {}
     for what, fn in (("generate", lambda: eng._generate(None, eng.arena.planes, *inputs)),
                      ("prefill token", lambda: model.decode_step(None, one, tok1))):
-        times[what] = (device_timed(fn, reps=10, warmup=2, sleep_cycles=SERVE_SLEEP_CYCLES),
+        times[what] = (device_timed(fn, reps=10, warmup=2, sleep_cycles=sleep_cycles),
                        wall_timed(fn, reps=10, warmup=2))
     print(f"[serve] {label}: paged == dense bit for bit: {len(prompts)} prefills' "
           f"logits, {1 + SERVE_CHECK_STEPS} generate steps' logits and the gathered "
@@ -3044,8 +3115,9 @@ def phase_serve(smi: str) -> None:
     16, prefill chunk 16, 64 new tokens): gpt2-paper with a bf16 KV cache
     and with ``kv_cache_dtype="int8"`` (paged == dense bit for bit, then 16
     requests of 16-128 prompt tokens from numpy seed 0), qwen1.5-0.5b at
-    its full config (4 requests of 16-64), a ``page_starve`` run and the
-    CLI; no kernel launches on the way."""
+    its full config (4 requests of 16-64), the recurrent archs
+    (:func:`serve_recurrent`), a ``page_starve`` run and the CLI; no kernel
+    launches on the way."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServeConfig
@@ -3080,6 +3152,7 @@ def phase_serve(smi: str) -> None:
     del qwen
     gc.collect()
     torch.cuda.empty_cache()
+    serve_recurrent(smi)
     serve_cli()
     counts = {k: f.launches - before[k] for k, f in counters.items()}
     check(counts == launch_counts(), f"[serve] kernel launches {counts}: no kernel "
@@ -3088,8 +3161,41 @@ def phase_serve(smi: str) -> None:
           flush=True)
 
 
+def serve_recurrent(smi: str) -> None:
+    """The recurrent archs at their full configs (``SERVE_RECURRENT``):
+    paged == dense bit for bit on 8 prompts cut short, then 4 requests of
+    16-64 prompt tokens, 32 new; each arena's rows against the one
+    resident state a slot holds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig
+
+    for arch, check_len, sleep_cycles in SERVE_RECURRENT:
+        rcfg = get_config(arch)
+        model = build_model(rcfg, device="cuda", seed=0)
+        prompts = serve_prompts(8, 16, 64, rcfg.vocab_size)
+        label = f"{arch} full"
+        serve_paged_equals_dense(model, [p[:check_len] for p in prompts], label,
+                                 sleep_cycles)
+        eng, _ = serve_run(model, prompts[:4],
+                           ServeConfig(**dict(SERVE_CONFIG, max_new_tokens=32)), label, smi)
+        lay = eng.layout
+        res = sum(l.numel * getattr(torch, l.dtype).itemsize
+                  for l in lay.leaves if not l.paged)
+        # a page id indexes every plane, so each row is as wide as the wider
+        # of a token page and one slot's whole resident state (the
+        # reference's layout): only one row a slot holds that state
+        print(f"[serve] {label}: plane rows of {list(lay.plane_elems)} elements "
+              f"({list(lay.plane_dtypes)}); one slot's resident state {res} B, held "
+              f"in {SERVE_CONFIG['batch_slots']} of the {eng.arena.num_pages} pages of "
+              f"{lay.page_bytes()} B ({eng.arena.nbytes()} B in all)", flush=True)
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_serve_small() -> None:
-    """The seven archs' REDUCED configs served on the card and on the CPU
+    """The nine archs' REDUCED configs served on the card and on the CPU
     from the same parameters and prompts (``SMALL_SERVE_*``; MoE at the
     drop-free capacity ``cf = E``): the same tokens, finish reasons and
     page tables, every sampled logits row within ``SMALL_SERVE_ATOL``."""
@@ -3127,7 +3233,7 @@ def phase_serve_small() -> None:
         worst[arch] = max(abs_err(a, b) for a, b in zip(g_log, c_log))
         check(worst[arch] <= SMALL_SERVE_ATOL,
               f"[small] serve {arch}: logits max |diff| {worst[arch]:.3g}")
-    print(f"[small] serve: the seven REDUCED archs on the card == the CPU in tokens, "
+    print(f"[small] serve: the {len(worst)} REDUCED archs on the card == the CPU in tokens, "
           f"finish reasons and page tables; logits max |diff| (atol "
           f"{SMALL_SERVE_ATOL:g}) {json.dumps({a: float(f'{w:.3g}') for a, w in worst.items()})}",
           flush=True)

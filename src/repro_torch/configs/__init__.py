@@ -1,8 +1,8 @@
 """Config registry: ``get_config(name)`` / ``get_reduced(name)`` /
 ``list_archs()``.  One module per ported architecture, exporting CONFIG
 and REDUCED as the reference's does.  The reference's other archs (the
-SSM, hybrid, VLM and audio families) raise ``NotImplementedError`` naming
-their family; an unknown name raises ``KeyError``."""
+VLM and audio families) raise ``NotImplementedError`` naming their
+family; an unknown name raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -15,16 +15,16 @@ _ARCH_MODULES = {
     "grok-1-314b": "grok_1_314b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "mistral-large-123b": "mistral_large_123b",
+    "xlstm-125m": "xlstm_125m",
     "gemma2-27b": "gemma2_27b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "gpt2-paper": "gpt2_paper",
 }
 
 # the reference's archs whose families the port does not have yet
 _UNPORTED_FAMILIES = {
     "pixtral-12b": "vlm",
-    "xlstm-125m": "ssm",
     "seamless-m4t-medium": "audio",
-    "zamba2-2.7b": "hybrid",
 }
 
 

@@ -1,8 +1,9 @@
-"""Architecture config schema: the fields the dense and MoE decoders read,
-with the same defaults as ``repro.configs.base.ArchConfig`` (the serving
-field ``kv_cache_dtype`` included), and the named input shapes
-(``INPUT_SHAPES``).  The SSM, encoder-decoder and modality fields are not
-carried: their families are not ported."""
+"""Architecture config schema: the fields the dense, MoE, SSM (xlstm) and
+hybrid (zamba2) decoders read, with the same defaults as
+``repro.configs.base.ArchConfig`` (the serving field ``kv_cache_dtype``
+included), and the named input shapes (``INPUT_SHAPES``).  The
+encoder-decoder and modality fields are not carried: their families are
+not ported."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +12,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe (ssm | hybrid | vlm | audio unported)
+    family: str                      # dense | moe | ssm | hybrid (vlm | audio unported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -40,6 +41,14 @@ class ArchConfig:
 
     mlp_act: str = "swiglu"          # swiglu | geglu | gelu
     norm_eps: float = 1e-6
+
+    # --- SSM / hybrid ---------------------------------------------------------
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    attn_every: int = 0              # zamba2: one shared attn block every N mamba
+    slstm_every: int = 0             # xlstm: one sLSTM block every N mLSTM
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

@@ -80,15 +80,19 @@ def supports_sharded_sync(compressor) -> bool:
 def bucket_first_use(plan: bk.BucketPlan, num_stages: int) -> list[int]:
     """Each bucket's first-use stage in the decoder's forward pass: the
     earliest over its segments, where a stacked ``stack.blocks.*`` leaf's
-    row ``r`` is read before superblock ``r``, ``stack.final_norm.*`` and
-    ``head.*`` after the layer loop (stage ``num_stages``, the superblock
-    count ``DecoderLM.num_stages``), and ``embed.*``,
-    or a leaf of unknown use, before the embedding (:data:`EMBED_STAGE`),
-    so that nothing is read stale."""
+    row ``r`` is read before superblock ``r``, the weight-shared block's
+    ``stack.shared.*`` before superblock 0 (``transformer.stack_train``
+    reads it once there), ``stack.final_norm.*`` and ``head.*`` after the
+    layer loop (stage ``num_stages``, the superblock count
+    ``DecoderLM.num_stages``), and ``embed.*``, or a leaf of unknown use,
+    before the embedding (:data:`EMBED_STAGE`), so that nothing is read
+    stale."""
     def first_use(seg: bk.Segment) -> int:
         path = plan.leaf_paths[seg.leaf_idx]
         if path.startswith("stack.blocks."):
             return seg.row_lo
+        if path.startswith("stack.shared."):
+            return 0
         if path.startswith(("stack.final_norm.", "head.")):
             return num_stages
         return EMBED_STAGE

@@ -52,7 +52,8 @@ def params_from_jax(tree: Mapping[str, Any], *, device="cuda") -> dict[str, torc
 
 def params_to_numpy(params: nn.Module | Mapping[str, torch.Tensor]) -> dict[str, Any]:
     """The port's parameters (a module or a dotted-path dict) -> nested dict
-    of numpy arrays, the reference's tree layout."""
+    of numpy arrays, the reference's tree layout (bf16 leaves as
+    ``ml_dtypes.bfloat16``, as :func:`caches_to_numpy` gives them)."""
     flat = dict(params.named_parameters()) if isinstance(params, nn.Module) else params
     tree: dict[str, Any] = {}
     for path, t in flat.items():
@@ -60,7 +61,7 @@ def params_to_numpy(params: nn.Module | Mapping[str, torch.Tensor]) -> dict[str,
         *heads, leaf = path.split(".")
         for h in heads:
             node = node.setdefault(h, {})
-        node[leaf] = t.detach().cpu().numpy()
+        node[leaf] = _array(t)
     return tree
 
 

@@ -1,4 +1,4 @@
-"""The dense and MoE decoder families in PyTorch."""
+"""The decoder families in PyTorch: dense, MoE, SSM (xlstm) and hybrid (zamba2)."""
 from ..configs.base import InputShape
 from .model import (
     DecoderLM,

@@ -1,8 +1,10 @@
 """The decoder LM as an ``nn.Module`` and its chunked softmax-xent loss —
 the counterpart of the decoder half of ``repro.models.model``, for the
 dense and MoE families (full, sliding-window and gemma2's local/global
-attention; softcaps; q/k/v biases) — with the serving calls
-``prefill``, ``decode_step``, ``init_caches`` and ``cache_specs``.
+attention; softcaps; q/k/v biases), the SSM family (xlstm's mLSTM and
+sLSTM blocks) and the hybrid family (zamba2's Mamba2 blocks and its
+weight-shared attention block) — with the serving calls ``prefill``,
+``decode_step``, ``init_caches`` and ``cache_specs``.
 
 Parameters keep the reference's paths and stacked shapes (``embed.table``,
 ``head.w``, ``stack.blocks.b0.attn.wq`` of shape ``(n, d, H*hd)`` over the
@@ -11,8 +13,9 @@ leaf order, which is ``jax.tree_util.tree_leaves`` of the nested dict:
 keys sorted at every level (``router, shared, w_down, w_gate, w_up`` under
 ``moe``).  The bucket plan, the optimizer and the EF residuals all follow
 that order.  As in the reference, the output head is untied and the vocab
-is padded to a multiple of 128; the MoE router is f32 whatever the
-parameter dtype.
+is padded to a multiple of 128; the MoE router, the SSD block's
+``wdt``/``A_log``/``D``/``dt_bias``, the mLSTM's gate weights and biases
+and the sLSTM's biases are f32 whatever the parameter dtype.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from . import transformer
+from . import xlstm as xlstm_mod
 from .layers import embed, normal_init, softcap, truncated_normal_init
 
 
@@ -39,7 +44,10 @@ def long_context_variant(cfg: ArchConfig) -> ArchConfig:
     """The sliding-window variant that makes a full-attention arch runnable
     at 500k decode, as the reference picks it: gemma2's local layers keep
     their window (its global layers stay full), every other attention arch
-    gets an 8192 window."""
+    gets an 8192 window; the SSM and hybrid archs are returned unchanged,
+    as the reference returns them."""
+    if cfg.family in ("ssm", "hybrid"):
+        return cfg
     if cfg.local_global:
         return cfg.with_(sliding_window=cfg.sliding_window or 4096)
     return cfg.with_(sliding_window=LONG_CONTEXT_WINDOW)
@@ -59,9 +67,28 @@ def _is_router(path: str) -> bool:
     return path.endswith(".moe.router")
 
 
+# the leaves a block kind keeps in f32, by leaf name
+_F32_BY_KIND = {"mamba": ssm_mod.F32_LEAVES, "mlstm": xlstm_mod.MLSTM_F32,
+                "slstm": xlstm_mod.SLSTM_F32}
+# each recurrent kind's init rules by leaf name (``ssm.leaf_init``)
+_INIT_BY_KIND = {"mamba": ssm_mod.leaf_init, "mlstm": xlstm_mod.mlstm_leaf_init,
+                 "slstm": xlstm_mod.slstm_leaf_init}
+
+
+def _stack_kind(cfg: ArchConfig, path: str) -> str | None:
+    if not path.startswith("stack."):
+        return None
+    return transformer.leaf_kind(cfg, path.removeprefix("stack."))
+
+
 def _leaf_dtype(cfg: ArchConfig, path: str) -> torch.dtype:
-    """A leaf's dtype: the config's parameter dtype, f32 for the router."""
-    return moe_mod.ROUTER_DTYPE if _is_router(path) else getattr(torch, cfg.param_dtype)
+    """A leaf's dtype: the config's parameter dtype; f32 for the router
+    and for the recurrent blocks' gate and decay leaves."""
+    if _is_router(path):
+        return moe_mod.ROUTER_DTYPE
+    if path.rsplit(".", 1)[-1] in _F32_BY_KIND.get(_stack_kind(cfg, path), ()):
+        return torch.float32
+    return getattr(torch, cfg.param_dtype)
 
 
 def _is_routed_expert(path: str) -> bool:
@@ -89,11 +116,11 @@ def model_flops(cfg: ArchConfig, tokens: int, kind: str = "train") -> float:
     return mult * n * tokens
 
 
-# tensor-parallel specs by leaf name, the reference's rules for the dense
-# and MoE families (the port trains data-parallel only; the specs are a
-# plan)
-_SHARD_LAST = {"wq", "wk", "wv", "w_gate", "w_up", "head_w"}
-_SHARD_IN = {"wo", "w_down"}
+# tensor-parallel specs by leaf name, the reference's rules (the port
+# trains data-parallel only; the specs are a plan)
+_SHARD_LAST = {"wq", "wk", "wv", "w_gate", "w_up", "wz", "wx", "up_x", "up_z",
+               "conv_x", "head_w"}
+_SHARD_IN = {"wo", "w_down", "down", "out_proj"}
 
 
 def _leaf_spec(path: tuple[str, ...], shape: tuple[int, ...], model_axis: int,
@@ -207,7 +234,7 @@ def _logits(head_w, x, cfg):
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM (dense or MoE): embedding (scaled by
+    """Decoder-only LM (dense, MoE, SSM or hybrid): embedding (scaled by
     ``sqrt(d_model)``), the stacked superblock loop, final RMSNorm, untied
     head, chunked xent (with the final-logit softcap)."""
 
@@ -242,13 +269,28 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def init_params(self, seed: int) -> None:
         """Reference init rules (N(0, 0.02) embedding, truncated normal
-        matrices, the router's at scale 0.1, zero norm scales and biases),
-        drawn from a seeded ``torch.Generator`` on the parameters'
-        device."""
+        matrices, the router's at scale 0.1, zero norm scales and biases,
+        and the recurrent blocks' own: ``A_log`` 0, ``D`` 1, ``dt_bias``
+        0, conv weights N(0, 1) x 0.1 and zero conv biases, ``wdt`` and the
+        mLSTM's ``wi``/``wf`` at scale 0.1, the sLSTM's ``r{g}`` at 0.5,
+        the forget biases 3), drawn from a seeded ``torch.Generator`` on
+        the parameters' device.  Fan-in is the row's ``shape[-2]``."""
         dev = self.embed["table"].device
         gen = None if dev.type == "meta" else torch.Generator(dev).manual_seed(seed)
         for path, p in self.named_leaves():
-            if path == "embed.table":
+            kind = _stack_kind(self.cfg, path)
+            rule = (_INIT_BY_KIND[kind](path.rsplit(".", 1)[-1])
+                    if kind in _INIT_BY_KIND else None)
+            if rule is not None:
+                how, value = rule
+                if how == "const":
+                    v = torch.full(p.shape, value, dtype=p.dtype, device=dev)
+                elif how == "normal":
+                    v = normal_init(p.shape, p.dtype, gen, device=dev, std=value)
+                else:
+                    v = truncated_normal_init(p.shape, p.dtype, gen, device=dev,
+                                              scale=value)
+            elif path == "embed.table":
                 v = normal_init(p.shape, p.dtype, gen, device=dev, std=0.02)
             elif path.endswith((".scale", ".bq", ".bk", ".bv")):
                 v = torch.zeros(p.shape, dtype=p.dtype, device=dev)
@@ -329,6 +371,6 @@ class DecoderLM(nn.Module):
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", seed: int = 0) -> DecoderLM:
-    """The decoder of a dense or MoE config; other families raise
-    ``NotImplementedError`` naming the family."""
+    """The decoder of a dense, MoE, SSM or hybrid config; other families
+    raise ``NotImplementedError`` naming the family."""
     return DecoderLM(cfg, device=device, seed=seed)

@@ -1,13 +1,16 @@
-"""Decoder stack of the dense and MoE families: a loop over superblocks,
-on the training path (``stack_train``) and the decode path
-(``stack_decode`` over the stacked caches of ``init_caches``).
+"""Decoder stack: a loop over superblocks, on the training path
+(``stack_train``) and the decode path (``stack_decode`` over the stacked
+caches of ``init_caches``).
 
-A *superblock* is the repeating unit of the architecture: one block for
-plain dense and MoE, a (local, global) pair for gemma2.  Each block's
-parameters are stacked over a leading ``(num_superblocks,)`` axis under
-``blocks.b{j}`` and consumed by a loop over the superblock index (the
-reference scans over the same stacked leaves).  ``cfg.remat`` wraps each
-superblock in ``torch.utils.checkpoint``, which changes memory, not
+A *superblock* is the repeating unit of the architecture: one attention
+block for plain dense and MoE, a (local, global) pair for gemma2,
+``slstm_every - 1`` mLSTM blocks and one sLSTM block for xlstm,
+``attn_every`` Mamba2 blocks for zamba2, whose one weight-shared
+attention block (``stack.shared``) runs after every superblock.  Each
+block's parameters are stacked over a leading ``(num_superblocks,)`` axis
+under ``blocks.b{j}`` and consumed by a loop over the superblock index
+(the reference scans over the same stacked leaves).  ``cfg.remat`` wraps
+each superblock in ``torch.utils.checkpoint``, which changes memory, not
 values.
 
 The parameters come as a nested container whose leaves are tensors, as the
@@ -23,15 +26,24 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .layers import mlp, rmsnorm
 
 def superblock_kinds(cfg) -> list[tuple[str, int]]:
     """``[(kind, window)]`` for each block of one superblock."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
-    if cfg.local_global:
-        return [("attn", cfg.sliding_window or 4096), ("attn", 0)]
-    return [("attn", cfg.sliding_window)]
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        if cfg.local_global:
+            return [("attn", cfg.sliding_window or 4096), ("attn", 0)]
+        return [("attn", cfg.sliding_window)]
+    if fam == "ssm":  # xlstm: k - 1 mLSTM blocks and one sLSTM block
+        if cfg.slstm_every and cfg.slstm_every > 1:
+            return [("mlstm", 0)] * (cfg.slstm_every - 1) + [("slstm", 0)]
+        return [("mlstm", 0)]
+    if fam == "hybrid":  # zamba2: k mamba blocks, then the shared block
+        return [("mamba", 0)] * (cfg.attn_every or 6)
+    raise NotImplementedError(f"family {fam!r} is not ported")
 
 
 def num_superblocks(cfg) -> int:
@@ -46,7 +58,20 @@ def num_superblocks(cfg) -> int:
     return n
 
 
-def _block_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
+def has_shared_block(cfg) -> bool:
+    """zamba2's weight-shared attention block, applied after every
+    superblock."""
+    return cfg.family == "hybrid" and (cfg.attn_every or 0) > 0
+
+
+def _shared_sub_cfg(cfg):
+    """The shared block's config: dense, with ``d_ff`` (``4 d_model`` when
+    the config has none)."""
+    d_ff = cfg.d_ff if cfg.d_ff > 0 else 4 * cfg.d_model
+    return cfg.with_(num_experts=0, d_ff=d_ff)
+
+
+def _attn_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
     """One attention block's leaf shapes (one row), by path under it."""
     d, f = cfg.d_model, cfg.d_ff
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -68,16 +93,46 @@ def _block_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def _block_param_shapes(cfg, kind: str) -> dict[str, tuple[int, ...]]:
+    """One block's leaf shapes (one row), by path under it."""
+    if kind == "attn":
+        return _attn_param_shapes(cfg)
+    if kind == "mamba":
+        shapes = {f"ssm.{k}": s for k, s in ssm_mod.ssm_param_shapes(cfg).items()}
+        shapes["ln.scale"] = (cfg.d_model,)
+        return shapes
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_param_shapes(cfg)
+    if kind == "slstm":
+        return xlstm_mod.slstm_param_shapes(cfg)
+    raise ValueError(kind)
+
+
 def stack_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
     """Shapes of the stack's leaves, keyed by their path under ``stack``."""
     n = num_superblocks(cfg)
     shapes = {
         f"blocks.b{j}.{k}": (n,) + s
-        for j in range(len(superblock_kinds(cfg)))
-        for k, s in _block_param_shapes(cfg).items()
+        for j, (kind, _) in enumerate(superblock_kinds(cfg))
+        for k, s in _block_param_shapes(cfg, kind).items()
     }
     shapes["final_norm.scale"] = (cfg.d_model,)
+    if has_shared_block(cfg):
+        shapes.update({f"shared.{k}": s
+                       for k, s in _attn_param_shapes(_shared_sub_cfg(cfg)).items()})
     return shapes
+
+
+def leaf_kind(cfg, path: str) -> str | None:
+    """The block kind a stack leaf belongs to (``"attn"``, ``"mamba"``,
+    ``"mlstm"``, ``"slstm"``; the shared block is ``"attn"``), from its
+    path under ``stack``; ``None`` for any other leaf."""
+    parts = path.split(".")
+    if parts[:1] == ["shared"]:
+        return "attn"
+    if parts[:1] == ["blocks"]:
+        return superblock_kinds(cfg)[int(parts[1][1:])][0]
+    return None
 
 
 def resolve(x, dtype=None):
@@ -98,6 +153,13 @@ def _layer(tree, i: int):
     return resolve(tree[i])
 
 
+def _resolved(tree):
+    """Every leaf of a nested (unstacked) container as a tensor."""
+    if hasattr(tree, "items"):
+        return {k: _resolved(v) for k, v in tree.items()}
+    return resolve(tree)
+
+
 def _attn_block_train(p, x, cfg, window):
     """-> ``(x, aux)``; ``aux`` is ``None`` for a dense block."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -109,11 +171,26 @@ def _attn_block_train(p, x, cfg, window):
     return x + mlp(p["mlp"], h, cfg.mlp_act, getattr(torch, cfg.compute_dtype)), None
 
 
-def _superblock_train(p, x, aux, cfg, kinds):
-    for j, (_, window) in enumerate(kinds):
-        x, a = _attn_block_train(p[f"b{j}"], x, cfg, window)
+def _block_train(p, x, cfg, kind, window):
+    if kind == "attn":
+        return _attn_block_train(p, x, cfg, window)
+    if kind == "mamba":
+        h = rmsnorm(p["ln"], x, cfg.norm_eps)
+        return x + ssm_mod.ssm_train(p["ssm"], h, cfg), None
+    if kind == "mlstm":
+        return x + xlstm_mod.mlstm_train(p, x, cfg), None
+    if kind == "slstm":
+        return x + xlstm_mod.slstm_train(p, x, cfg), None
+    raise ValueError(kind)
+
+
+def _superblock_train(p, x, aux, cfg, kinds, shared=None):
+    for j, (kind, window) in enumerate(kinds):
+        x, a = _block_train(p[f"b{j}"], x, cfg, kind, window)
         if a is not None:
             aux = aux + a
+    if shared is not None:
+        x, _ = _attn_block_train(shared, x, _shared_sub_cfg(cfg), 0)
     return x, aux
 
 
@@ -123,21 +200,25 @@ def stack_train(params, x: torch.Tensor, cfg, before_layer=None):
     superblock ``i`` reads its rows, and once more with ``i =
     num_superblocks`` before the final norm.  It and the read of the rows
     run outside the checkpointed superblock, so the backward pass's
-    recompute repeats neither."""
+    recompute repeats neither.  The shared block's leaves are read once,
+    after ``before_layer(0)``: every application uses the same tensors."""
     kinds = superblock_kinds(cfg)
     n = num_superblocks(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = None
     for i in range(n):
         if before_layer is not None:
             before_layer(i)
+        if i == 0 and "shared" in params:
+            shared = _resolved(params["shared"])
         p = _layer(params["blocks"], i)
         if cfg.remat:
             x, aux = checkpoint(
-                lambda x_, a_, p_=p: _superblock_train(p_, x_, a_, cfg, kinds),
+                lambda x_, a_, p_=p: _superblock_train(p_, x_, a_, cfg, kinds, shared),
                 x, aux, use_reentrant=False,
             )
         else:
-            x, aux = _superblock_train(p, x, aux, cfg, kinds)
+            x, aux = _superblock_train(p, x, aux, cfg, kinds, shared)
     if before_layer is not None:
         before_layer(n)
     final_norm = {k: resolve(v) for k, v in params["final_norm"].items()}
@@ -148,24 +229,39 @@ def stack_train(params, x: torch.Tensor, cfg, before_layer=None):
 # decode (one token, stacked caches read row by row beside the params)
 # ---------------------------------------------------------------------------
 
+def _cache_one(cfg, kind, window, batch, max_len, device) -> dict:
+    if kind == "attn":
+        return attn.init_cache(cfg, batch, max_len, window=window, device=device)
+    if kind == "mamba":
+        return ssm_mod.ssm_state_init(cfg, batch, device=device)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_state_init(cfg, batch, device=device)
+    if kind == "slstm":
+        return xlstm_mod.slstm_state_init(cfg, batch, device=device)
+    raise ValueError(kind)
+
+
 def init_caches(cfg, batch: int, max_len: int, *, device) -> dict:
     """The caches stacked over superblocks, ``{"blocks": {"b{j}": {"k":
-    (n, B, T, K, hd), ...}}}`` as in the reference (the batch axis is 1);
-    zeros, or shapes only on the ``meta`` device."""
+    (n, B, T, K, hd), ...}}}`` as in the reference (the batch axis is 1):
+    an attention block's KV cache, a recurrent block's state; with the
+    shared block, ``"shared"``, one KV cache for each of its ``n``
+    applications.  Zeros, or shapes only on the ``meta`` device."""
     n = num_superblocks(cfg)
-    caches = {}
-    for j, (_, window) in enumerate(superblock_kinds(cfg)):
-        one = attn.init_cache(cfg, batch, max_len, window=window, device="meta")
-        caches[f"b{j}"] = {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype,
-                                          device=device)
-                           for k, v in one.items()}
-    return {"blocks": caches}
+
+    def stacked(kind, window):
+        one = _cache_one(cfg, kind, window, batch, max_len, "meta")
+        return {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=device)
+                for k, v in one.items()}
+
+    out = {"blocks": {f"b{j}": stacked(kind, window)
+                      for j, (kind, window) in enumerate(superblock_kinds(cfg))}}
+    if has_shared_block(cfg):
+        out["shared"] = stacked("attn", 0)
+    return out
 
 
-def _block_decode(p, x, cache, pos, cfg, kind, window):
-    if kind != "attn":  # mamba, mlstm, slstm: their families wait for a later slice
-        raise NotImplementedError(
-            f"block kind {kind!r} of family {cfg.family!r} is not ported")
+def _attn_block_decode(p, x, cache, pos, cfg, window):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     y, cache = attn.attn_decode(p["attn"], h, cache, pos, cfg, window=window)
     x = x + y
@@ -176,18 +272,41 @@ def _block_decode(p, x, cache, pos, cfg, kind, window):
         y, _ = moe_mod.moe_apply(p["moe"], h, cfg)
     else:
         y = mlp(p["mlp"], h, cfg.mlp_act, getattr(torch, cfg.compute_dtype))
-    return x + y, cache
+    return x + y
+
+
+def _block_decode(p, x, cache, pos, cfg, kind, window):
+    """One block's decode step; the cache rows (views) are written in
+    place, the KV row at ``pos`` or the whole recurrent state."""
+    if kind == "attn":
+        return _attn_block_decode(p, x, cache, pos, cfg, window)
+    if kind == "mamba":
+        y, new = ssm_mod.ssm_decode(p["ssm"], rmsnorm(p["ln"], x, cfg.norm_eps), cache, cfg)
+    elif kind == "mlstm":
+        y, new = xlstm_mod.mlstm_decode(p, x, cache, cfg)
+    elif kind == "slstm":
+        y, new = xlstm_mod.slstm_decode(p, x, cache, cfg)
+    else:
+        raise ValueError(kind)
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return x + y
 
 
 def stack_decode(params, x: torch.Tensor, caches: dict, pos: torch.Tensor, cfg):
     """x: (B, 1, d); pos: (B,).  Each superblock reads its parameter rows
-    and writes its cache rows (views of the stacked caches) in place.
-    Returns ``(y, caches)``."""
+    and writes its cache rows (views of the stacked caches) in place, then
+    the shared block, when there is one, its own KV cache row.  Returns
+    ``(y, caches)``."""
     kinds = superblock_kinds(cfg)
+    shared = _resolved(params["shared"]) if "shared" in params else None
     for i in range(num_superblocks(cfg)):
         p = _layer(params["blocks"], i)
         for j, (kind, window) in enumerate(kinds):
             rows = {k: v[i] for k, v in caches["blocks"][f"b{j}"].items()}
-            x, _ = _block_decode(p[f"b{j}"], x, rows, pos, cfg, kind, window)
+            x = _block_decode(p[f"b{j}"], x, rows, pos, cfg, kind, window)
+        if shared is not None:
+            rows = {k: v[i] for k, v in caches["shared"].items()}
+            x = _attn_block_decode(shared, x, rows, pos, _shared_sub_cfg(cfg), 0)
     final_norm = {k: resolve(v) for k, v in params["final_norm"].items()}
     return rmsnorm(final_norm, x, cfg.norm_eps), caches

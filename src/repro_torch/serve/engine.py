@@ -140,7 +140,10 @@ class Engine:
 
     def reset(self) -> None:
         """Fresh arena/queue/results/stats; the layout and the stage
-        functions are kept, so QPS sweeps can reuse one engine."""
+        functions are kept, so QPS sweeps can reuse one engine.  The old
+        arena's planes are dropped before the new ones are made, so the
+        two are never held at once."""
+        self.arena = None
         self.arena = KVArena(self.layout, self._num_pages, self.sc.batch_slots,
                              device=self.device)
         self.sched = Scheduler(self.sc.batch_slots)

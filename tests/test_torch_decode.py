@@ -261,8 +261,8 @@ def test_embed_scale_is_rounded_to_the_compute_dtype():
 
 def test_unported_block_kinds_raise_naming_the_family():
     cfg = tconfigs.get_reduced("gpt2-paper")
-    for fam in ("ssm", "hybrid"):
+    for fam in ("vlm", "audio"):
         with pytest.raises(NotImplementedError, match=repr(fam)):
             transformer.init_caches(cfg.with_(family=fam), 1, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="'mamba'"):
-        transformer._block_decode({}, None, {}, None, cfg, "mamba", 0)
+        with pytest.raises(NotImplementedError, match=repr(fam)):
+            build_model(cfg.with_(family=fam), device="meta")

@@ -1,6 +1,7 @@
-"""The attention families beyond gpt2-paper (qwen1.5-0.5b, gemma-2b,
-gemma2-27b, mistral-large-123b, deepseek-moe-16b, grok-1-314b) in the port
-against the JAX reference: configs, parameter paths, leaf order and dtypes,
+"""The families beyond gpt2-paper (qwen1.5-0.5b, gemma-2b, gemma2-27b,
+mistral-large-123b, deepseek-moe-16b, grok-1-314b, and the recurrent
+xlstm-125m and zamba2-2.7b) in the port against the JAX reference:
+configs, parameter paths, leaf order and dtypes,
 loss, aux loss and every gradient on the REDUCED configs, and the
 full-config bucket plans and COVAP bytes, built from ``meta`` tensors
 without allocating; the unported families' refusals; ``api.fit``,
@@ -28,7 +29,12 @@ import repro_torch.api as api
 import repro_torch.configs as tconfigs
 from repro_torch.core import build_plan, build_ready_order, get_compressor
 from repro_torch.core.overlap import EMBED_STAGE, bucket_first_use
-from repro_torch.interop import params_from_jax
+from repro_torch.interop import (
+    caches_from_jax,
+    caches_to_numpy,
+    params_from_jax,
+    params_to_numpy,
+)
 from repro_torch.launch import train as cli
 from repro_torch.models import (
     build_model,
@@ -56,6 +62,8 @@ CUTS = {
                                        1600331776]),
     ("mistral-large-123b", 1): (71, 74, [1115160576, 1083703296, 1090019328,
                                          1090043904]),
+    ("xlstm-125m", None): (32, 77, [182449248, 179818080, 184771680, 187276800]),
+    ("zamba2-2.7b", 12): (126, 209, [772638720, 734515840, 746475520, 735826560]),
 }
 FULL = [(a, None) for a in ARCHS] + [k for k in CUTS if k[1] is not None]
 
@@ -82,7 +90,8 @@ def test_registry_lists_the_ported_archs_in_the_reference_s_order():
     names = tconfigs.list_archs()
     assert names == [a for a in rconfigs.list_archs() if a in names]
     assert set(ARCHS) == {"qwen1.5-0.5b", "gemma-2b", "gemma2-27b",
-                          "mistral-large-123b", "deepseek-moe-16b", "grok-1-314b"}
+                          "mistral-large-123b", "deepseek-moe-16b", "grok-1-314b",
+                          "xlstm-125m", "zamba2-2.7b"}
     assert tconfigs.list_archs(assigned_only=True) == [a for a in names
                                                        if a != "gpt2-paper"]
 
@@ -96,8 +105,7 @@ def test_config_fields_match_reference(arch, reduced):
     assert cfg.is_moe == rcfg.is_moe
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b", "pixtral-12b",
-                                  "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["pixtral-12b", "seamless-m4t-medium"])
 def test_unported_families_raise_naming_the_family(arch):
     family = rconfigs.get_config(arch).family
     for get in (tconfigs.get_config, tconfigs.get_reduced):
@@ -132,6 +140,71 @@ def _init(arch, seed=0):
     perturb(params)
     assert len(_tree_paths(params)) == len(flat)
     return params
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_interop_round_trips_the_recurrent_trees(arch):
+    """``params_from_jax``/``params_to_numpy`` over the recurrent trees
+    (``stack.shared.*``, the f32 gate and decay leaves among f32 or bf16
+    matrices), and ``caches_from_jax``/``caches_to_numpy`` over their
+    state caches: the same paths, dtypes and values both ways."""
+    for dtype in ("float32", "bfloat16"):
+        rcfg, cfg = _configs(arch, reduced=True)
+        rcfg, cfg = rcfg.with_(param_dtype=dtype), cfg.with_(param_dtype=dtype)
+        rmodel = r_build_model(rcfg)
+        want = _tree_paths(jax.tree.map(np.asarray, rmodel.init(jax.random.PRNGKey(1))))
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(params_from_jax(_unflat(want), device="cpu"))
+        back = _tree_paths(params_to_numpy(model))
+        assert sorted(back) == sorted(want)
+        for path, w in want.items():
+            assert back[path].dtype == w.dtype, path
+            np.testing.assert_array_equal(back[path].astype(np.float32),
+                                          w.astype(np.float32), err_msg=path)
+        rc = jax.tree.map(np.asarray, rmodel.init_caches(2, 16))
+        rc = jax.tree.map(lambda a: (np.arange(a.size) % 7).reshape(a.shape).astype(a.dtype), rc)
+        caches = caches_from_jax(rc, device="cpu")
+        specs = _tree_paths(model.cache_specs(2, 16))
+        got = _tree_paths(caches)
+        assert sorted(got) == sorted(specs)
+        for path, t in got.items():
+            assert t.shape == specs[path].shape and t.dtype == specs[path].dtype, path
+        for path, a in _tree_paths(caches_to_numpy(caches)).items():
+            np.testing.assert_array_equal(a, _tree_paths(rc)[path], err_msg=path)
+
+
+def _unflat(flat):
+    tree: dict = {}
+    for path, v in flat.items():
+        *heads, last = path.split(".")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return tree
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_recurrent_init_follows_reference_rules(arch):
+    """The port's own init of the recurrent leaves against the reference's
+    (different generators, the same rules), leaf by leaf on the REDUCED
+    config: the same dtype (the gate and decay leaves stay f32), the same
+    constants (``A_log`` 0, ``D`` 1, ``dt_bias`` 0, conv biases 0, forget
+    biases 3), and spreads within 15% (30% under 1,000 elements)."""
+    rcfg, cfg = _configs(arch, reduced=True)
+    want = _tree_paths(jax.tree.map(np.asarray,
+                                    r_build_model(rcfg).init(jax.random.PRNGKey(0))))
+    got = dict(build_model(cfg, device="cpu", seed=5).named_leaves())
+    assert list(got) == list(want)
+    for path, w in want.items():
+        g = got[path].detach()
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype), path
+        g = g.float().numpy()
+        if np.all(w == w.flat[0]):
+            assert np.all(g == w.flat[0]), path
+            continue
+        tol = 0.15 if w.size >= 1000 else 0.3
+        assert abs(g.std() / w.std() - 1) < tol, (path, g.std(), w.std())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -231,8 +304,9 @@ def test_full_config_plans_equal_reference(arch, layers):
 @pytest.mark.parametrize("arch,layers", FULL)
 def test_ready_order_and_first_use_on_the_new_plans(arch, layers):
     """``ReadyOrder`` equals the reference's on the full-config plans, and
-    each bucket's first-use stage is its shallowest superblock row, the
-    head's the superblock count: the stage the decoder's last
+    each bucket's first-use stage is its shallowest superblock row (0 for
+    zamba2's shared block), the head's the superblock count: the stage the
+    decoder's last
     ``before_layer`` call reaches (gemma2 has half as many as layers)."""
     rcfg, cfg = _configs(arch, layers=layers)
     shapes = jax.eval_shape(r_build_model(rcfg).init, jax.random.PRNGKey(0))
@@ -253,6 +327,9 @@ def test_ready_order_and_first_use_on_the_new_plans(arch, layers):
                    for s in plan.buckets[b].segments)
         embed = any(plan.leaf_paths[s.leaf_idx].startswith("embed.")
                     for s in plan.buckets[b].segments)
+        # zamba2's weight-shared block is read once, before superblock 0
+        rows += [0 for s in plan.buckets[b].segments
+                 if plan.leaf_paths[s.leaf_idx].startswith("stack.shared.")]
         assert stage == (EMBED_STAGE if embed else min(rows + [n] if tail else rows))
     # every stage is one the layer loop calls before_layer for
     assert set(stages) <= set(range(EMBED_STAGE, n + 1))
@@ -260,10 +337,12 @@ def test_ready_order_and_first_use_on_the_new_plans(arch, layers):
 
 @pytest.mark.parametrize("model_axis", [1, 16])
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-moe-16b", "grok-1-314b",
-                                  "gemma2-27b"])
+                                  "gemma2-27b", "xlstm-125m", "zamba2-2.7b"])
 def test_build_param_specs_equals_reference(arch, model_axis):
     """The MoE rule (expert-parallel on E when it divides, else the ff
-    dim) and the bias and router leaves, at full width."""
+    dim), the bias and router leaves, and the recurrent blocks' names
+    (``wz``, ``wx``, ``up_x``, ``up_z``, ``conv_x`` on their last axis;
+    ``down``, ``out_proj`` on their input axis), at full width."""
     rcfg, cfg = _configs(arch)
     want = r_build_param_specs(rcfg, r_build_model(rcfg).init, model_axis, "model")
     flat = {".".join(str(k.key) for k in path): tuple(spec) for path, spec in

@@ -1,8 +1,9 @@
 """The port's ``Trainer.run`` on the new families' REDUCED configs: COVAP
 I=4 with AdamW over a full cycle plus one step against
-``repro.train.Trainer.run`` (qwen1.5-0.5b, gemma2-27b, deepseek-moe-16b),
-the arena, sharded and fused forms against the port's own post path bit
-for bit, and a leaf outside the loss."""
+``repro.train.Trainer.run`` (qwen1.5-0.5b, gemma2-27b, deepseek-moe-16b,
+xlstm-125m, zamba2-2.7b), the arena, sharded and fused forms against the
+port's own post path bit for bit (zamba2 at 4 layers, so that its
+weight-shared block runs twice a step), and a leaf outside the loss."""
 import jax
 import numpy as np
 import pytest
@@ -62,7 +63,8 @@ def _port(cfg, init, opt, steps=STEPS, group=None, **tc):
     return tr, state
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-27b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-27b", "deepseek-moe-16b",
+                                  "xlstm-125m", "zamba2-2.7b"])
 def test_trainer_adamw_matches_reference(arch):
     """The tolerances of ``tests/test_torch_trainer.py``'s AdamW run:
     losses at rtol 1e-5, params and residuals at rtol 1e-4 and ``atol = 2
@@ -106,14 +108,25 @@ FORMS = {"arena": dict(arena=True), "sharded": dict(sync="sharded"),
          "fused-sharded-arena": dict(overlap="fused", sync="sharded", arena=True)}
 
 
+# the depth of a forms run: zamba2's REDUCED 2 layers are one superblock,
+# and the shared block runs once; at 4 it runs after each of two
+FORM_LAYERS = {"zamba2-2.7b": 4}
+
+
 @pytest.mark.parametrize("form", sorted(FORMS))
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "gemma2-27b", "xlstm-125m",
+                                  "zamba2-2.7b"])
 def test_forms_equal_post_bitwise(arch, form, one_rank_gloo):
     """Each form against the post path over a full cycle plus one step, in
     a one-rank gloo group (sharded sync's head all-gather runs and settles
     each bucket at its superblock; gemma2's one superblock holds two
-    layers): losses, params, Adam moments and residuals by ``torch.equal``."""
+    layers; zamba2's shared block is read once, after the head gather's
+    stage 0, and under fused its hook fires once, after both
+    applications' gradients): losses, params, Adam moments and residuals
+    by ``torch.equal``."""
     cfg = tconfigs.get_reduced(arch)
+    if arch in FORM_LAYERS:
+        cfg = cfg.with_(num_layers=FORM_LAYERS[arch])
     runs = {}
     for name, opts in (("post", {}), (form, FORMS[form])):
         tr, state = _port(cfg.with_(remat=True) if "fused" in name else cfg, None,
@@ -131,6 +144,8 @@ def test_forms_equal_post_bitwise(arch, form, one_rank_gloo):
     if "sharded" in form:
         layers = [i for kind, i in tf.gather_events if kind == "layer"]
         assert layers == list(range(tf.model.num_stages + 1))
+    if arch == "zamba2-2.7b":
+        assert tf.model.num_stages == 2
 
 
 class _TwoLeaves:

@@ -140,9 +140,12 @@ def test_model_layout_equals_reference(arch, full, kv):
     want = r_plan(r_build_model(rcfg).cache_specs, max_len, ps)
     _assert_layout_equal(got, want)
     # gemma2's local layer keeps a rolling window, resident where the
-    # window (16 REDUCED, 4096 full) is shorter than the arena; the rest pages
-    assert got.has_resident == (arch == "gemma2-27b" and not full)
-    assert ("int8" in got.plane_dtypes) == (kv == "int8")
+    # window (16 REDUCED, 4096 full) is shorter than the arena; the
+    # recurrent states (xlstm, zamba2) are resident; xlstm has no KV cache
+    recurrent = arch in ("xlstm-125m", "zamba2-2.7b")
+    assert got.has_resident == (recurrent or (arch == "gemma2-27b" and not full))
+    assert got.has_paged == (arch != "xlstm-125m")
+    assert ("int8" in got.plane_dtypes) == (kv == "int8" and arch != "xlstm-125m")
 
 
 def test_full_width_page_bytes():
@@ -157,6 +160,28 @@ def test_full_width_page_bytes():
     assert arena_bytes("gpt2-paper") == (589_824, 512, 301_989_888)
     assert arena_bytes("gpt2-paper", "int8") == (304_128, 512, 155_713_536)
     assert arena_bytes("qwen1.5-0.5b") == (1_572_864, 512, 805_306_368)
+
+
+@pytest.mark.parametrize("arch,layers,want", [
+    ("zamba2-2.7b", None, ((18_544_896, 737_280), 75_654_144, 520)),
+    ("zamba2-2.7b", 12, ((4_121_088, 163_840), 16_812_032, 520)),
+    ("xlstm-125m", None, ((5_331_492,), 21_325_968, 8)),
+])
+def test_recurrent_arena_rows_equal_reference(arch, layers, want):
+    """The recurrent archs' arenas at 8 slots, max_len 1024, page 16, as
+    the reference lays them out: a page id indexes every plane, so each
+    row of a plane is as wide as the wider of a token page and one slot's
+    whole resident state; zamba2's f32 rows carry its Mamba2 states (only
+    8 of its 520 rows ever hold one), xlstm has resident rows only."""
+    cfg, rcfg = tconfigs.get_config(arch), rconfigs.get_config(arch)
+    if layers is not None:
+        cfg, rcfg = cfg.with_(num_layers=layers), rcfg.with_(num_layers=layers)
+    got = plan_kv_layout(build_model(cfg, device="meta").cache_specs, 1024, 16)
+    ref = r_plan(r_build_model(rcfg).cache_specs, 1024, 16)
+    _assert_layout_equal(got, ref)
+    elems, page_bytes, pages = want
+    assert got.plane_elems == elems and got.page_bytes() == page_bytes
+    assert KVArena.auto_pages(got, 8) == RKVArena.auto_pages(ref, 8) == pages
 
 
 def test_arena_planes_hold_a_null_row_outside_nbytes(layout):
