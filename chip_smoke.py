@@ -142,7 +142,7 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            at 2 pods x 8 workers
            (``[launch]`` and ``[pods]`` run after ``[sparse]``, before
            ``[adaptive]``)
-  families the dense, MoE, SSM and hybrid archs at full width
+  families the dense, MoE, SSM, hybrid, audio and VLM archs at full width
            (``FAMILY_RUNS``; after ``[resilience]``, before ``[overlap]``):
            qwen1.5-0.5b's full
            config 5 steps (``ef_update`` 114 a step; one step on the same
@@ -161,8 +161,15 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            (``pack_ef_cast`` 209 a step) and with ``overlap="fused"``
            (the shared block's bucket hooks fire once a step, after both
            applications' gradients), each == the post run bit for bit, 3
-           steps each; each run's state bytes, COVAP bytes per worker at
-           W=8, step ms, tok/s and peak memory
+           steps each; seamless-m4t-medium at its full config (12 + 12
+           layers, 1024 frames (std-0.02 normals, numpy seed 0) + 1024
+           tokens a row; 181 a step) on post, ``arena=True,
+           sync="sharded"`` and ``overlap="fused"``, each == post bit for
+           bit; pixtral-12b cut to 1 layer (256 patch embeddings + 768
+           tokens a row, f32 params with bf16 moments, 129 a step; a
+           falling loss, the projector's gradient norm > 0); each run's
+           state bytes, COVAP bytes per worker at W=8, step ms, tok/s and
+           peak memory
   serve    serving at full width (after ``[families]``, before ``[overlap]``;
            ``SERVE_CONFIG``: 8 slots, max_len 1024, page 16, prefill chunk
            16, 64 new tokens): gpt2-paper with a bf16 KV cache, then with
@@ -186,18 +193,24 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            32 new); xlstm-125m and zamba2-2.7b at their full configs
            (``SERVE_RECURRENT``: paged == dense on 8 prompts cut to 32 and
            16 tokens, then 4 requests of 16-64 tokens, 32 new; the arena's
-           rows beside the one resident state a slot holds); ``python -m
+           rows beside the one resident state a slot holds);
+           seamless-m4t-medium and pixtral-12b at their full configs
+           (``SERVE_FRONTEND``: seamless's requests each with frames of
+           their own, encoded at prefill into the resident
+           ``mem_k``/``mem_v``; pixtral text only; paged == dense, then 4
+           requests); ``python -m
            repro_torch.launch.serve --full --arch gpt2-paper`` in a
            subprocess.  No kernel launches in the phase
   small    REDUCED gpt2-paper trained 5 steps on the card and on the CPU
            from the same parameters and batches, on the defaults, with
            ``arena=True`` and with ``powersgd`` (the CPU run is the path the
-           tests hold against the JAX reference); then the eight families'
-           archs' REDUCED configs and grok-1-314b's with bf16 parameters (an
-           f32 router in bf16 buckets) on the defaults, the bf16 one at 2
-           bf16 ulps; last, the nine archs' REDUCED configs served on the card
-           and on the CPU (``SMALL_SERVE_*``): the same tokens, finish
-           reasons and page tables, logits within 1e-4
+           tests hold against the JAX reference); then the ten families'
+           archs' REDUCED configs (pixtral's and seamless's batches with
+           their frontend embeddings) and grok-1-314b's with bf16
+           parameters (an f32 router in bf16 buckets) on the defaults, the
+           bf16 one at 2 bf16 ulps; last, the eleven archs' REDUCED configs
+           served on the card and on the CPU (``SMALL_SERVE_*``): the same
+           tokens, finish reasons and page tables, logits within 1e-4
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1271,6 +1284,52 @@ def clone_tree(x):
     return x
 
 
+# the key of a frontend family's stub embeddings in its batches
+FRONTEND_KEY = {"vlm": "patch_embeds", "audio": "frames"}
+
+
+def frontend_embeds(cfg, batch: int, device="cuda", seed: int = 0) -> torch.Tensor:
+    """``batch`` rows of ``cfg``'s stub frontend output, (batch,
+    frontend_tokens, d_model) f32 std-0.02 normals from numpy's
+    ``default_rng(seed)``: pixtral's patch embeddings, seamless's frames."""
+    rng = np.random.default_rng(seed)
+    x = 0.02 * rng.standard_normal((batch, cfg.frontend_tokens, cfg.d_model))
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+class FrontendLoader:
+    """A loader whose every batch also carries the same frontend
+    embeddings (:func:`frontend_embeds`, numpy seed 0) under its family's
+    key: the reference's loader yields tokens and labels only, and its
+    tests and serving feed these families embeddings of their own."""
+
+    def __init__(self, loader, cfg, global_batch: int, device="cuda"):
+        self.loader = loader
+        self.key = FRONTEND_KEY[cfg.family]
+        self.embeds = frontend_embeds(cfg, global_batch, device)
+
+    def make(self, step: int) -> dict:
+        return dict(self.loader.make(step), **{self.key: self.embeds})
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.make(step)
+            step += 1
+
+
+def train_loader(cfg, *, seq_len: int, global_batch: int, device="cuda", **data):
+    """The synthetic loader of ``cfg`` (``seq_len`` text tokens a row),
+    wrapped in a :class:`FrontendLoader` for a frontend family."""
+    from repro_torch.data import DataConfig, make_loader
+
+    loader = make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                    global_batch=global_batch, **data), device=device)
+    if cfg.family in FRONTEND_KEY:
+        return FrontendLoader(loader, cfg, global_batch, device)
+    return loader
+
+
 def ckpt_batches(cfg, seq_len=1024, global_batch=8, device="cuda") -> list[dict]:
     """The first 5 batches of :func:`phase_train`'s loader: the checkpoint
     and re-plan phases feed each run the same list."""
@@ -1290,8 +1349,9 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
     (``{"ef_update": n, "pack_ef_cast": m, ...}``, every kernel) over
     ``steps`` steps, AdamW's moments in ``moment_dtype`` (the parameters'
     dtype when ``None``).  The trainer's ``run_stats`` holds the ms of
-    steps 1 on, tok/s after step 0 and the peak GiB."""
-    from repro_torch.data import DataConfig, make_loader
+    steps 1 on, tok/s after step 0 and the peak GiB.  A frontend family's
+    batches carry its stub embeddings (:class:`FrontendLoader`); tok/s
+    counts the ``seq_len`` text tokens of a row."""
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.train import TrainConfig, Trainer
@@ -1314,11 +1374,7 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
     tr = Trainer(model, opt, tc, group=group)
     state = tr.init_state()
     n_params = sum(p.numel() for p in state["params"])
-    loader = make_loader(
-        DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                   global_batch=global_batch),
-        device=device,
-    )
+    loader = train_loader(cfg, seq_len=seq_len, global_batch=global_batch, device=device)
     lines: list[str] = []
     if device != "cpu":
         torch.cuda.synchronize()
@@ -2344,17 +2400,24 @@ FAMILY_RUNS = (
     ("zamba2 12L arena+sharded", "zamba2-2.7b", 12, 3,
      {"arena": True, "sync": "sharded"}, None, 209),
     ("zamba2 12L fused", "zamba2-2.7b", 12, 3, {"overlap": "fused"}, None, 209),
+    ("seamless", "seamless-m4t-medium", None, 3, {}, None, 181),
+    ("seamless arena+sharded", "seamless-m4t-medium", None, 3,
+     {"arena": True, "sync": "sharded"}, None, 181),
+    ("seamless fused", "seamless-m4t-medium", None, 3, {"overlap": "fused"}, None, 181),
+    ("pixtral 1L", "pixtral-12b", 1, 3, {}, "bfloat16", 129),
 )
 # a run's (seq_len, global_batch) where it is not (1024, 8): the mLSTM's
 # backward pass keeps its (B, 4, 384, 384) f32 state for every token (2.4
 # MB a sequence a token), and a checkpointed xlstm superblock recomputes
 # three mLSTM layers at once.  On an NVIDIA H100 80GB HBM3 (700 W) batch 8
 # ran out of memory at 76.52 GiB allocated; batch 7 peaked at 71.65 GiB,
-# batch 6 at 62.74
-FAMILY_SHAPES = {"xlstm": (1024, 7)}
+# batch 6 at 62.74.  pixtral's rows are 256 patch embeddings and 768 text
+# tokens (1024 positions); seamless's 1024 frames and 1024 text tokens
+FAMILY_SHAPES = {"xlstm": (1024, 7), "pixtral 1L": (768, 8)}
 # a run held bit for bit against an earlier run of the list
 FAMILY_PARITY = {"qwen arena+sharded": "qwen", "zamba2 12L arena+sharded": "zamba2 12L",
-                 "zamba2 12L fused": "zamba2 12L"}
+                 "zamba2 12L fused": "zamba2 12L", "seamless arena+sharded": "seamless",
+                 "seamless fused": "seamless"}
 
 
 def f32_segments(plan) -> int:
@@ -2413,13 +2476,33 @@ def family_ef_parity(tr, state, loader, group) -> float:
     return worst
 
 
+def projector_grad_norm(tr, batch) -> float:
+    """One forward and backward of ``batch`` with only ``projector.w``
+    requiring a gradient (no other leaf's gradient is made): the norm of
+    the projector's gradient."""
+    leaves = dict(tr.model.named_leaves())
+    proj = leaves["projector.w"]
+    flags = {n: p.requires_grad for n, p in leaves.items()}
+    for n, p in leaves.items():
+        p.requires_grad_(n == "projector.w")
+    try:
+        total, _ = tr.model.loss_fn(batch)
+        total.backward()
+        return float(proj.grad.float().norm())
+    finally:
+        proj.grad = None
+        for n, p in leaves.items():
+            p.requires_grad_(flags[n])
+
+
 def phase_families(group, smi: str) -> dict:
-    """The dense, MoE, SSM and hybrid families at full width
-    (``FAMILY_RUNS``, one-rank NCCL group, seq 1024, global batch 8 unless
-    ``FAMILY_SHAPES`` cuts it, COVAP I=4 with AdamW): each run's EF kernel
-    launches equal its plan's f32 segments x steps, the plan's segments
-    equal the reference's, its losses are finite; each run of
-    ``FAMILY_PARITY`` equals its post run bit for bit.  Returns the
+    """The dense, MoE, SSM, hybrid, audio (encoder-decoder) and VLM
+    families at full width (``FAMILY_RUNS``, one-rank NCCL group, seq 1024,
+    global batch 8 unless ``FAMILY_SHAPES`` cuts it, COVAP I=4 with
+    AdamW; the frontend families' batches carry their stub embeddings):
+    each run's EF kernel launches equal its plan's f32 segments x steps,
+    the plan's segments equal the reference's, its losses are finite; each
+    run of ``FAMILY_PARITY`` equals its post run bit for bit.  Returns the
     launches by run label."""
     from repro_torch.configs import get_config
     from repro_torch.core import get_compressor
@@ -2450,8 +2533,17 @@ def phase_families(group, smi: str) -> dict:
         bytes_w8 = [get_compressor("covap", interval=4).plan_phase(plan, p, world=8)
                     .bytes_per_worker for p in range(4)]
         ms, tok_s, peak = tr.run_stats
-        cut = f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
-        if (seq_len, batch) != (1024, 8):
+        full = get_config(arch)
+        cut = (f"{cfg.num_layers} of {full.num_layers} layers"
+               if cfg.num_layers != full.num_layers else "its full config")
+        if cfg.family == "vlm":
+            cut += (f", {cfg.frontend_tokens} patch embeddings + {seq_len} text tokens a "
+                    f"row x global batch {batch}")
+        elif cfg.is_encdec:
+            cut += (f" ({cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers), "
+                    f"{cfg.frontend_tokens} frames + {seq_len} text tokens a row x global "
+                    f"batch {batch}")
+        elif (seq_len, batch) != (1024, 8):
             cut += f", seq {seq_len} x global batch {batch} (cut from 1024 x 8)"
         print(f"[families] {label}: {arch} at full width, {cut}, "
               f"{sum(p.numel() for p in state['params'])} params, state "
@@ -2517,6 +2609,30 @@ def phase_families(group, smi: str) -> dict:
                   f"{cfg.num_heads}, head_dim {cfg.head_dim}, {cfg.mlp_act}, vocab "
                   f"{cfg.vocab_size} (padded {padded_vocab(cfg)}) in "
                   f"{1024 // cfg.xent_chunk} xent chunks; losses {losses}", flush=True)
+        elif label == "seamless":
+            check(tr.model.num_stages == cfg.encoder_layers + cfg.num_layers,
+                  f"{label}: {tr.model.num_stages} stages")
+            print(f"[families] {label}: encoder {cfg.encoder_layers} L (bidirectional) + "
+                  f"decoder {cfg.num_layers} L (causal, cross-attention to the memory, "
+                  f"its K/V projected in every layer), {cfg.mlp_act}, vocab "
+                  f"{cfg.vocab_size} (padded {padded_vocab(cfg)}), frames std-0.02 "
+                  f"normals from numpy seed 0; {tr.model.num_stages} stages; losses "
+                  f"{losses}", flush=True)
+        elif label.startswith("pixtral"):
+            dts = {p.dtype for p in state["params"]}
+            mdts = {m.dtype for m in state["opt"]["m"] + state["opt"]["v"]}
+            check(dts == {torch.float32} and mdts == {torch.bfloat16},
+                  f"{label}: params {dts}, moments {mdts}")
+            check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+            gnorm = projector_grad_norm(tr, loader.make(steps))
+            check(math.isfinite(gnorm) and gnorm > 0,
+                  f"{label}: projector gradient norm {gnorm}")
+            print(f"[families] {label}: f32 params, bf16 Adam moments; the "
+                  f"{cfg.frontend_tokens} patch embeddings (std-0.02 normals from numpy "
+                  f"seed 0) projected by projector.w ({cfg.d_model} x {cfg.d_model}) and "
+                  f"prepended, labels padded with -1 over them; losses {losses} finite "
+                  f"and falling; projector gradient norm on batch {steps}: {gnorm:.6g}",
+                  flush=True)
         elif label.startswith("mistral"):
             dts = {p.dtype for p in state["params"]}
             mdts = {m.dtype for m in state["opt"]["m"] + state["opt"]["v"]}
@@ -2815,13 +2931,13 @@ BF16_RTOL, BF16_ULP = 2.0 ** -6, 2.0 ** -7
 
 
 def phase_small_families() -> None:
-    """The eight assigned archs' REDUCED configs (and grok-1-314b's with bfloat16
+    """The ten assigned archs' REDUCED configs (and grok-1-314b's with bfloat16
     parameters, whose f32 router shares buckets with bf16 experts) on the
     card against the port on the CPU: 5 SGD steps on the defaults from the
-    same parameters and batches; ``ef_update`` once per f32 segment a step
-    on the card, never on the CPU."""
+    same parameters and batches (pixtral's with patch embeddings,
+    seamless's with frames); ``ef_update`` once per f32 segment a step on
+    the card, never on the CPU."""
     from repro_torch.configs import get_reduced, list_archs
-    from repro_torch.data import DataConfig, make_loader
     from repro_torch.models import build_model
     from repro_torch.optim import sgd
     from repro_torch.train import TrainConfig, Trainer
@@ -2840,9 +2956,8 @@ def phase_small_families() -> None:
             tr = Trainer(model, sgd(1e-2, momentum=0.9),
                          TrainConfig(bucket_bytes=1 << 14, max_buckets=32,
                                      steps=STEPS, log_every=1))
-            loader = make_loader(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                                            global_batch=4, corpus_tokens=1 << 14),
-                                 device=dev)
+            loader = train_loader(cfg, seq_len=32, global_batch=4, device=dev,
+                                  corpus_tokens=1 << 14)
             before = {k: f.launches for k, f in counters.items()}
             state = tr.run(tr.init_state(), loader, log=None)
             out[dev] = ([h["total_loss"] for h in tr.history],
@@ -2894,6 +3009,12 @@ SMALL_SERVE_ATOL = 1e-4   # REDUCED logits, f32, card against the CPU
 # SERVE_SLEEP_CYCLES
 SERVE_RECURRENT = (("xlstm-125m", SERVE_CHECK_PROMPT, SERVE_SLEEP_CYCLES),
                    ("zamba2-2.7b", 16, 5 * SERVE_SLEEP_CYCLES))
+# the frontend families served at their full configs, the prompt length of
+# their paged == dense check and the sleep ahead of a timed call (a
+# full-width pixtral prefill token is one batch-1 decode step over 49.1 GB
+# of f32 weights, 40 layers to enqueue)
+SERVE_FRONTEND = (("seamless-m4t-medium", SERVE_CHECK_PROMPT, SERVE_SLEEP_CYCLES),
+                  ("pixtral-12b", 16, 5 * SERVE_SLEEP_CYCLES))
 
 
 def serve_prompts(n: int, lo: int, hi: int, vocab: int, seed: int = 0) -> list[list[int]]:
@@ -2915,14 +3036,18 @@ def recording_sampler(log: list):
 
 
 def serve_paged_equals_dense(model, prompts: list[list[int]], label: str,
-                             sleep_cycles: int = SERVE_SLEEP_CYCLES) -> None:
+                             sleep_cycles: int = SERVE_SLEEP_CYCLES,
+                             frames: list | None = None) -> None:
     """All ``batch_slots`` slots admitted at once, then ``SERVE_CHECK_STEPS``
     generate steps, beside a dense batch-8 cache built from the same
     prefills (each request's own batch-1 ``ChunkedPrefill``, concatenated
     on the batch axis) and stepped with ``decode_step``: the prefill
     logits, every generate step's logits and, after each step, the caches
     ``gather_caches`` reads through the page tables equal the dense ones,
-    bit for bit."""
+    bit for bit.  An encoder-decoder model's requests carry ``frames``, one
+    (1, T, d) tensor each; the dense prefill starts from their
+    ``memory_kv`` as the engine's does, and the resident ``mem_k``/``mem_v``
+    are held with the rest."""
     from repro_torch.serve import ChunkedPrefill, Engine, ServeConfig, gather_caches
     from repro_torch.serve.kv_arena import tree_flatten, tree_unflatten
 
@@ -2931,16 +3056,20 @@ def serve_paged_equals_dense(model, prompts: list[list[int]], label: str,
     eng = Engine(model, None, sc, sample=recording_sampler(log))
     check(len(prompts) == sc.batch_slots, f"[serve] {label}: {len(prompts)} prompts")
     prefill = ChunkedPrefill(model, sc.prefill_chunk)
+    frames = frames or [None] * len(prompts)
     want_logits, parts = [], []
-    for p in prompts:
-        logits, pc, _ = prefill(None, model.init_caches(1, eng.layout.tokens), p)
+    for p, f in zip(prompts, frames):
+        pc = model.init_caches(1, eng.layout.tokens)
+        if f is not None:
+            pc["mem_k"], pc["mem_v"] = model.memory_kv(None, f)
+        logits, pc, _ = prefill(None, pc, p)
         want_logits.append(logits)
         parts.append(tree_flatten(pc))
     paths = parts[0][1]
     dense = tree_unflatten(paths, [torch.cat(leaves, dim=1)
                                    for leaves in zip(*(v for v, _ in parts))])
-    for p in prompts:
-        eng.submit(p)
+    for p, f in zip(prompts, frames):
+        eng.submit(p, f)
     tokens = torch.tensor([[int(torch.argmax(l[0, 0]))] for l in want_logits], device="cuda")
     pos = torch.tensor([len(p) for p in prompts], device="cuda")
     for step in range(1 + SERVE_CHECK_STEPS):
@@ -3001,8 +3130,10 @@ def serve_paged_equals_dense(model, prompts: list[list[int]], label: str,
     torch.cuda.empty_cache()
 
 
-def serve_run(model, prompts: list[list[int]], sc, label: str, smi: str):
-    """Serve ``prompts`` (all submitted at once) to completion; print the
+def serve_run(model, prompts: list[list[int]], sc, label: str, smi: str,
+              frames: list | None = None):
+    """Serve ``prompts`` (all submitted at once, each with its ``frames``
+    when given) to completion; print the
     arena, the stage unit costs, tok/s, engine steps, finish reasons, peak
     memory and wall seconds.  A short warm-up request runs first on the
     same engine (reset after).  -> (engine, its metrics)."""
@@ -3015,7 +3146,7 @@ def serve_run(model, prompts: list[list[int]], sc, label: str, smi: str):
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rids = [eng.submit(p) for p in prompts]
+    rids = [eng.submit(p, f) for p, f in zip(prompts, frames or [None] * len(prompts))]
     t0 = time.perf_counter()
     steps = 0
     while eng.busy:
@@ -3116,8 +3247,8 @@ def phase_serve(smi: str) -> None:
     and with ``kv_cache_dtype="int8"`` (paged == dense bit for bit, then 16
     requests of 16-128 prompt tokens from numpy seed 0), qwen1.5-0.5b at
     its full config (4 requests of 16-64), the recurrent archs
-    (:func:`serve_recurrent`), a ``page_starve`` run and the CLI; no kernel
-    launches on the way."""
+    (:func:`serve_recurrent`), the frontend archs (:func:`serve_frontend`),
+    a ``page_starve`` run and the CLI; no kernel launches on the way."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServeConfig
@@ -3153,6 +3284,7 @@ def phase_serve(smi: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     serve_recurrent(smi)
+    serve_frontend(smi)
     serve_cli()
     counts = {k: f.launches - before[k] for k, f in counters.items()}
     check(counts == launch_counts(), f"[serve] kernel launches {counts}: no kernel "
@@ -3194,11 +3326,53 @@ def serve_recurrent(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+def serve_frontend(smi: str) -> None:
+    """The frontend families at their full configs (``SERVE_FRONTEND``):
+    seamless-m4t-medium, each request with frames of its own (numpy seed
+    ``i`` for request ``i``), encoded at prefill into the resident
+    ``mem_k``/``mem_v``; pixtral-12b text only, as the reference decodes.
+    Paged == dense bit for bit on 8 prompts cut short, then 4 requests of
+    16-64 prompt tokens, 32 new; the arena's rows beside what a slot holds
+    in them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig
+
+    for arch, check_len, sleep_cycles in SERVE_FRONTEND:
+        cfg = get_config(arch)
+        model = build_model(cfg, device="cuda", seed=0)
+        prompts = serve_prompts(8, 16, 64, cfg.vocab_size)
+        frames = ([frontend_embeds(cfg, 1, seed=i) for i in range(8)] if cfg.is_encdec
+                  else None)
+        label = f"{arch} full"
+        serve_paged_equals_dense(model, [p[:check_len] for p in prompts], label,
+                                 sleep_cycles, frames=frames)
+        eng, _ = serve_run(model, prompts[:4],
+                           ServeConfig(**dict(SERVE_CONFIG, max_new_tokens=32)), label,
+                           smi, frames=frames[:4] if frames else None)
+        lay = eng.layout
+        res = sum(l.numel * getattr(torch, l.dtype).itemsize
+                  for l in lay.leaves if not l.paged)
+        tok = sum(l.numel * getattr(torch, l.dtype).itemsize for l in lay.leaves if l.paged)
+        params = sum(p.numel() * p.element_size() for p in model.parameters())
+        print(f"[serve] {label}: {sum(p.numel() for p in model.parameters())} params "
+              f"({params} B, {next(model.parameters()).dtype}); plane rows of "
+              f"{list(lay.plane_elems)} elements ({list(lay.plane_dtypes)}): a token "
+              f"page's KV {tok} B, one slot's resident memory K/V {res} B "
+              f"({[l.name for l in lay.leaves if not l.paged]}); "
+              f"{eng.arena.num_pages} pages of {lay.page_bytes()} B = "
+              f"{eng.arena.nbytes()} B", flush=True)
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_serve_small() -> None:
-    """The nine archs' REDUCED configs served on the card and on the CPU
+    """The eleven archs' REDUCED configs served on the card and on the CPU
     from the same parameters and prompts (``SMALL_SERVE_*``; MoE at the
-    drop-free capacity ``cf = E``): the same tokens, finish reasons and
-    page tables, every sampled logits row within ``SMALL_SERVE_ATOL``."""
+    drop-free capacity ``cf = E``; seamless's requests with frames of their
+    own): the same tokens, finish reasons and page tables, every sampled
+    logits row within ``SMALL_SERVE_ATOL``."""
     from repro_torch.configs import get_reduced, list_archs
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, ServeConfig
@@ -3216,7 +3390,10 @@ def phase_serve_small() -> None:
             log: list = []
             eng = Engine(model, None, ServeConfig(**SMALL_SERVE_CONFIG),
                          sample=recording_sampler(log))
-            rids = [eng.submit(p) for p in SMALL_SERVE_PROMPTS]
+            frames = ([frontend_embeds(cfg, 1, dev, seed=i)
+                       for i in range(len(SMALL_SERVE_PROMPTS))] if cfg.is_encdec
+                      else [None] * len(SMALL_SERVE_PROMPTS))
+            rids = [eng.submit(p, f) for p, f in zip(SMALL_SERVE_PROMPTS, frames)]
             tables = []
             while eng.busy:
                 eng.step()

@@ -1,9 +1,8 @@
-"""Architecture config schema: the fields the dense, MoE, SSM (xlstm) and
-hybrid (zamba2) decoders read, with the same defaults as
+"""Architecture config schema: the fields every family reads (dense, MoE,
+SSM (xlstm), hybrid (zamba2), VLM (pixtral) and the encoder-decoder audio
+family (seamless)), with the same defaults as
 ``repro.configs.base.ArchConfig`` (the serving field ``kv_cache_dtype``
-included), and the named input shapes (``INPUT_SHAPES``).  The
-encoder-decoder and modality fields are not carried: their families are
-not ported."""
+included), and the named input shapes (``INPUT_SHAPES``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +11,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid (vlm | audio unported)
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -49,6 +48,12 @@ class ArchConfig:
     ssm_expand: int = 2
     attn_every: int = 0              # zamba2: one shared attn block every N mamba
     slstm_every: int = 0             # xlstm: one sLSTM block every N mLSTM
+
+    # --- encoder-decoder / modality -------------------------------------------
+    encoder_layers: int = 0
+    is_encdec: bool = False
+    modality: str = "text"           # text | vision | audio
+    frontend_tokens: int = 0         # patches/frames emitted by the stub frontend
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

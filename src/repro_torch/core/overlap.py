@@ -55,7 +55,8 @@ from .schedule import CommSchedule
 from .stages import StepSync, SyncPipeline
 
 # the stage of a bucket read before the embedding; stage i in [0, n) is
-# superblock i, and stage n the final norm and the head after the loop
+# superblock i (an encoder-decoder's encoder row i, or decoder row i - E),
+# and stage n the final norm and the head after the loop
 EMBED_STAGE = -1
 
 
@@ -78,22 +79,34 @@ def supports_sharded_sync(compressor) -> bool:
 
 
 def bucket_first_use(plan: bk.BucketPlan, num_stages: int) -> list[int]:
-    """Each bucket's first-use stage in the decoder's forward pass: the
-    earliest over its segments, where a stacked ``stack.blocks.*`` leaf's
-    row ``r`` is read before superblock ``r``, the weight-shared block's
-    ``stack.shared.*`` before superblock 0 (``transformer.stack_train``
-    reads it once there), ``stack.final_norm.*`` and ``head.*`` after the
-    layer loop (stage ``num_stages``, the superblock count
-    ``DecoderLM.num_stages``), and ``embed.*``, or a leaf of unknown use,
-    before the embedding (:data:`EMBED_STAGE`), so that nothing is read
-    stale."""
+    """Each bucket's first-use stage in the model's forward pass: the
+    earliest over its segments.
+
+    * Decoder: a stacked ``stack.blocks.*`` leaf's row ``r`` is read before
+      superblock ``r``, the weight-shared block's ``stack.shared.*`` before
+      superblock 0 (``transformer.stack_train`` reads it once there).
+    * Encoder-decoder, with ``E`` encoder rows (the plan's
+      ``encdec.encoder.*`` leaves' first axis): ``encdec.encoder.*`` row
+      ``r`` before stage ``r``, ``encdec.enc_norm.*`` at ``E``,
+      ``encdec.decoder.*`` row ``r`` at ``E + r`` (``EncDecLM.num_stages``).
+    * ``stack.final_norm.*``, ``encdec.final_norm.*`` and ``head.*`` after
+      the layer loop (stage ``num_stages``), and ``embed.*``,
+      ``projector.*``, or a leaf of unknown use, before the embedding
+      (:data:`EMBED_STAGE`), so that nothing is read stale."""
+    E = next((shape[0] for path, shape in zip(plan.leaf_paths, plan.leaf_shapes)
+              if path.startswith("encdec.encoder.")), 0)
+
     def first_use(seg: bk.Segment) -> int:
         path = plan.leaf_paths[seg.leaf_idx]
-        if path.startswith("stack.blocks."):
+        if path.startswith(("stack.blocks.", "encdec.encoder.")):
             return seg.row_lo
         if path.startswith("stack.shared."):
             return 0
-        if path.startswith(("stack.final_norm.", "head.")):
+        if path.startswith("encdec.enc_norm."):
+            return E
+        if path.startswith("encdec.decoder."):
+            return E + seg.row_lo
+        if path.startswith(("stack.final_norm.", "encdec.final_norm.", "head.")):
             return num_stages
         return EMBED_STAGE
 
@@ -149,8 +162,9 @@ class ParamGather:
             self.settle(b)
 
     def before_layer(self, i: int) -> None:
-        """The model's callback before stage ``i``: superblock ``i``, or the
-        final norm and head when ``i`` is the superblock count."""
+        """The model's callback before stage ``i``: superblock ``i`` (or an
+        encoder-decoder's stage ``i``), or the final norm and head when
+        ``i`` is ``model.num_stages``."""
         self.settle_through(i)
         self.events.append(("layer", i))
 

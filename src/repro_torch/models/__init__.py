@@ -1,7 +1,9 @@
-"""The decoder families in PyTorch: dense, MoE, SSM (xlstm) and hybrid (zamba2)."""
+"""The model families in PyTorch: dense, MoE, SSM (xlstm), hybrid (zamba2),
+VLM (pixtral) and the encoder-decoder audio family (seamless)."""
 from ..configs.base import InputShape
 from .model import (
     DecoderLM,
+    EncDecLM,
     build_model,
     build_param_specs,
     count_params,
@@ -13,6 +15,7 @@ from .model import (
 
 __all__ = [
     "DecoderLM",
+    "EncDecLM",
     "InputShape",
     "build_model",
     "build_param_specs",

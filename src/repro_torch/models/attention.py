@@ -40,13 +40,15 @@ def _qkv(params, x, cfg):
 
 def _scores_softmax_value(q, k, v, mask, cfg):
     """q: (B,Sq,K,G,hd)  k/v: (B,T,K,hd)  mask: bool, broadcast against the
-    (B,K,G,Sq,T) scores: (Sq,T) for training, (B,1,1,1,T) for decode.
-    Returns (B,Sq,K,G,hd).  The softcap applies to the scaled f32 scores,
-    before the mask."""
+    (B,K,G,Sq,T) scores: (Sq,T) for training, (B,1,1,1,T) for decode;
+    ``None`` for a full mask (the encoder and cross-attention), which the
+    reference's all-true mask leaves unchanged.  Returns (B,Sq,K,G,hd).
+    The softcap applies to the scaled f32 scores, before the mask."""
     scale = cfg.head_dim ** -0.5
     s = torch.einsum("bqkgh,btkh->bkgqt", q, k).float() * scale
     s = softcap(s, cfg.attn_softcap)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bkgqt,btkh->bqkgh", p, v)
 

@@ -28,7 +28,9 @@ def truncated_normal_init(shape, dtype, generator: torch.Generator, *,
     x = torch.empty(shape, dtype=torch.float32, device=device)
     if x.device.type != "meta":
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (x * std).to(dtype)
+    # scaled in place: one f32 buffer the size of the leaf, not two (a
+    # full-width pixtral-12b MLP leaf is 11.7 GB)
+    return x.mul_(std).to(dtype)
 
 
 def normal_init(shape, dtype, generator: torch.Generator, *, device,
@@ -36,7 +38,7 @@ def normal_init(shape, dtype, generator: torch.Generator, *, device,
     x = torch.empty(shape, dtype=torch.float32, device=device)
     if x.device.type != "meta":
         x.normal_(0.0, 1.0, generator=generator)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

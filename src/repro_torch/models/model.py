@@ -1,15 +1,19 @@
-"""The decoder LM as an ``nn.Module`` and its chunked softmax-xent loss —
-the counterpart of the decoder half of ``repro.models.model``, for the
-dense and MoE families (full, sliding-window and gemma2's local/global
+"""The language models as ``nn.Module``s and their chunked softmax-xent
+loss — the counterpart of ``repro.models.model``: :class:`DecoderLM` for
+the dense and MoE families (full, sliding-window and gemma2's local/global
 attention; softcaps; q/k/v biases), the SSM family (xlstm's mLSTM and
-sLSTM blocks) and the hybrid family (zamba2's Mamba2 blocks and its
-weight-shared attention block) — with the serving calls ``prefill``,
-``decode_step``, ``init_caches`` and ``cache_specs``.
+sLSTM blocks), the hybrid family (zamba2's Mamba2 blocks and its
+weight-shared attention block) and the VLM family (pixtral: a dense
+decoder whose projected patch embeddings are prepended to the text), and
+:class:`EncDecLM` for the encoder-decoder audio family (seamless) — each
+with the serving calls ``prefill``, ``decode_step``, ``init_caches`` and
+``cache_specs``.
 
 Parameters keep the reference's paths and stacked shapes (``embed.table``,
 ``head.w``, ``stack.blocks.b0.attn.wq`` of shape ``(n, d, H*hd)`` over the
-``n`` superblocks, ...).  ``DecoderLM.named_leaves`` lists them in the reference's
-leaf order, which is ``jax.tree_util.tree_leaves`` of the nested dict:
+``n`` superblocks, ``projector.w``, ``encdec.decoder.xattn.wq`` over the
+decoder rows, ...).  ``named_leaves`` lists them in the reference's leaf
+order, which is ``jax.tree_util.tree_leaves`` of the nested dict:
 keys sorted at every level (``router, shared, w_down, w_gate, w_up`` under
 ``moe``).  The bucket plan, the optimizer and the EF residuals all follow
 that order.  As in the reference, the output head is untied and the vocab
@@ -26,7 +30,9 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from . import encdec as encdec_mod
 from . import moe as moe_mod
+from . import multimodal
 from . import ssm as ssm_mod
 from . import transformer
 from . import xlstm as xlstm_mod
@@ -54,12 +60,22 @@ def long_context_variant(cfg: ArchConfig) -> ArchConfig:
 
 
 def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
-    """Every parameter's shape by dotted path, in leaf order (a family the
-    port lacks raises ``NotImplementedError``, naming it)."""
+    """Every parameter's shape by dotted path, in leaf order: the
+    embedding and head, then the encoder-decoder backbone (``encdec.*``)
+    or the decoder stack (``stack.*``) with, for the VLM family, the
+    projector (a decoder family the port lacks raises
+    ``NotImplementedError``, naming it)."""
     V = padded_vocab(cfg)
     shapes = {"embed.table": (V, cfg.d_model), "head.w": (cfg.d_model, V)}
-    for k, s in transformer.stack_param_shapes(cfg).items():
-        shapes[f"stack.{k}"] = s
+    if cfg.is_encdec:
+        for k, s in encdec_mod.encdec_param_shapes(cfg).items():
+            shapes[f"encdec.{k}"] = s
+    else:
+        for k, s in transformer.stack_param_shapes(cfg).items():
+            shapes[f"stack.{k}"] = s
+        if cfg.family == "vlm":
+            for k, s in multimodal.projector_param_shapes(cfg.d_model, cfg.d_model).items():
+                shapes[f"projector.{k}"] = s
     return dict(sorted(shapes.items(), key=lambda kv: kv[0].split(".")))
 
 
@@ -233,10 +249,10 @@ def _logits(head_w, x, cfg):
     return softcap((x.to(cd) @ head_w.to(cd)).float(), cfg.logit_softcap)
 
 
-class DecoderLM(nn.Module):
-    """Decoder-only LM (dense, MoE, SSM or hybrid): embedding (scaled by
-    ``sqrt(d_model)``), the stacked superblock loop, final RMSNorm, untied
-    head, chunked xent (with the final-logit softcap)."""
+class _LM(nn.Module):
+    """What both models share: the parameters built from
+    :func:`param_shapes` in nested containers, the reference's init rules,
+    the leaf order, the token embedding and the cache calls' device."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda", seed: int = 0):
         super().__init__()
@@ -250,17 +266,15 @@ class DecoderLM(nn.Module):
         for name, sub in _nest(flat).items():
             self.add_module(name, sub)
         # the embedding's scale sqrt(d_model), rounded to the compute dtype
-        # as the reference multiplies by it; built once, for the serving calls
+        # as the reference multiplies by it; built once, on the device
         self.register_buffer("_embed_scale", torch.tensor(
             math.sqrt(cfg.d_model), dtype=getattr(torch, cfg.compute_dtype),
             device=dev), persistent=False)
         self.init_params(seed)
 
     @property
-    def num_stages(self) -> int:
-        """The layer loop's stages before the final norm and head: the
-        superblock count (``before_layer``'s last index)."""
-        return transformer.num_superblocks(self.cfg)
+    def device(self) -> torch.device:
+        return self.embed["table"].device
 
     def named_leaves(self) -> list[tuple[str, nn.Parameter]]:
         """``(path, parameter)`` in the reference's leaf order."""
@@ -269,13 +283,14 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def init_params(self, seed: int) -> None:
         """Reference init rules (N(0, 0.02) embedding, truncated normal
-        matrices, the router's at scale 0.1, zero norm scales and biases,
+        matrices (the projector's too), the router's at scale 0.1, zero
+        norm scales and biases,
         and the recurrent blocks' own: ``A_log`` 0, ``D`` 1, ``dt_bias``
         0, conv weights N(0, 1) x 0.1 and zero conv biases, ``wdt`` and the
         mLSTM's ``wi``/``wf`` at scale 0.1, the sLSTM's ``r{g}`` at 0.5,
         the forget biases 3), drawn from a seeded ``torch.Generator`` on
         the parameters' device.  Fan-in is the row's ``shape[-2]``."""
-        dev = self.embed["table"].device
+        dev = self.device
         gen = None if dev.type == "meta" else torch.Generator(dev).manual_seed(seed)
         for path, p in self.named_leaves():
             kind = _stack_kind(self.cfg, path)
@@ -301,25 +316,71 @@ class DecoderLM(nn.Module):
                 v = truncated_normal_init(p.shape, p.dtype, gen, device=dev)
             p.copy_(v)
 
+    def _tree(self, params):
+        """The nested parameter tree the calls read: ``params`` (a tree by
+        path, ``core.overlap.install_hooks``'s), or the module's own."""
+        if params is not None:
+            return params
+        return {name: getattr(self, name) for name in self._modules}
+
+    def _embed_tokens(self, tree, tokens):
+        """Token embeddings times ``sqrt(d_model)`` in the compute dtype."""
+        cd = getattr(torch, self.cfg.compute_dtype)
+        x = embed(transformer.resolve(tree["embed"]["table"], cd), tokens, cd)
+        return x * self._embed_scale
+
+
+class DecoderLM(_LM):
+    """Decoder-only LM (dense, MoE, SSM, hybrid or VLM): embedding (scaled
+    by ``sqrt(d_model)``), for the VLM family the projected patch
+    embeddings prepended, the stacked superblock loop, final RMSNorm,
+    untied head, chunked xent (with the final-logit softcap)."""
+
+    @property
+    def is_vlm(self) -> bool:
+        return self.cfg.family == "vlm"
+
+    @property
+    def num_stages(self) -> int:
+        """The layer loop's stages before the final norm and head: the
+        superblock count (``before_layer``'s last index)."""
+        return transformer.num_superblocks(self.cfg)
+
+    def _embed_inputs(self, tree, batch):
+        """The token embeddings, with ``patch_embeds`` (VLM, when the batch
+        carries them) projected and prepended: (B, P + S, d)."""
+        x = self._embed_tokens(tree, batch["tokens"])
+        if self.is_vlm and "patch_embeds" in batch:
+            cd = getattr(torch, self.cfg.compute_dtype)
+            proj = {k: transformer.resolve(v) for k, v in tree["projector"].items()}
+            x = torch.cat([multimodal.project(proj, batch["patch_embeds"], cd), x], dim=1)
+        return x
+
     def loss_fn(self, batch: dict[str, torch.Tensor], before_layer=None,
                 params: dict | None = None):
         """-> (loss + aux_loss, {"loss", "aux_loss"}), as the reference's
         ``loss_fn`` returns them (``aux_loss``, the MoE blocks' summed
-        load-balance loss, is 0 for dense).  ``before_layer`` goes to
-        :func:`transformer.stack_train`: it is called before each
-        superblock and before the final norm and head.
+        load-balance loss, is 0 for dense).  For the VLM family a batch
+        with ``patch_embeds`` (B, P, d) is trained on the P projected
+        patches and the text, its labels padded with -1 over the patches;
+        without them it is text only and the projector gets no gradient.
+        ``before_layer`` goes to :func:`transformer.stack_train`: it is
+        called before each superblock and before the final norm and head.
         ``params`` replaces the module's parameters: a nested dict by path
-        (``core.overlap.install_hooks``) whose leaves :mod:`.transformer` describes; a
-        deferred leaf is assembled where the forward pass first reads it."""
+        (``core.overlap.install_hooks``) whose leaves :mod:`.transformer`
+        describes; a deferred leaf is assembled where the forward pass first
+        reads it."""
         cfg = self.cfg
         cd = getattr(torch, cfg.compute_dtype)
-        tree = params if params is not None else {
-            "embed": self.embed, "stack": self.stack, "head": self.head}
-        x = embed(transformer.resolve(tree["embed"]["table"], cd), batch["tokens"], cd)
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=x.device)
+        tree = self._tree(params)
+        x = self._embed_inputs(tree, batch)
         x, aux = transformer.stack_train(tree["stack"], x, cfg, before_layer)
-        loss = _xent_chunked(transformer.resolve(tree["head"]["w"], cd), x,
-                             batch["labels"], cfg)
+        labels = batch["labels"]
+        if self.is_vlm and "patch_embeds" in batch:
+            pad = torch.full((labels.shape[0], batch["patch_embeds"].shape[1]), -1,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        loss = _xent_chunked(transformer.resolve(tree["head"]["w"], cd), x, labels, cfg)
         return loss + aux, {"loss": loss, "aux_loss": aux}
 
     # ---- serving -----------------------------------------------------------
@@ -327,23 +388,13 @@ class DecoderLM(nn.Module):
     # tree that ``loss_fn`` takes, so the calls keep the reference's
     # ``(params, ...)`` signatures
 
-    def _tree(self, params):
-        if params is None:
-            return {"embed": self.embed, "stack": self.stack, "head": self.head}
-        return params
-
-    def _embed_tokens(self, tree, tokens):
-        cd = getattr(torch, self.cfg.compute_dtype)
-        x = embed(transformer.resolve(tree["embed"]["table"], cd), tokens, cd)
-        return x * self._embed_scale
-
     @torch.inference_mode()
     def prefill(self, params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Teacher-forced logits of the last ``xent_chunk`` positions,
-        (B, <=S, V) f32."""
+        (B, <=S, V) f32; a VLM batch's ``patch_embeds`` are prepended."""
         cfg = self.cfg
         tree = self._tree(params)
-        x = self._embed_tokens(tree, batch["tokens"])
+        x = self._embed_inputs(tree, batch)
         x, _ = transformer.stack_train(tree["stack"], x, cfg)
         c = min(cfg.xent_chunk, x.shape[1])
         return _logits(transformer.resolve(tree["head"]["w"]), x[:, -c:], cfg)
@@ -352,7 +403,8 @@ class DecoderLM(nn.Module):
     def decode_step(self, params, caches: dict, batch: dict[str, torch.Tensor]):
         """One token per slot: ``batch = {"tokens": (B, 1), "pos": (B,)}``
         -> ``(logits (B, 1, V) f32, caches)``.  The caches are written in
-        place (each slot's row at ``pos``) and returned."""
+        place (each slot's row at ``pos``) and returned.  Text only, for the
+        VLM family too, as in the reference."""
         tree = self._tree(params)
         x = self._embed_tokens(tree, batch["tokens"])
         x, caches = transformer.stack_decode(tree["stack"], x, caches,
@@ -362,15 +414,104 @@ class DecoderLM(nn.Module):
     def init_caches(self, batch: int, max_len: int) -> dict:
         """Zero caches for ``batch`` slots of ``max_len`` positions on the
         model's device (``transformer.init_caches``)."""
-        return transformer.init_caches(self.cfg, batch, max_len,
-                                       device=self.embed["table"].device)
+        return transformer.init_caches(self.cfg, batch, max_len, device=self.device)
 
     def cache_specs(self, batch: int, max_len: int) -> dict:
         """The caches' shapes and dtypes as ``meta`` tensors."""
         return transformer.init_caches(self.cfg, batch, max_len, device="meta")
 
 
-def build_model(cfg: ArchConfig, *, device="cuda", seed: int = 0) -> DecoderLM:
-    """The decoder of a dense, MoE, SSM or hybrid config; other families
-    raise ``NotImplementedError`` naming the family."""
+class EncDecLM(_LM):
+    """Encoder-decoder LM (the audio family): the encoder over the batch's
+    ``frames`` (B, T, d), the decoder over the scaled token embeddings with
+    cross-attention to the encoder's memory, untied head, chunked xent."""
+
+    @property
+    def num_stages(self) -> int:
+        """The stages before the final norm and head: the encoder's rows
+        ``0 .. E-1``, then ``enc_norm`` with decoder row 0 at ``E``, and
+        decoder row ``r`` at ``E + r`` (``core.overlap.bucket_first_use``)."""
+        return self.cfg.encoder_layers + self.cfg.num_layers
+
+    def _forward(self, tree, batch, before_layer=None):
+        cfg = self.cfg
+        E = cfg.encoder_layers
+        # the tokens are embedded before the encoder runs (the reference
+        # embeds them after it: the same values), so that the backward
+        # pass, which runs the node made last first, reaches the embedding
+        # after the encoder, the order ReadyOrder gives its buckets
+        x = self._embed_tokens(tree, batch["tokens"])
+        memory = encdec_mod.encode(tree["encdec"], batch["frames"], cfg, before_layer)
+        # decoder row 0 shares stage E with enc_norm, settled by encode
+        dec_hook = None if before_layer is None else (
+            lambda r: before_layer(E + r) if r else None)
+        return encdec_mod.decode_train(tree["encdec"], x, memory, cfg,
+                                       window=cfg.sliding_window, before_layer=dec_hook)
+
+    def loss_fn(self, batch: dict[str, torch.Tensor], before_layer=None,
+                params: dict | None = None):
+        """-> (loss, {"loss", "aux_loss"}) with ``aux_loss`` 0, as the
+        reference's.  The batch carries ``frames`` (B, T, d), ``tokens`` and
+        ``labels`` (B, S); without ``frames`` it raises ``KeyError``, as the
+        reference's does.  ``before_layer(i)`` is called before each stage
+        (:attr:`num_stages`) and, with ``i = num_stages``, before the final
+        norm and head; ``params`` as :meth:`DecoderLM.loss_fn` takes it."""
+        cfg = self.cfg
+        cd = getattr(torch, cfg.compute_dtype)
+        tree = self._tree(params)
+        x = self._forward(tree, batch, before_layer)
+        loss = _xent_chunked(transformer.resolve(tree["head"]["w"], cd), x,
+                             batch["labels"], cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"loss": loss, "aux_loss": aux}
+
+    # ---- serving (``params`` as in DecoderLM) -------------------------------
+
+    @torch.inference_mode()
+    def prefill(self, params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Teacher-forced logits of the last ``xent_chunk`` positions of a
+        batch with ``frames`` and ``tokens``, (B, <=S, V) f32."""
+        tree = self._tree(params)
+        x = self._forward(tree, batch)
+        c = min(self.cfg.xent_chunk, x.shape[1])
+        return _logits(transformer.resolve(tree["head"]["w"]), x[:, -c:], self.cfg)
+
+    @torch.inference_mode()
+    def memory_kv(self, params, frames: torch.Tensor):
+        """A request's frames (B, T, d) encoded and projected into every
+        decoder row's cross-attention keys and values: ``(mem_k, mem_v)``,
+        each (L, B, T, K, hd), the caches' leaves of the same names."""
+        tree = self._tree(params)
+        memory = encdec_mod.encode(tree["encdec"], frames, self.cfg)
+        return encdec_mod.precompute_memory_kv(tree["encdec"], memory, self.cfg)
+
+    @torch.inference_mode()
+    def decode_step(self, params, caches: dict, batch: dict[str, torch.Tensor]):
+        """One token per slot against the caches' ``mem_k``/``mem_v``:
+        ``(logits (B, 1, V) f32, caches)``, the self-attention cache
+        written in place."""
+        tree = self._tree(params)
+        x = self._embed_tokens(tree, batch["tokens"])
+        x, caches = encdec_mod.decode_step(tree["encdec"], x, caches, batch["pos"],
+                                           self.cfg, window=self.cfg.sliding_window)
+        return _logits(transformer.resolve(tree["head"]["w"]), x, self.cfg), caches
+
+    def init_caches(self, batch: int, max_len: int) -> dict:
+        """Zero caches on the model's device (``encdec.dec_caches``, the
+        memory ``frontend_tokens`` long)."""
+        return encdec_mod.dec_caches(self.cfg, batch, max_len, self.cfg.frontend_tokens,
+                                     window=self.cfg.sliding_window, device=self.device)
+
+    def cache_specs(self, batch: int, max_len: int) -> dict:
+        """The caches' shapes and dtypes as ``meta`` tensors."""
+        return encdec_mod.dec_caches(self.cfg, batch, max_len, self.cfg.frontend_tokens,
+                                     window=self.cfg.sliding_window, device="meta")
+
+
+def build_model(cfg: ArchConfig, *, device="cuda", seed: int = 0) -> DecoderLM | EncDecLM:
+    """:class:`EncDecLM` for an encoder-decoder config, else the
+    :class:`DecoderLM` of a dense, MoE, SSM, hybrid or VLM config (another
+    family raises ``NotImplementedError`` naming it)."""
+    if cfg.is_encdec:
+        return EncDecLM(cfg, device=device, seed=seed)
     return DecoderLM(cfg, device=device, seed=seed)

@@ -3,7 +3,7 @@
 caches of ``init_caches``).
 
 A *superblock* is the repeating unit of the architecture: one attention
-block for plain dense and MoE, a (local, global) pair for gemma2,
+block for plain dense, VLM and MoE, a (local, global) pair for gemma2,
 ``slstm_every - 1`` mLSTM blocks and one sLSTM block for xlstm,
 ``attn_every`` Mamba2 blocks for zamba2, whose one weight-shared
 attention block (``stack.shared``) runs after every superblock.  Each
@@ -33,7 +33,7 @@ from .layers import mlp, rmsnorm
 def superblock_kinds(cfg) -> list[tuple[str, int]]:
     """``[(kind, window)]`` for each block of one superblock."""
     fam = cfg.family
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "vlm", "moe"):
         if cfg.local_global:
             return [("attn", cfg.sliding_window or 4096), ("attn", 0)]
         return [("attn", cfg.sliding_window)]

@@ -4,7 +4,10 @@ same admission, finish and shedding rules, stats and telemetry:
 
 * **prefill** — :class:`~repro_torch.serve.prefill.ChunkedPrefill` runs the
   whole prompt at batch 1 through the model's ``decode_step``, counted in
-  chunks of ``prefill_chunk`` tokens.
+  chunks of ``prefill_chunk`` tokens.  An encoder-decoder model first
+  encodes the request's frames (zeros when it has none) and projects them
+  into the batch-1 caches' ``mem_k``/``mem_v``, once a request; the arena
+  keeps them as resident leaves.
 * **insert** — the prefilled dense cache is copied into freshly allocated
   arena pages (whole page rows rebuilt from zeros, so slot reuse cannot
   leak state).
@@ -109,9 +112,11 @@ def _zero_stats() -> dict[str, float]:
 
 
 class Engine:
-    """``Engine(model, params, sc)``: ``model`` is a ``DecoderLM`` on the
-    device to serve on; ``params`` is ``None`` (the model's own
-    parameters) or the nested tree its ``decode_step`` takes."""
+    """``Engine(model, params, sc)``: ``model`` is a ``DecoderLM`` or an
+    ``EncDecLM`` on the device to serve on; ``params`` is ``None`` (the
+    model's own parameters) or the nested tree its ``decode_step`` takes.
+    ``submit(prompt, frames)`` takes an encoder-decoder request's frames
+    (1, T, d) as an array or a tensor."""
 
     def __init__(self, model, params, sc: ServeConfig, *, sample=greedy_sample,
                  telemetry=None):
@@ -129,6 +134,7 @@ class Engine:
         self.prefill = ChunkedPrefill(model, sc.prefill_chunk)
         self._generate = build_generate_fn(model, self.layout)
         self._insert = build_insert_fn(self.layout)
+        self._encode = model.memory_kv if getattr(model.cfg, "is_encdec", False) else None
         # one staging row per slot: its page table, resident page, token
         # and position; pinned on the GPU, so the step's one transfer does
         # not block the host
@@ -257,6 +263,9 @@ class Engine:
             raise AssertionError("admission checked pages but alloc failed")
         t0 = time.perf_counter()
         caches = self.model.init_caches(1, self.layout.tokens)
+        if self._encode is not None:
+            caches["mem_k"], caches["mem_v"] = self._encode(self.params,
+                                                            self._frames(req.frames))
         logits, caches, calls = self.prefill(self.params, caches, req.prompt)
         first = int(self._sample_host(logits)[0])
         t1 = time.perf_counter()
@@ -284,6 +293,15 @@ class Engine:
         slot.tokens.append(first)
         slot.first_token_s = t2
         self._maybe_finish(slot, first)
+
+    def _frames(self, frames) -> torch.Tensor:
+        """A request's frames on the device, (1, T, d); zeros (f32) when it
+        has none, as the reference feeds them."""
+        cfg = self.model.cfg
+        if frames is None:
+            return torch.zeros((1, cfg.frontend_tokens, cfg.d_model),
+                               dtype=torch.float32, device=self.device)
+        return torch.as_tensor(frames, device=self.device)
 
     def _maybe_finish(self, slot: Slot, tok: int) -> None:
         """Terminal checks after a token lands.  ``slot.pos`` is the

@@ -174,14 +174,26 @@ def test_decode_step_continues_from_the_reference_caches():
 def test_decode_matches_own_prefill(arch):
     """Token-by-token decode reproduces the teacher-forced ``prefill``
     logits (the last ``xent_chunk`` positions) at the reference's
-    tolerance; ``prefill`` itself equals the reference's."""
+    tolerance; ``prefill`` itself equals the reference's.  An
+    encoder-decoder arch prefills on frames and decodes against their
+    memory keys and values (``memory_kv``) in its caches."""
     rmodel, params, model = _models(arch)
-    tokens = _tokens(model.cfg, seed=2)
-    ref = model.prefill(None, {"tokens": torch.from_numpy(tokens).long()})
+    cfg = model.cfg
+    tokens = _tokens(cfg, seed=2)
+    batch = {"tokens": tokens}
+    if cfg.is_encdec:
+        batch["frames"] = (0.02 * np.random.default_rng(3).standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model))).astype(np.float32)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tb["tokens"] = tb["tokens"].long()
+    ref = model.prefill(None, tb)
     np.testing.assert_allclose(
-        ref.numpy(), np.asarray(rmodel.prefill(params, {"tokens": jnp.asarray(tokens)})),
+        ref.numpy(), np.asarray(rmodel.prefill(params, {k: jnp.asarray(v)
+                                                        for k, v in batch.items()})),
         rtol=DECODE_RTOL, atol=DECODE_ATOL)
     caches = model.init_caches(B, S + 4)
+    if cfg.is_encdec:
+        caches["mem_k"], caches["mem_v"] = model.memory_kv(None, tb["frames"])
     got = []
     for t in range(S):
         logits, caches = model.decode_step(None, caches, {
@@ -260,9 +272,18 @@ def test_embed_scale_is_rounded_to_the_compute_dtype():
 
 
 def test_unported_block_kinds_raise_naming_the_family():
+    """A decoder stack of a family with no block kind (the audio family is
+    encoder-decoder only; ``diffusion`` is no family) raises naming it, as
+    the reference's ``superblock_kinds`` refuses it; the VLM family's
+    stack is dense attention, with the projector beside it."""
     cfg = tconfigs.get_reduced("gpt2-paper")
-    for fam in ("vlm", "audio"):
+    for fam in ("audio", "diffusion"):
         with pytest.raises(NotImplementedError, match=repr(fam)):
             transformer.init_caches(cfg.with_(family=fam), 1, 8, device="meta")
         with pytest.raises(NotImplementedError, match=repr(fam)):
             build_model(cfg.with_(family=fam), device="meta")
+        with pytest.raises(ValueError):
+            rconfigs.get_reduced("gpt2-paper").with_(family=fam).param_count()
+    vlm = build_model(cfg.with_(family="vlm"), device="meta")
+    assert transformer.superblock_kinds(vlm.cfg) == [("attn", 0)]
+    assert tuple(vlm.projector["w"].shape) == (cfg.d_model, cfg.d_model)

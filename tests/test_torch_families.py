@@ -1,11 +1,13 @@
 """The families beyond gpt2-paper (qwen1.5-0.5b, gemma-2b, gemma2-27b,
-mistral-large-123b, deepseek-moe-16b, grok-1-314b, and the recurrent
-xlstm-125m and zamba2-2.7b) in the port against the JAX reference:
+mistral-large-123b, deepseek-moe-16b, grok-1-314b, the recurrent
+xlstm-125m and zamba2-2.7b, the VLM pixtral-12b and the encoder-decoder
+seamless-m4t-medium) in the port against the JAX reference:
 configs, parameter paths, leaf order and dtypes,
 loss, aux loss and every gradient on the REDUCED configs, and the
 full-config bucket plans and COVAP bytes, built from ``meta`` tensors
-without allocating; the unported families' refusals; ``api.fit``,
-``api.plan_report`` and the training CLI on each arch."""
+without allocating; the registry; ``api.fit``, ``api.plan_report`` and
+the training CLI on each arch (seamless's frames come in the batches;
+the CLI has no frames and fails naming them, as the reference's does)."""
 import dataclasses
 
 import jax
@@ -64,6 +66,9 @@ CUTS = {
                                          1090043904]),
     ("xlstm-125m", None): (32, 77, [182449248, 179818080, 184771680, 187276800]),
     ("zamba2-2.7b", 12): (126, 209, [772638720, 734515840, 746475520, 735826560]),
+    ("pixtral-12b", 1): (124, 129, [1683128320, 1577586688, 1620287488, 1683144704]),
+    ("seamless-m4t-medium", None): (162, 181, [991327232, 960775168, 979977216,
+                                               979362816]),
 }
 FULL = [(a, None) for a in ARCHS] + [k for k in CUTS if k[1] is not None]
 
@@ -91,7 +96,8 @@ def test_registry_lists_the_ported_archs_in_the_reference_s_order():
     assert names == [a for a in rconfigs.list_archs() if a in names]
     assert set(ARCHS) == {"qwen1.5-0.5b", "gemma-2b", "gemma2-27b",
                           "mistral-large-123b", "deepseek-moe-16b", "grok-1-314b",
-                          "xlstm-125m", "zamba2-2.7b"}
+                          "xlstm-125m", "zamba2-2.7b", "pixtral-12b",
+                          "seamless-m4t-medium"}
     assert tconfigs.list_archs(assigned_only=True) == [a for a in names
                                                        if a != "gpt2-paper"]
 
@@ -105,19 +111,21 @@ def test_config_fields_match_reference(arch, reduced):
     assert cfg.is_moe == rcfg.is_moe
 
 
-@pytest.mark.parametrize("arch", ["pixtral-12b", "seamless-m4t-medium"])
-def test_unported_families_raise_naming_the_family(arch):
-    family = rconfigs.get_config(arch).family
-    for get in (tconfigs.get_config, tconfigs.get_reduced):
-        with pytest.raises(NotImplementedError, match=repr(family)):
-            get(arch)
-    with pytest.raises(NotImplementedError, match=repr(family)):
-        api.fit(arch, device="cpu", steps=1)
-    cfg = tconfigs.get_reduced("qwen1.5-0.5b").with_(family=family)
-    with pytest.raises(NotImplementedError, match=repr(family)):
-        build_model(cfg, device="meta")
-    with pytest.raises(KeyError):
-        tconfigs.get_config("llama-7b")
+@pytest.mark.parametrize("assigned_only", [False, True])
+def test_registry_equals_reference_and_refuses_unknown_archs(assigned_only):
+    """``list_archs`` is the reference's, in its order, with and without
+    ``gpt2-paper``; every listed arch builds on ``meta`` as the model its
+    family calls for; an unknown arch raises ``KeyError`` in both
+    packages."""
+    names = tconfigs.list_archs(assigned_only=assigned_only)
+    assert names == rconfigs.list_archs(assigned_only=assigned_only)
+    for arch in names:
+        model = build_model(tconfigs.get_reduced(arch), device="meta")
+        assert type(model).__name__ == ("EncDecLM" if model.cfg.is_encdec
+                                        else "DecoderLM")
+    for get in (tconfigs.get_config, tconfigs.get_reduced, rconfigs.get_config):
+        with pytest.raises(KeyError):
+            get("llama-7b")
 
 
 def _init(arch, seed=0):
@@ -207,8 +215,18 @@ def test_recurrent_init_follows_reference_rules(arch):
         assert abs(g.std() / w.std() - 1) < tol, (path, g.std(), w.std())
 
 
+def _frames(cfg, batch, seed=0):
+    """Std-0.02 normal frames (batch, frontend_tokens, d_model), f32."""
+    rng = np.random.default_rng(seed)
+    return (0.02 * rng.standard_normal((batch, cfg.frontend_tokens, cfg.d_model))
+            ).astype(np.float32)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_aux_and_grads_match_reference(arch):
+    """The encoder-decoder arch's batch carries frames; pixtral's is text
+    only here (its projector's gradient is zero in both packages;
+    ``test_torch_multimodal.py`` holds the patch path)."""
     rcfg, cfg = _configs(arch, reduced=True)
     rmodel = r_build_model(rcfg)
     params = _init(arch)
@@ -216,14 +234,17 @@ def test_loss_aux_and_grads_match_reference(arch):
     tokens = rng.integers(0, rcfg.vocab_size, size=(2, SEQ)).astype(np.int32)
     labels = rng.integers(0, rcfg.vocab_size, size=(2, SEQ)).astype(np.int32)
     labels[1, :5] = -1
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.is_encdec:
+        batch["frames"] = _frames(cfg, 2)
     (rloss, rmet), rgrads = jax.value_and_grad(rmodel.loss_fn, has_aux=True)(
-        jax.tree.map(jnp.asarray, params),
-        {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+        jax.tree.map(jnp.asarray, params), {k: jnp.asarray(v) for k, v in batch.items()})
 
     model = build_model(cfg, device="cpu")
     model.load_state_dict(params_from_jax(params, device="cpu"))
-    total, met = model.loss_fn({"tokens": torch.from_numpy(tokens).long(),
-                                "labels": torch.from_numpy(labels).long()})
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tb["tokens"], tb["labels"] = tb["tokens"].long(), tb["labels"].long()
+    total, met = model.loss_fn(tb)
     total.backward()
     np.testing.assert_allclose(total.item(), float(rloss), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(float(met["loss"].detach()), float(rmet["loss"]), rtol=RTOL)
@@ -233,7 +254,12 @@ def test_loss_aux_and_grads_match_reference(arch):
     ref_grads = _tree_paths(jax.tree.map(np.asarray, rgrads))
     assert [p for p, _ in model.named_leaves()] == list(ref_grads)
     for path, p in model.named_leaves():
-        np.testing.assert_allclose(p.grad.numpy(), ref_grads[path], rtol=RTOL,
+        # a text-only batch does not reach the projector: jax.grad's zeros
+        # against no gradient at all (the trainer's loss_and_grads fills in
+        # zeros)
+        grad = p.grad if path != "projector.w" else torch.zeros_like(p)
+        assert (p.grad is None) == (path == "projector.w"), path
+        np.testing.assert_allclose(grad.numpy(), ref_grads[path], rtol=RTOL,
                                    atol=ATOL, err_msg=path)
 
 
@@ -307,7 +333,10 @@ def test_ready_order_and_first_use_on_the_new_plans(arch, layers):
     each bucket's first-use stage is its shallowest superblock row (0 for
     zamba2's shared block), the head's the superblock count: the stage the
     decoder's last
-    ``before_layer`` call reaches (gemma2 has half as many as layers)."""
+    ``before_layer`` call reaches (gemma2 has half as many as layers).
+    The encoder-decoder's stages are its encoder rows, then ``enc_norm``
+    with decoder row 0 at ``E``, decoder row ``r`` at ``E + r``, and the
+    head at ``E + L``; pixtral's projector is read with the embedding."""
     rcfg, cfg = _configs(arch, layers=layers)
     shapes = jax.eval_shape(r_build_model(rcfg).init, jax.random.PRNGKey(0))
     rplan = r_build_plan(shapes)
@@ -317,19 +346,28 @@ def test_ready_order_and_first_use_on_the_new_plans(arch, layers):
     assert (got.bucket_layer, got.ranks, got.num_layers) == \
         (want.bucket_layer, want.ranks, want.num_layers)
     n = model.num_stages
-    assert n == num_superblocks(cfg) == jax.tree_util.tree_leaves(
-        shapes["stack"]["blocks"])[0].shape[0]
+    if cfg.is_encdec:
+        E = cfg.encoder_layers
+        assert n == E + cfg.num_layers == sum(
+            jax.tree_util.tree_leaves(shapes["encdec"][k])[0].shape[0]
+            for k in ("encoder", "decoder"))
+        base = {"encdec.encoder.": 0, "encdec.decoder.": E}
+        fixed = {"encdec.enc_norm.": E}
+        tails = ("head.", "encdec.final_norm.")
+    else:
+        assert n == num_superblocks(cfg) == jax.tree_util.tree_leaves(
+            shapes["stack"]["blocks"])[0].shape[0]
+        # zamba2's weight-shared block is read once, before superblock 0
+        base, fixed = {"stack.blocks.": 0}, {"stack.shared.": 0}
+        tails = ("head.", "stack.final_norm.")
     stages = bucket_first_use(plan, n)
     for b, stage in enumerate(stages):
-        rows = [s.row_lo for s in plan.buckets[b].segments
-                if plan.leaf_paths[s.leaf_idx].startswith("stack.blocks.")]
-        tail = any(plan.leaf_paths[s.leaf_idx].startswith(("head.", "stack.final_norm."))
-                   for s in plan.buckets[b].segments)
-        embed = any(plan.leaf_paths[s.leaf_idx].startswith("embed.")
-                    for s in plan.buckets[b].segments)
-        # zamba2's weight-shared block is read once, before superblock 0
-        rows += [0 for s in plan.buckets[b].segments
-                 if plan.leaf_paths[s.leaf_idx].startswith("stack.shared.")]
+        segs = [(plan.leaf_paths[s.leaf_idx], s) for s in plan.buckets[b].segments]
+        rows = [off + s.row_lo for path, s in segs for pre, off in base.items()
+                if path.startswith(pre)]
+        rows += [v for path, _ in segs for pre, v in fixed.items() if path.startswith(pre)]
+        tail = any(path.startswith(tails) for path, _ in segs)
+        embed = any(path.startswith(("embed.", "projector.")) for path, _ in segs)
         assert stage == (EMBED_STAGE if embed else min(rows + [n] if tail else rows))
     # every stage is one the layer loop calls before_layer for
     assert set(stages) <= set(range(EMBED_STAGE, n + 1))
@@ -337,7 +375,8 @@ def test_ready_order_and_first_use_on_the_new_plans(arch, layers):
 
 @pytest.mark.parametrize("model_axis", [1, 16])
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-moe-16b", "grok-1-314b",
-                                  "gemma2-27b", "xlstm-125m", "zamba2-2.7b"])
+                                  "gemma2-27b", "xlstm-125m", "zamba2-2.7b",
+                                  "pixtral-12b", "seamless-m4t-medium"])
 def test_build_param_specs_equals_reference(arch, model_axis):
     """The MoE rule (expert-parallel on E when it divides, else the ff
     dim), the bias and router leaves, and the recurrent blocks' names
@@ -369,10 +408,25 @@ def test_plan_report_equals_reference(arch):
     assert got == want
 
 
+def _with_frames(cfg, batches):
+    """The loader's batches, each with std-0.02 frames of its own."""
+    for i, batch in enumerate(batches):
+        yield dict(batch, frames=torch.from_numpy(_frames(cfg, 4, seed=i)))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_fit_returns_finite_losses(arch):
+    """The encoder-decoder arch trains on ``batches`` that carry frames
+    (the synthetic loader has none, in both packages)."""
+    batches = None
+    cfg = tconfigs.get_reduced(arch)
+    if cfg.is_encdec:
+        from repro_torch.data import DataConfig, make_loader
+
+        batches = _with_frames(cfg, make_loader(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=16, global_batch=4), device="cpu"))
     res = api.fit(arch, reduced=True, device="cpu", interval=2, steps=3,
-                  seq_len=16, global_batch=4)
+                  seq_len=16, global_batch=4, batches=batches)
     assert len(res.history) >= 1 and res.state["step"] == 3
     for h in res.history:
         assert np.isfinite(h["loss"]) and np.isfinite(h["total_loss"])
@@ -381,9 +435,16 @@ def test_fit_returns_finite_losses(arch):
 
 @pytest.mark.parametrize("arch", tconfigs.list_archs(assigned_only=True))
 def test_cli_trains_each_arch_on_cpu(arch, capsys):
-    cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "4",
-              "--seq-len", "16", "--global-batch", "4", "--interval", "2",
-              "--log-every", "2"])
+    """The encoder-decoder arch has no frames on the CLI, in either
+    package: its first step raises ``KeyError: 'frames'``."""
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--steps", "4",
+            "--seq-len", "16", "--global-batch", "4", "--interval", "2",
+            "--log-every", "2"]
+    if tconfigs.get_reduced(arch).is_encdec:
+        with pytest.raises(KeyError, match="frames"):
+            cli.main(argv)
+        return
+    cli.main(argv)
     out = capsys.readouterr().out
     for tag in (f"[model] {arch}", "step     2  loss", "step     4  loss",
                 "[done] step 4 (4 committed)"):

@@ -141,9 +141,13 @@ def test_model_layout_equals_reference(arch, full, kv):
     _assert_layout_equal(got, want)
     # gemma2's local layer keeps a rolling window, resident where the
     # window (16 REDUCED, 4096 full) is shorter than the arena; the
-    # recurrent states (xlstm, zamba2) are resident; xlstm has no KV cache
-    recurrent = arch in ("xlstm-125m", "zamba2-2.7b")
-    assert got.has_resident == (recurrent or (arch == "gemma2-27b" and not full))
+    # recurrent states (xlstm, zamba2) and seamless's memory keys and
+    # values (mem_k, mem_v: frontend_tokens long whatever max_len) are
+    # resident; xlstm has no KV cache
+    resident = arch in ("xlstm-125m", "zamba2-2.7b", "seamless-m4t-medium")
+    assert got.has_resident == (resident or (arch == "gemma2-27b" and not full))
+    if arch == "seamless-m4t-medium":
+        assert [l.name for l in got.leaves if not l.paged] == ["mem_k", "mem_v"]
     assert got.has_paged == (arch != "xlstm-125m")
     assert ("int8" in got.plane_dtypes) == (kv == "int8" and arch != "xlstm-125m")
 
