@@ -123,9 +123,27 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            order of the ``covap_bucket_*`` spans follows ``ReadyOrder`` up
            to ties, and under fused at least one bucket's ``ef_update``
            kernels start on the device before layer 0's last backward GEMM,
-           under post none (the counterpart of
-           ``launch/hlo_analysis.check_interleaving``; one card shows where
-           each bucket is issued, not overlap across cards)
+           under post none (``launch/hlo_analysis.ef_kernel_overlap`` on the
+           step's trace; one card shows where each bucket is issued, not
+           overlap across cards)
+  gates    after ``[overlap]``, full width in the one-rank NCCL group, one
+           profiled step each (``record_shapes``, read by
+           ``launch/hlo_analysis``): the overlap gate on ``[overlap]``'s
+           fused trainer (``interleaved=True``, and at least one bucket's
+           first kernel on the device before layer 0's last backward GEMM),
+           a post trainer on the same model and state
+           (``before_final_grad=0``) and the sharded gate on a fresh fused
+           sharded trainer (``placed=True``; the plan's exposed ratio at
+           W=8); ``ef_update`` 2 x segments and ``pack_ef_cast`` segments
+  dryrun   ``launch/dryrun`` for gpt2-paper at ``[train]``'s shape (seq
+           1024, batch 8, W=1): its argument bytes less the batch equal the
+           bytes of a ``[train]`` state built on the card and lie within 2%
+           of the allocator's growth while it is built; its traced peak
+           beside ``[train]``'s measured peak, ``model_flops`` beside
+           ``analytic_costs.step_flops``, the defaults run's MFU (of 989.4
+           TFLOP/s); then ``launch/dryrun_sweep`` of every assigned arch at
+           ``train_4k`` on ``w8`` (8 at once) and ``dryrun_summary``'s
+           table.  ``[gates]`` and ``[dryrun]`` print their seconds
   launch   ``python -m torch.distributed.run --standalone --nproc-per-node 1
            -m repro_torch.launch.train`` at full width (seq 1024, global
            batch 8, I=4, 5 steps) in a one-rank NCCL group with
@@ -1400,6 +1418,7 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
     peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0
     wire = tc.compressor_options.get("wire_dtype") or "f32"
     tr.run_stats = (step_ms, tok_s, peak)
+    tr.run_base = base
     print(f"[train] {label}: {cfg.name} {n_params} params, {tr.plan.num_buckets} "
           f"buckets / {tr.plan.num_segments} segments, {tc.compressor} "
           f"{tr.num_phases} phase(s) {tc.overlap} {tc.sync} "
@@ -1733,36 +1752,20 @@ def phase_fused_parity(tr, state, loader, group) -> None:
           f"(largest ulp distance {worst}, bound {FUSED_PARITY_ULPS})", flush=True)
 
 
-def _bucket_of_span(name: str) -> int:
-    return int(name.split("/")[0].removeprefix("covap_bucket_"))
+def overlap_counts(trace, plan, issue_order) -> tuple[list[int], int, int]:
+    """From one profiled step's trace (``hlo_analysis.load_trace``): the
+    host order of the ``covap_bucket_*`` spans, and how many buckets'
+    ``ef_update`` kernels start on the device before the step's last GEMM
+    (layer 0's last backward GEMM), out of how many
+    (``hlo_analysis.ef_kernel_overlap``).  ``issue_order`` is the order the
+    buckets' kernels were launched in."""
+    from repro_torch.launch import hlo_analysis
 
-
-def overlap_counts(prof, plan, issue_order) -> tuple[list[int], int, int]:
-    """From one profiled step: the host order of the ``covap_bucket_*``
-    spans, and how many buckets' ``ef_update`` kernels start on the device
-    before the step's last GEMM (layer 0's last backward GEMM: nothing
-    after layer 0's backward runs a matrix product), out of how many.
-    ``issue_order`` is the order the buckets' kernels were launched in."""
-    from repro_torch.launch.profile_train import kernel_group
-
-    # the CPU side of each span (the profiler also records its device range)
-    spans = sorted((e for e in prof.events() if e.name.startswith("covap_bucket_")
-                    and e.device_type == torch.autograd.DeviceType.CPU),
-                   key=lambda e: e.time_range.start)
-    host = [_bucket_of_span(e.name) for e in spans]
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    check(bool(kernels), "overlap: the profiler recorded no device events")
-    gemms = [e for e in kernels if kernel_group(e.name) == "matmul"]
-    check(bool(gemms), "overlap: no matrix product in the trace")
-    efs = [e for e in kernels if kernel_group(e.name) == "ef_update"]
-    owners = [b for b in issue_order for _ in plan.buckets[b].segments]
-    check(len(efs) == len(owners), f"overlap: {len(efs)} ef_update kernels in the "
-          f"trace, {len(owners)} segments")
-    last_gemm = gemms[-1].time_range.start
-    early = {b for b, e in zip(owners, efs) if e.time_range.start < last_gemm}
-    return host, len(early), len(set(owners))
+    try:
+        early, total = hlo_analysis.ef_kernel_overlap(trace, plan, issue_order)
+    except ValueError as e:
+        raise PhaseError(f"overlap: {e}") from e
+    return hlo_analysis.bucket_spans(trace), early, total
 
 
 def phase_overlap(tr, state, loader, group) -> None:
@@ -1775,6 +1778,7 @@ def phase_overlap(tr, state, loader, group) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import build_ready_order
+    from repro_torch.launch.hlo_analysis import load_trace
     from repro_torch.train import build_step_fn
 
     phase = state["step"] % tr.num_phases
@@ -1792,7 +1796,7 @@ def phase_overlap(tr, state, loader, group) -> None:
             torch.cuda.synchronize()
         order = (list(range(tr.plan.num_buckets)) if overlap == "post"
                  else list(tr.last_step_fn.fired))
-        out[overlap] = overlap_counts(prof, tr.plan, order)
+        out[overlap] = overlap_counts(load_trace(prof), tr.plan, order)
     host, early, total = out["fused"]
     check(host == list(tr.last_step_fn.fired), "overlap: the covap_bucket spans "
           f"{host} differ from the hooks' firing order {tr.last_step_fn.fired}")
@@ -1809,6 +1813,130 @@ def phase_overlap(tr, state, loader, group) -> None:
           f"post {out['post'][1]} of {out['post'][2]}.  One card and a one-rank "
           f"group: this shows where each bucket is issued, not overlap across "
           f"cards", flush=True)
+    return state
+
+
+def phase_gates(cfg, group, tr, state, loader) -> dict:
+    """The overlap gate and the sharded gate (``launch/overlap_gate``,
+    ``launch/sharded_gate``) at full width in the one-rank NCCL group, one
+    profiled step each, read by ``launch/hlo_analysis``: ``tr`` (the
+    fused trainer of ``[overlap]``) must be interleaved with at least one
+    bucket's first kernel on the device before layer 0's last backward
+    GEMM; a post trainer on the same model and state must issue no
+    collective before the final backward product; a fresh fused sharded
+    trainer must be placed.  Returns the ``ef_update`` and
+    ``pack_ef_cast`` launches of the three steps."""
+    import dataclasses
+
+    from repro_torch.launch import overlap_gate, sharded_gate
+    from repro_torch.train import Trainer
+
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    phase = state["step"] % tr.num_phases
+    batch = loader.make(state["step"])
+    fused = overlap_gate.profile_and_check(tr, state, batch, phase=phase)
+    check(fused.interleaved, f"gates: the fused step is not interleaved: {fused}")
+    check(fused.device_early >= 1, "gates: no fused bucket's first kernel started "
+          f"on the device before layer 0's last backward GEMM: {fused}")
+    post_tr = Trainer(tr.model, tr.optimizer, dataclasses.replace(tr.tc, overlap="post"),
+                      group=group)
+    post = overlap_gate.profile_and_check(post_tr, state, batch, phase=phase)
+    check(post.num_collectives > 0 and post.before_final_grad == 0
+          and not post.interleaved, f"gates: the post step is interleaved: {post}")
+    ef = counters["ef_update"].launches
+    del post_tr
+    str_, sstate = fresh_trainer(cfg, group, {"overlap": "fused", "sync": "sharded"})
+    placed = sharded_gate.profile_and_check(str_, sstate, loader.make(0))
+    ratio = sharded_gate.exposed_ratio(str_, world=8)
+    check(placed.placed, f"gates: the sharded step is not placed: {placed}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    segs = tr.plan.num_segments
+    check(launches == launch_counts(ef_update=2 * segs, pack_ef_cast=segs),
+          f"gates: launches {launches}; the plan has {segs} segments")
+    print(f"[gates] full width, one card, one profiled step each: "
+          f"{overlap_gate.overlap_line(fused)} device_early={fused.device_early} of "
+          f"{fused.device_buckets} buckets; post: {overlap_gate.overlap_line(post)}; "
+          f"{sharded_gate.sharded_line(placed, ratio)} (plan at W=8); "
+          f"ef_update {ef}, pack_ef_cast {launches['pack_ef_cast']} launches; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del str_, sstate
+    return {"ef_update": ef, "pack_ef_cast": launches["pack_ef_cast"]}
+
+
+def phase_dryrun(cfg, group, stats: dict, base_gib: float) -> None:
+    """``launch/dryrun`` against the card: ``plan_train`` and
+    ``memory_analysis`` for gpt2-paper at ``[train]``'s shape (seq 1024,
+    global batch 8, W = 1).  The argument bytes less the batch must equal
+    the bytes of a ``[train]`` state built on the card (params, Adam's
+    moments, the residuals: numel x element size) and lie within 2% of the
+    allocator's growth while it is built; the traced peak is printed beside
+    ``[train]``'s measured ``max_memory_allocated`` (an estimate, not
+    checked), and the defaults run's MFU (model FLOPs over step seconds x
+    989.4 TFLOP/s, the data sheet's dense bf16 peak) beside
+    ``analytic_costs.step_flops``.  Then the dry run of every assigned arch
+    at ``train_4k`` on ``w8`` (``launch/dryrun_sweep``, 8 at once) and
+    ``dryrun_summary``'s table."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import analytic_costs, dryrun, dryrun_summary
+    from repro_torch.models import model_flops
+
+    t0 = time.perf_counter()
+    shape = InputShape("chip_smoke", 1024, 8, "train")
+    meta = dryrun.plan_train(cfg, 1, 1, "covap", 4, 0)
+    ma = dryrun.memory_analysis(cfg, shape, 8, interval=4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    tr, state = fresh_trainer(cfg, group)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - m0
+    held = dryrun.tree_bytes([state["params"], state["opt"], state["comp"]])
+    args = ma["argument_size_in_bytes"] - ma["batch_size_in_bytes"]
+    check(args == held, f"dryrun: argument bytes less the batch {args}, the card's "
+          f"state {held}")
+    check(abs(growth - held) <= 0.02 * held, f"dryrun: the allocator grew {growth} B "
+          f"building a state of {held} B")
+    check(meta["plan_buckets"] == tr.plan.num_buckets, f"dryrun: {meta['plan_buckets']} "
+          f"buckets planned, the trainer has {tr.plan.num_buckets}")
+    del tr, state
+    torch.cuda.empty_cache()
+    step_ms, _, peak_gib = stats["defaults"]
+    step_s = statistics.median(step_ms) / 1e3
+    mf = model_flops(cfg, 8 * 1024, "train")
+    print(f"[dryrun] gpt2-paper seq 1024 x batch 8, W=1: {meta['plan_buckets']} buckets, "
+          f"phase 0 plans {meta['planned_bytes_per_worker']} B a worker; argument "
+          f"bytes {ma['argument_size_in_bytes']} (state {args} == the card's {held}; "
+          f"the allocator grew {growth}, {100 * (growth - held) / held:+.3f}%); traced "
+          f"peak {ma['peak_memory_in_bytes'] / 2**30:.2f} GiB (traced at "
+          f"{ma['peak_traced']}) vs [train] defaults measured {peak_gib:.2f} GiB (of "
+          f"which {base_gib:.2f} held before it), ratio "
+          f"{ma['peak_memory_in_bytes'] / 2**30 / peak_gib:.3f}; model_flops "
+          f"{mf:.4e} vs analytic step_flops {analytic_costs.step_flops(cfg, shape):.4e}; "
+          f"[train] defaults median step {1e3 * step_s:.1f} ms -> MFU "
+          f"{mf / (step_s * 989.4e12):.4f} (of 989.4 TFLOP/s)", flush=True)
+    with tempfile.TemporaryDirectory() as td:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun_sweep",
+                            "--arch", "all", "--shape", "train_4k", "--mesh", "w8",
+                            "--out", td, "--jobs", "8", "--timeout", "150"],
+                           capture_output=True, text=True, env=env, timeout=600)
+        check(r.returncode == 0, f"dryrun: the sweep failed: {r.stderr[-2000:]}")
+        recs = dryrun_summary.load(td)
+    from repro_torch.configs import list_archs
+
+    got = {rec["arch"]: rec["status"] for rec in recs}
+    check(sorted(got) == sorted(list_archs(assigned_only=True))
+          and set(got.values()) <= {"ok", "does_not_fit", "error"},
+          f"dryrun: the sweep's records {got}")
+    print("[dryrun] launch.dryrun --arch all --shape train_4k --mesh w8 (dryrun_sweep, "
+          f"8 at once; statuses {got}):\n{dryrun_summary.table(recs)}", flush=True)
+    print(f"[dryrun] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def comp_parts(comp) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
@@ -3435,6 +3563,7 @@ def main() -> int:
         cfg = get_config("gpt2-paper")
         tr, state, loader, launches = phase_train(cfg, group=group)
         stats = {"defaults": tr.run_stats}
+        stats_base = tr.run_base
         segs = tr.plan.num_segments
         check(launches == launch_counts(ef_update=STEPS * segs),
               f"defaults: launches {launches} in {STEPS} steps; the plan has "
@@ -3555,9 +3684,15 @@ def main() -> int:
             cfg, group=group, label="fused, for [overlap]", options={"overlap": "fused"})
         check(launches == launch_counts(ef_update=STEPS * segs),
               f"fused, for [overlap]: launches {launches}")
-        phase_overlap(tr, state, loader, group)
+        state = phase_overlap(tr, state, loader, group)
+        t_added = time.perf_counter()
+        gates = phase_gates(cfg, group, tr, state, loader)
+        records[0]["launches_by_run"]["gates fused+post"] = gates["ef_update"]
+        records[1]["launches_by_run"]["gates sharded"] = gates["pack_ef_cast"]
         del tr, state, loader
         torch.cuda.empty_cache()
+        phase_dryrun(cfg, group, stats, stats_base)
+        print(f"[gates] + [dryrun]: {time.perf_counter() - t_added:.1f} s", flush=True)
     finally:
         dist.destroy_process_group()
     phase_small()

@@ -57,6 +57,18 @@ class HardwareSpec:
         return HardwareSpec(peak_flops=125e12, hbm_bw=900e9, ici_bw=30e9 / 8,
                             mfu=0.35, dcn_bw=30e9 / 8)
 
+    @staticmethod
+    def h100_sxm() -> "HardwareSpec":
+        """One NVIDIA H100 SXM5 in a DGX H100, the card the port runs on,
+        from NVIDIA's H100 SXM5 data sheet: 989.4 TFLOP/s of dense bf16,
+        3.35 TB/s of HBM3, NVLink 4 at 450 GB/s a direction inside the node
+        (``ici_bw``), and the DGX H100 compute fabric's one 400 Gb/s NIC a
+        GPU between nodes (``dcn_bw``, 50 GB/s).  ``mfu`` is the
+        reference's default, 0.4 (the counterpart of its
+        ``HardwareSpec.v5e()``)."""
+        return HardwareSpec(peak_flops=989.4e12, hbm_bw=3.35e12, ici_bw=450e9,
+                            mfu=0.4, dcn_bw=400e9 / 8)
+
 
 def allreduce_bytes_on_wire(payload_bytes: float, world: int) -> float:
     """Ring all-reduce: each worker moves ``2 (W-1)/W`` of the payload."""

@@ -33,13 +33,14 @@ import argparse
 import json
 import math
 import os
-import socket
 import sys
 import tempfile
 import time
 
 import torch
 import torch.distributed as dist
+
+from .mesh import free_port
 
 FAULT_SPEC = "grad_nan@6,ef_blowup@10,grad_inf@14x3,kill@17"
 TOTAL_STEPS = 20
@@ -177,12 +178,6 @@ def chaos_line(out: dict, ok: bool) -> str:
                s["faults"]["fired"], int(ok)))
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _cpu_worker(rank: int, world: int, init_file: str, td: str) -> None:
     from ..configs import get_reduced
 
@@ -226,7 +221,7 @@ def main(argv=None) -> int:
             from ..configs import get_config
 
             torch.cuda.set_device(0)
-            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
                                     world_size=1, rank=0)
             try:
                 out = run_chaos(td, get_config("gpt2-paper"), device="cuda",

@@ -14,7 +14,6 @@ step won.  Needs a GPU; with none it raises.
 from __future__ import annotations
 
 import argparse
-import socket
 import statistics
 import subprocess
 import time
@@ -27,14 +26,9 @@ from ..data import DataConfig, make_loader
 from ..models import build_model
 from ..optim import adamw, cosine_warmup
 from ..train.trainer import TrainConfig, Trainer
+from .mesh import free_port
 
 FORMS = {"defaults": {}, "arena": {"arena": True}, "sharded": {"sync": "sharded"}}
-
-
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _quartiles(xs: list[float]) -> tuple[float, float, float]:
@@ -65,7 +59,7 @@ def main(argv=None):
     torch.cuda.set_device(0)
     group = None
     if not args.no_group:
-        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
                                 world_size=1, rank=0)
         group = dist.group.WORLD
     try:

@@ -27,81 +27,19 @@ every step matched and the plan has DCN bytes.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
-import socket
 import sys
 import tempfile
 
-import torch
 import torch.distributed as dist
+
+from .hlo_analysis import count_collectives
 
 TC = dict(compressor="covap", interval=4, bucket_bytes=1 << 14, max_buckets=32,
           log_every=10 ** 9, sync="sharded", pod_interval=2)
 DATA = dict(vocab_size=256, seq_len=32, global_batch=8)
 N_PODS, INTRA = 2, 4
-# the step's reductions that are not in the plan: the metric average (on
-# the intra-pod group and, hierarchical, on the pod group) and the sharded
-# grad-norm sum; the gate counts them apart, as unplanned bytes
-UNPLANNED = ("_pmean_metrics", "_sharded_grad_norm")
-
-
-@contextlib.contextmanager
-def count_collectives(links: dict):
-    """Count the bytes each worker injects into the collectives of the
-    groups in ``links`` (``group -> link name``), by link, as the plan counts
-    them: an all-reduce's buffer, a reduce-scatter's whole input, an
-    all-gather's local shard.  Calls made inside the trainer's
-    :data:`UNPLANNED` functions go to a second dict.  Yields the two
-    ``link -> bytes`` dicts it fills, ``(counted, unplanned)``."""
-    from ..train import trainer as trainer_mod
-
-    counted: dict[str, int] = {}
-    unplanned: dict[str, int] = {}
-    inside = [0]
-    saved = dist.all_reduce, dist.reduce_scatter_tensor, dist.all_gather_into_tensor
-    saved_fns = {name: getattr(trainer_mod, name) for name in UNPLANNED}
-
-    def note(group, t: torch.Tensor):
-        link = links.get(group)
-        if link is not None:
-            into = unplanned if inside[0] else counted
-            into[link] = into.get(link, 0) + t.numel() * t.element_size()
-
-    def all_reduce(tensor, *a, group=None, **k):
-        note(group, tensor)
-        return saved[0](tensor, *a, group=group, **k)
-
-    def reduce_scatter_tensor(output, input, *a, group=None, **k):
-        note(group, input)
-        return saved[1](output, input, *a, group=group, **k)
-
-    def all_gather_into_tensor(output, input, *a, group=None, **k):
-        note(group, input)
-        return saved[2](output, input, *a, group=group, **k)
-
-    def unplanned_call(fn):
-        def call(*a, **k):
-            inside[0] += 1
-            try:
-                return fn(*a, **k)
-            finally:
-                inside[0] -= 1
-        return call
-
-    dist.all_reduce, dist.reduce_scatter_tensor, dist.all_gather_into_tensor = (
-        all_reduce, reduce_scatter_tensor, all_gather_into_tensor)
-    for name, fn in saved_fns.items():
-        setattr(trainer_mod, name, unplanned_call(fn))
-    try:
-        yield counted, unplanned
-    finally:
-        dist.all_reduce, dist.reduce_scatter_tensor, dist.all_gather_into_tensor = saved
-        for name, fn in saved_fns.items():
-            setattr(trainer_mod, name, fn)
-
-
 def planned_bytes_by_link(fn) -> dict[str, int]:
     """What one step of ``fn`` should inject by link: the gradient
     schedule's exposed calls, its deferred head all-gather (phase-
@@ -182,15 +120,9 @@ def hier_line(r: dict, ratio: float) -> str:
 
 
 def _worker(rank: int, world: int, init: str, out: str, device: str) -> None:
-    from .mesh import build_groups
+    from .mesh import build_groups, join_spawned
 
-    if device == "cpu":
-        torch.set_num_threads(1)
-        dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
-    else:
-        device = f"cuda:{rank}"
-        torch.cuda.set_device(device)
-        dist.init_process_group("nccl", init_method=init, world_size=world, rank=rank)
+    device = join_spawned(rank, world, init, device)
     try:
         tr, state, batches = build_trainer(build_groups(N_PODS), device=device)
         r = check(tr, state, batches)
@@ -202,32 +134,16 @@ def _worker(rank: int, world: int, init: str, out: str, device: str) -> None:
         dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
                     help="cuda: one NCCL rank per card (8 cards); cpu: gloo processes")
     args = ap.parse_args(argv)
-    world = N_PODS * INTRA
-    if args.device != "cpu":
-        from ..device import resolve_device
+    from .mesh import spawn_ranks
 
-        resolve_device(args.device)
-        if torch.cuda.device_count() < world:
-            raise SystemExit(f"hier_gate: {world} ranks need {world} cards, "
-                             f"this host has {torch.cuda.device_count()}; "
-                             "pass --device cpu for gloo processes")
     with tempfile.TemporaryDirectory() as td:
-        init = (f"file://{os.path.join(td, 'init')}" if args.device == "cpu"
-                else f"tcp://127.0.0.1:{_free_port()}")
         out = os.path.join(td, "result.json")
-        torch.multiprocessing.spawn(_worker, args=(world, init, out, args.device),
-                                    nprocs=world, start_method="spawn")
+        spawn_ranks(_worker, N_PODS * INTRA, args.device, out)
         with open(out) as f:
             r = json.load(f)
     print(hier_line(r, r["ratio"]))

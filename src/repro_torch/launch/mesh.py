@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 
 import torch
 import torch.distributed as dist
@@ -101,3 +102,40 @@ def init_from_env(device: str = "cuda") -> torch.device:
     else:
         dist.init_process_group("gloo")
     return dev
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a ``tcp://127.0.0.1`` rendezvous."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(worker, world: int, device: str, out: str, *args) -> None:
+    """``worker(rank, world, init, out, device, *args)`` on ``world``
+    spawned ranks, which join with :func:`join_spawned`: gloo processes on
+    the CPU (a ``file://`` rendezvous beside ``out``), one NCCL rank a card
+    otherwise (raises when the host has fewer cards)."""
+    if device != "cpu":
+        resolve_device(device)
+        if torch.cuda.device_count() < world:
+            raise SystemExit(f"{world} ranks need {world} cards, this host has "
+                             f"{torch.cuda.device_count()}; pass --device cpu for "
+                             "gloo processes")
+    init = (f"file://{os.path.join(os.path.dirname(out), 'init')}" if device == "cpu"
+            else f"tcp://127.0.0.1:{free_port()}")
+    torch.multiprocessing.spawn(worker, args=(world, init, out, device, *args),
+                                nprocs=world, start_method="spawn")
+
+
+def join_spawned(rank: int, world: int, init: str, device: str) -> str:
+    """Join a rank of :func:`spawn_ranks` to the default group: gloo on one
+    thread on the CPU, NCCL on ``cuda:<rank>`` otherwise.  -> its device."""
+    if device == "cpu":
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+        return "cpu"
+    device = f"cuda:{rank}"
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=init, world_size=world, rank=rank)
+    return device

@@ -76,13 +76,21 @@ def _percentile(xs: list[float], q: float) -> float:
     return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
 
 
-def run_traffic(engine, cfg: TrafficConfig) -> TrafficReport:
-    """Open-loop pump: requests are submitted at their scheduled wall-clock
-    arrival whether or not the engine has caught up (queueing delay is part
-    of the measured latency, as it would be for real traffic).  Rejected
-    submissions are resubmitted with exponential backoff up to
+def run_traffic(engine, cfg: TrafficConfig, *, clock=time.perf_counter,
+                sleep=time.sleep) -> TrafficReport:
+    """Open-loop pump: requests are submitted at their scheduled arrival on
+    ``clock`` whether or not the engine has caught up (queueing delay is
+    part of the measured latency, as it would be for real traffic).
+    Rejected submissions are resubmitted with exponential backoff up to
     ``cfg.max_retries`` times; the FINAL completion (retried or not) is
     what lands in the latency aggregate, timed from the original arrival.
+
+    ``clock`` and ``sleep`` default to the wall clock.  A test passes a
+    virtual pair, whose time moves only when it says so, to make the
+    pump's arrivals, backoffs and outcomes independent of the machine's
+    speed; the latencies subtract arrivals on ``clock`` from the engine's
+    completion stamps (``time.perf_counter``), so they mean wall-clock
+    time only with the default pair.
     """
     plan = synth_requests(cfg)
     submitted = 0
@@ -91,9 +99,9 @@ def run_traffic(engine, cfg: TrafficConfig) -> TrafficReport:
     attempts = [0] * len(plan)
     retry_heap: list[tuple[float, int]] = []   # (due rel-time, plan index)
     retries_total = 0
-    t0 = time.perf_counter()
+    t0 = clock()
     while len(final) < len(plan):
-        now = time.perf_counter() - t0
+        now = clock() - t0
         while submitted < len(plan) and plan[submitted][0] <= now:
             live[engine.submit(plan[submitted][1])] = submitted
             submitted += 1
@@ -112,7 +120,7 @@ def run_traffic(engine, cfg: TrafficConfig) -> TrafficReport:
             ):
                 attempts[idx] += 1
                 retries_total += 1
-                due = (time.perf_counter() - t0) + cfg.retry_backoff_s * (
+                due = (clock() - t0) + cfg.retry_backoff_s * (
                     2 ** (attempts[idx] - 1)
                 )
                 heapq.heappush(retry_heap, (due, idx))
@@ -125,8 +133,8 @@ def run_traffic(engine, cfg: TrafficConfig) -> TrafficReport:
             if retry_heap:
                 waits.append(retry_heap[0][0] - now)
             if waits:
-                time.sleep(min(0.05, max(0.0, min(waits))))
-    t_end = time.perf_counter()
+                sleep(min(0.05, max(0.0, min(waits))))
+    t_end = clock()
 
     lat, ttft, reasons = [], [], {}
     gen_tokens = 0

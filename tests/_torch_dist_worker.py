@@ -702,3 +702,53 @@ def hier_resume_worker(rank, world, init_file, ckpt_dir, out_prefix, n_pods, tc_
         np.savez(f"{out_prefix}{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
+
+
+def gates_worker(rank, world, init_file, out_prefix, steps):
+    """The trace analysis on profiled steps of the gates' REDUCED trainer
+    (``launch.overlap_gate.build_trainer``: gpt2-paper, vocabulary 256, seq
+    32, global batch 8, COVAP I = 4): for each form in ``steps``
+    (``name -> (build_trainer kwargs, phase)``) one step of ``phase`` under
+    the profiler, and what ``hlo_analysis`` reads from its trace beside the
+    plan of that phase.  Writes ``<out_prefix><rank>.json``."""
+    import dataclasses
+    import json
+
+    from repro_torch.launch import hlo_analysis as ha
+    from repro_torch.launch import overlap_gate
+    from repro_torch.launch.hier_gate import planned_bytes_by_link
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        out = {}
+        for name, (kw, phase) in steps.items():
+            tr, state, batch = overlap_gate.build_trainer(device="cpu", **kw)
+            while state["step"] % tr.num_phases != phase:
+                state, _ = tr.step(state, batch)
+            with ha.count_collectives({tr.group: "ici"}) as (counted, unplanned):
+                _, trace = overlap_gate.profile_step(tr, state, batch)
+            fn = tr._phase_fn(phase)
+            out[name] = {
+                "plan_by_link": planned_bytes_by_link(fn),
+                "plan_bytes_per_worker": fn.comm_schedule.total_bytes_per_worker,
+                "counted": dict(counted), "unplanned": dict(unplanned),
+                "bytes_per_worker": ha.collective_bytes_per_worker(trace, world,
+                                                                   min_bytes=64),
+                "bytes_by_link": ha.collective_bytes_by_link(
+                    trace, intra_world=world, min_bytes=64, world=world),
+                "interleave": dataclasses.asdict(ha.check_interleaving(trace)),
+                "placement": dataclasses.asdict(
+                    ha.check_sharded_placement(trace, world=world)),
+                "data_movement": ha.count_data_movement(trace),
+                "selected_segments": sum(len(tr.plan.buckets[b].segments)
+                                         for b in fn.comm_schedule.selected),
+                "fired": list(tr.last_step_fn.fired),
+                "spans": ha.bucket_spans(trace),
+                "gather_events": [list(e) for e in tr.gather_events],
+            }
+        with open(f"{out_prefix}{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()

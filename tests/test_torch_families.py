@@ -11,7 +11,6 @@ the CLI has no frames and fails naming them, as the reference's does)."""
 import dataclasses
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,6 +26,7 @@ from repro.models import count_params as r_count_params
 from repro.models import long_context_variant as r_long_context_variant
 from repro.models import model_flops as r_model_flops
 
+import _torch_reference_runs as ref_runs
 import repro_torch.api as api
 import repro_torch.configs as tconfigs
 from repro_torch.core import build_plan, build_ready_order, get_compressor
@@ -128,28 +128,6 @@ def test_registry_equals_reference_and_refuses_unknown_archs(assigned_only):
             get("llama-7b")
 
 
-def _init(arch, seed=0):
-    """The reference's REDUCED parameters, with the zero-initialised norm
-    scales and q/k/v biases set to small random values so that their
-    forward paths carry weight."""
-    rcfg = rconfigs.get_reduced(arch)
-    params = jax.tree.map(np.asarray, r_build_model(rcfg).init(jax.random.PRNGKey(seed)))
-    rng = np.random.default_rng(seed + 100)
-    flat = _tree_paths(params)
-
-    def perturb(tree, prefix=""):
-        for k, v in tree.items():
-            path = f"{prefix}{k}"
-            if isinstance(v, dict):
-                perturb(v, path + ".")
-            elif k in ("scale", "bq", "bk", "bv"):
-                tree[k] = (0.1 * rng.standard_normal(v.shape)).astype(v.dtype)
-
-    perturb(params)
-    assert len(_tree_paths(params)) == len(flat)
-    return params
-
-
 @pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
 def test_interop_round_trips_the_recurrent_trees(arch):
     """``params_from_jax``/``params_to_numpy`` over the recurrent trees
@@ -215,30 +193,32 @@ def test_recurrent_init_follows_reference_rules(arch):
         assert abs(g.std() / w.std() - 1) < tol, (path, g.std(), w.std())
 
 
-def _frames(cfg, batch, seed=0):
-    """Std-0.02 normal frames (batch, frontend_tokens, d_model), f32."""
-    rng = np.random.default_rng(seed)
-    return (0.02 * rng.standard_normal((batch, cfg.frontend_tokens, cfg.d_model))
-            ).astype(np.float32)
+# the reference's gradients of the loss test go to this many processes at
+# once
+REFERENCE_PROCESSES = 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_grads():
+    """Each arch's reference loss and gradients
+    (``_torch_reference_runs.family_grads``), all started when the module
+    starts: ``arch -> future``."""
+    calls = {arch: (ref_runs.family_grads, (arch, SEQ)) for arch in ARCHS}
+    with ref_runs.reference_pool(calls, REFERENCE_PROCESSES) as futures:
+        yield futures
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_loss_aux_and_grads_match_reference(arch):
+def test_loss_aux_and_grads_match_reference(arch, reference_grads):
     """The encoder-decoder arch's batch carries frames; pixtral's is text
     only here (its projector's gradient is zero in both packages;
-    ``test_torch_multimodal.py`` holds the patch path)."""
-    rcfg, cfg = _configs(arch, reduced=True)
-    rmodel = r_build_model(rcfg)
-    params = _init(arch)
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(0, rcfg.vocab_size, size=(2, SEQ)).astype(np.int32)
-    labels = rng.integers(0, rcfg.vocab_size, size=(2, SEQ)).astype(np.int32)
-    labels[1, :5] = -1
-    batch = {"tokens": tokens, "labels": labels}
-    if cfg.is_encdec:
-        batch["frames"] = _frames(cfg, 2)
-    (rloss, rmet), rgrads = jax.value_and_grad(rmodel.loss_fn, has_aux=True)(
-        jax.tree.map(jnp.asarray, params), {k: jnp.asarray(v) for k, v in batch.items()})
+    ``test_torch_multimodal.py`` holds the patch path).  The reference's
+    eager ``jax.value_and_grad`` runs in ``reference_grads``'s processes,
+    on the parameters and batch it returns."""
+    _, cfg = _configs(arch, reduced=True)
+    ref = reference_grads[arch].result(timeout=900)
+    params, batch = ref["params"], ref["batch"]
+    rloss, rmet = ref["loss"], ref["metrics"]
 
     model = build_model(cfg, device="cpu")
     model.load_state_dict(params_from_jax(params, device="cpu"))
@@ -251,7 +231,7 @@ def test_loss_aux_and_grads_match_reference(arch):
     np.testing.assert_allclose(float(met["aux_loss"].detach()), float(rmet["aux_loss"]),
                                rtol=RTOL, atol=ATOL)
     assert (float(met["aux_loss"].detach()) > 0) == cfg.is_moe
-    ref_grads = _tree_paths(jax.tree.map(np.asarray, rgrads))
+    ref_grads = ref["grads"]
     assert [p for p, _ in model.named_leaves()] == list(ref_grads)
     for path, p in model.named_leaves():
         # a text-only batch does not reach the projector: jax.grad's zeros
@@ -411,7 +391,7 @@ def test_plan_report_equals_reference(arch):
 def _with_frames(cfg, batches):
     """The loader's batches, each with std-0.02 frames of its own."""
     for i, batch in enumerate(batches):
-        yield dict(batch, frames=torch.from_numpy(_frames(cfg, 4, seed=i)))
+        yield dict(batch, frames=torch.from_numpy(ref_runs.frames(cfg, 4, seed=i)))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

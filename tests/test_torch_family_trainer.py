@@ -4,21 +4,12 @@ I=4 with AdamW over a full cycle plus one step against
 xlstm-125m, zamba2-2.7b), the arena, sharded and fused forms against the
 port's own post path bit for bit (zamba2 at 4 layers, so that its
 weight-shared block runs twice a step), and a leaf outside the loss."""
-import jax
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
-import repro.configs as rconfigs
-from repro.data import DataConfig as RDataConfig
-from repro.data import make_loader as r_make_loader
-from repro.models import build_model as r_build_model
-from repro.optim import adamw as r_adamw
-from repro.optim import cosine_warmup as r_cosine_warmup
-from repro.train.trainer import TrainConfig as RTrainConfig
-from repro.train.trainer import Trainer as RTrainer
-
+import _torch_reference_runs as ref_runs
 import repro_torch.configs as tconfigs
 from repro_torch.data import DataConfig, make_loader
 from repro_torch.interop import params_from_jax
@@ -35,22 +26,20 @@ DATA = dict(vocab_size=512, seq_len=32, global_batch=4, corpus_tokens=1 << 14)
 LR = 1e-3
 
 
-def _flat(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, f"{prefix}{k}."))
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-    return out
+ADAMW_ARCHS = ["qwen1.5-0.5b", "gemma2-27b", "deepseek-moe-16b", "xlstm-125m",
+               "zamba2-2.7b"]
+# the reference runs of the AdamW test go to this many processes at once
+REFERENCE_PROCESSES = 3
 
 
-def _reference(rcfg, opt, steps=STEPS, **tc):
-    tr = RTrainer(r_build_model(rcfg), opt, RTrainConfig(**dict(TC, steps=steps, **tc)))
-    state = tr.init_state(jax.random.PRNGKey(0))
-    init = jax.tree.map(np.asarray, state["params"])
-    state = tr.run(state, iter(r_make_loader(RDataConfig(**DATA))), log=None)
-    return init, tr, state
+@pytest.fixture(scope="module", autouse=True)
+def references():
+    """Each arch's reference AdamW run (``_torch_reference_runs.family_adamw``),
+    all started when the module starts: ``arch -> future``."""
+    calls = {arch: (ref_runs.family_adamw, (arch, TC, DATA, LR, STEPS))
+             for arch in ADAMW_ARCHS}
+    with ref_runs.reference_pool(calls, REFERENCE_PROCESSES) as futures:
+        yield futures
 
 
 def _port(cfg, init, opt, steps=STEPS, group=None, **tc):
@@ -63,24 +52,22 @@ def _port(cfg, init, opt, steps=STEPS, group=None, **tc):
     return tr, state
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-27b", "deepseek-moe-16b",
-                                  "xlstm-125m", "zamba2-2.7b"])
-def test_trainer_adamw_matches_reference(arch):
+@pytest.mark.parametrize("arch", ADAMW_ARCHS)
+def test_trainer_adamw_matches_reference(arch, references):
     """The tolerances of ``tests/test_torch_trainer.py``'s AdamW run:
     losses at rtol 1e-5, params and residuals at rtol 1e-4 and ``atol = 2
     * lr * steps`` (Adam turns an ulp of a near-zero gradient into an
     lr-sized step), and 99.9% of param elements at rtol 1e-4, atol 1e-6."""
-    init, rtr, rstate = _reference(rconfigs.get_reduced(arch),
-                                   r_adamw(r_cosine_warmup(LR, 1, STEPS)))
-    tr, state = _port(tconfigs.get_reduced(arch), init,
+    ref = references[arch].result(timeout=900)
+    tr, state = _port(tconfigs.get_reduced(arch), ref["init"],
                       adamw(cosine_warmup(LR, 1, STEPS)))
-    assert state["step"] == rstate["step"] == STEPS
-    assert tr.schedule_report() == rtr.schedule_report()
+    assert state["step"] == ref["step"] == STEPS
+    assert tr.schedule_report() == ref["schedule_report"]
     for key in ("loss", "aux_loss", "total_loss"):
         np.testing.assert_allclose([h[key] for h in tr.history],
-                                   [h[key] for h in rtr.history], rtol=1e-5,
+                                   [h[key] for h in ref["history"]], rtol=1e-5,
                                    atol=1e-7, err_msg=key)
-    rparams, rresid = _flat(rstate["params"]), _flat(rstate["comp"])
+    rparams, rresid = ref["params"], ref["comp"]
     close = total = 0
     for (path, _), p, r in zip(tr.model.named_leaves(), state["params"], state["comp"]):
         np.testing.assert_allclose(p.detach().numpy(), rparams[path], rtol=1e-4,
@@ -108,6 +95,11 @@ FORMS = {"arena": dict(arena=True), "sharded": dict(sync="sharded"),
          "fused-sharded-arena": dict(overlap="fused", sync="sharded", arena=True)}
 
 
+# each arch's post run, the one every form of it is held against: run
+# once, by the first of its forms
+_POST: dict = {}
+
+
 # the depth of a forms run: zamba2's REDUCED 2 layers are one superblock,
 # and the shared block runs once; at 4 it runs after each of two
 FORM_LAYERS = {"zamba2-2.7b": 4}
@@ -127,13 +119,13 @@ def test_forms_equal_post_bitwise(arch, form, one_rank_gloo):
     cfg = tconfigs.get_reduced(arch)
     if arch in FORM_LAYERS:
         cfg = cfg.with_(num_layers=FORM_LAYERS[arch])
-    runs = {}
-    for name, opts in (("post", {}), (form, FORMS[form])):
-        tr, state = _port(cfg.with_(remat=True) if "fused" in name else cfg, None,
-                          adamw(cosine_warmup(LR, 1, STEPS)), group=one_rank_gloo,
-                          **opts)
-        runs[name] = (tr, state)
-    (tp, sp), (tf, sf) = runs["post"], runs[form]
+    if arch not in _POST:
+        _POST[arch] = _port(cfg, None, adamw(cosine_warmup(LR, 1, STEPS)),
+                            group=one_rank_gloo)
+    tp, sp = _POST[arch]
+    tf, sf = _port(cfg.with_(remat=True) if "fused" in form else cfg, None,
+                   adamw(cosine_warmup(LR, 1, STEPS)), group=one_rank_gloo,
+                   **FORMS[form])
     assert [h["total_loss"] for h in tf.history] == [h["total_loss"] for h in tp.history]
     for part in ("params", "comp"):
         for a, b in zip(sf[part], sp[part]):

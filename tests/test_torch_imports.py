@@ -80,3 +80,25 @@ def test_launch_and_pod_modules_are_checked(module):
     """The multi-process launcher, the process groups, the hierarchical
     trainer and its gate are among the files both checks above walk."""
     assert PORT.joinpath(*module.split(".")).with_suffix(".py") in FILES
+
+
+LAUNCH_TOOL_MODULES = ("launch.analytic_costs", "launch.hlo_analysis", "launch.overlap_gate",
+                       "launch.sharded_gate", "launch.dryrun", "launch.dryrun_sweep",
+                       "launch.dryrun_summary", "launch.roofline_report")
+
+
+@pytest.mark.parametrize("module", LAUNCH_TOOL_MODULES)
+def test_launch_tool_modules_are_checked(module):
+    """The gates, the trace analysis, the analytic costs and the dry run
+    with its reports are among the files both checks above walk."""
+    assert PORT.joinpath(*module.split(".")).with_suffix(".py") in FILES
+
+
+def test_only_the_pallas_helpers_and_the_tp_shardings_have_no_counterpart():
+    """Every module of the JAX package has one in the port, but
+    ``kernels/common.py`` (Pallas helpers) and ``launch/shardings.py``
+    (tensor-parallel shardings; the port trains data-parallel only)."""
+    ref = ROOT / "src" / "repro"
+    missing = sorted(str(f.relative_to(ref)) for f in ref.rglob("*.py")
+                     if not (PORT / f.relative_to(ref)).exists())
+    assert missing == ["kernels/common.py", "launch/shardings.py"]

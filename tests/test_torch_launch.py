@@ -24,6 +24,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+import _torch_reference_runs as ref_runs
 from _torch_dist_worker import fit_worker
 
 from repro_torch.launch import mesh
@@ -45,13 +46,32 @@ GUARDED = ["--reduced", "--steps", "8", "--seq-len", "16", "--global-batch", "4"
            "grad_nan@3"]
 
 
+def _start(cmd, env=ENV):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=ROOT)
+
+
+def _start_torchrun(nproc, args):
+    """The CLI under ``torch.distributed.run`` on ``nproc`` gloo ranks,
+    started and not waited for."""
+    return _start([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   f"--nproc-per-node={nproc}", "-m", "repro_torch.launch.train", *args])
+
+
+def _finish(p, timeout=300):
+    """Wait for a started subprocess; -> its stdout, once it exited 0."""
+    try:
+        stdout, stderr = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    assert p.returncode == 0, stdout[-3000:] + stderr[-3000:]
+    return stdout
+
+
 def _torchrun(nproc, args, timeout=300):
-    r = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         f"--nproc-per-node={nproc}", "-m", "repro_torch.launch.train", *args],
-        capture_output=True, text=True, env=ENV, timeout=timeout, cwd=ROOT)
-    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
-    return r.stdout
+    return _finish(_start_torchrun(nproc, args), timeout)
 
 
 @pytest.fixture(scope="module")
@@ -59,24 +79,38 @@ def two_ranks(tmp_path_factory):
     """-> (stdout, history dict) of the CLI on two gloo ranks, and each
     rank's ``api.fit(group=)`` losses on the same arguments."""
     tmp = tmp_path_factory.mktemp("launch")
-    hist = tmp / "history.json"
-    out = _torchrun(2, [*CLI, "--history-out", str(hist)])
-    ctx = mp.start_processes(fit_worker, args=(2, str(tmp / "rendezvous"),
-                                               str(tmp / "fit"), FIT),
-                             nprocs=2, join=False, start_method="spawn")
-    for _ in range(300):
-        if ctx.join(timeout=1):
-            break
-    else:
-        for p in ctx.processes:
-            p.kill()
-        raise AssertionError("gloo workers did not finish within 300 s")
+    hist, ref = tmp / "history.json", tmp / "ref.json"
+    # the CLI, the reference's CLI (for its history keys) and the fit
+    # workers run at once
+    cli = _start_torchrun(2, [*CLI, "--history-out", str(hist)])
+    ref_cli = _start(
+        [sys.executable, "-m", "repro.launch.train", "--arch", "gpt2-paper", "--reduced",
+         "--steps", "2", "--seq-len", "16", "--global-batch", "4", "--interval", "2",
+         "--log-every", "1", "--history-out", str(ref)], ref_runs.one_thread_env(ENV))
+    try:
+        ctx = mp.start_processes(fit_worker, args=(2, str(tmp / "rendezvous"),
+                                                   str(tmp / "fit"), FIT),
+                                 nprocs=2, join=False, start_method="spawn")
+        for _ in range(300):
+            if ctx.join(timeout=1):
+                break
+        else:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("gloo workers did not finish within 300 s")
+        out = _finish(cli)
+        _finish(ref_cli)
+    finally:
+        for p in (cli, ref_cli):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     fits = [dict(np.load(tmp / f"fit{r}.npz")) for r in range(2)]
-    return out, json.loads(hist.read_text()), fits
+    return out, json.loads(hist.read_text()), fits, json.loads(ref.read_text())
 
 
 def test_two_process_cli_equals_fit_with_a_group(two_ranks):
-    out, hist, fits = two_ranks
+    out, hist, fits, _ = two_ranks
     assert "[launch] 2 rank(s), 1 pod(s) x 2, backend gloo" in out
     assert f"[done] step {STEPS} ({STEPS} committed)" in out
     assert out.count("[done]") == 1                       # rank 0 prints alone
@@ -87,16 +121,10 @@ def test_two_process_cli_equals_fit_with_a_group(two_ranks):
         np.testing.assert_array_equal(losses, fit["losses"])
 
 
-def test_history_out_has_the_reference_keys(two_ranks, tmp_path):
-    _, hist, _ = two_ranks
-    ref = tmp_path / "ref.json"
-    r = subprocess.run(
-        [sys.executable, "-m", "repro.launch.train", "--arch", "gpt2-paper", "--reduced",
-         "--steps", "2", "--seq-len", "16", "--global-batch", "4", "--interval", "2",
-         "--log-every", "1", "--history-out", str(ref)],
-        capture_output=True, text=True, env=ENV, timeout=300, cwd=ROOT)
-    assert r.returncode == 0, r.stderr[-3000:]
-    want = json.loads(ref.read_text())
+def test_history_out_has_the_reference_keys(two_ranks):
+    """Against ``python -m repro.launch.train --history-out`` (run in
+    ``two_ranks``, beside the port's CLI)."""
+    _, hist, _, want = two_ranks
     assert sorted(hist) == sorted(want) == ["config", "history", "interval"]
     assert hist["interval"] == want["interval"] == 2
     assert sorted(hist["history"][0]) == sorted(want["history"][0])
@@ -137,13 +165,21 @@ def test_pods_at_pod_interval_one_equal_the_flat_world(tmp_path):
     step syncs over the whole world, as the reference's ``pod_interval=1``
     on a ``("pod", "data")`` mesh does, so the losses equal the flat
     four-rank run's bit for bit."""
-    runs = {}
-    for name, extra in (("flat", []), ("pods", ["--pods", "2"])):
-        hist = tmp_path / f"{name}.json"
-        out = _torchrun(4, [*CLI, "--global-batch", "8", *extra,
-                            "--history-out", str(hist)])
-        assert "[pods]" not in out
-        runs[name] = [h["loss"] for h in json.loads(hist.read_text())["history"]]
+    runs, procs = {}, {}
+    try:
+        for name, extra in (("flat", []), ("pods", ["--pods", "2"])):
+            procs[name] = _start_torchrun(4, [*CLI, "--global-batch", "8", *extra,
+                                              "--history-out", str(tmp_path / f"{name}.json")])
+        for name, p in procs.items():
+            out = _finish(p)
+            assert "[pods]" not in out
+            runs[name] = [h["loss"] for h in
+                          json.loads((tmp_path / f"{name}.json").read_text())["history"]]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     assert "[launch] 4 rank(s), 2 pod(s) x 2, backend gloo" in out
     assert len(runs["flat"]) == STEPS
     assert runs["pods"] == runs["flat"]
@@ -176,21 +212,33 @@ def test_launch_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
         cli_main(["--reduced", "--steps", "1", "--device", "cpu", "--pods", "2"])
 
 
-def test_fit_and_cli_commit_the_steps_asked_for(capsys):
+# api.fit's arguments in test_fit_and_cli_commit_the_steps_asked_for
+GUARDED_FIT = dict(reduced=True, interval=4, steps=8, seq_len=16, global_batch=4,
+                   guards=True, faults="grad_nan@3")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_fit():
+    """The reference's ``api.fit(**GUARDED_FIT)``, started in a process of
+    its own when the module starts: a future of its step and resilience
+    summary."""
+    calls = {"fit": (ref_runs.api_fit, ("gpt2-paper", GUARDED_FIT))}
+    with ref_runs.reference_pool(calls, 1) as futures:
+        yield futures["fit"]
+
+
+def test_fit_and_cli_commit_the_steps_asked_for(capsys, reference_fit):
     """A skipped step is replayed, so 8 steps are committed; the reference's
     ``api.fit`` counts step executions and returns at step 3."""
-    import repro.api as rapi
     import repro_torch.api as api
 
-    kw = dict(reduced=True, interval=4, steps=8, seq_len=16, global_batch=4,
-              guards=True, faults="grad_nan@3")
-    got = api.fit("gpt2-paper", device="cpu", **kw)
+    got = api.fit("gpt2-paper", device="cpu", **GUARDED_FIT)
     assert got.state["step"] == 8
     assert got.resilience["actions_by_rung"] == {"skip_step": 1}
-    ref = rapi.fit("gpt2-paper", **kw)
-    assert ref.state["step"] == 3                 # pinned: the reference's short run
-    assert ref.resilience["actions_by_rung"] == {"skip_step": 1}
     cli_main(GUARDED)
     out = capsys.readouterr().out
+    ref = reference_fit.result(timeout=900)
+    assert ref["step"] == 3                       # pinned: the reference's short run
+    assert ref["resilience"]["actions_by_rung"] == {"skip_step": 1}
     assert "[done] step 8 (8 committed)" in out
     assert "{'skip_step': 1}" in out

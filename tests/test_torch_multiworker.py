@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from _torch_dist_worker import (
     train_worker,
     wire_drift,
 )
+from _torch_reference_runs import one_thread_env
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 WORLD = 2
@@ -75,6 +77,7 @@ FUSED_RUNS = {"fused": "allreduce", "fused-arena": "arena",
               "fused-sharded": "sharded", "fused-sharded-arena": "sharded-arena"}
 
 REFERENCE = """
+import os
 import jax, numpy as np
 from jax.sharding import Mesh
 from repro.configs import get_reduced
@@ -102,7 +105,10 @@ for name, tc in {runs}.items():
     tr = Trainer(build_model(get_reduced("gpt2-paper")), sgd({lr}, momentum=0.9),
                  TrainConfig(**tc), mesh=mesh, dp_axes=("data",))
     state = tr.init_state(jax.random.PRNGKey(0))
-    np.savez({init!r}, **flat(state["params"]))
+    if not os.path.exists({init!r}):     # written whole, then renamed
+        part = {init!r} + f".{{os.getpid()}}.npz"
+        np.savez(part, **flat(state["params"]))
+        os.replace(part, {init!r})
     leaf_state = set(state["comp"]) == {{"q", "residual"}}    # PowerSGD's state
     if leaf_state:
         comp0.update(indexed(name, "q", state["comp"]["q"]))
@@ -127,47 +133,131 @@ def _init_comp(init):
     return init.removesuffix(".npz") + "-comp.npz"
 
 
+# the reference's runs go to this many subprocesses, run at once (one a
+# run); each writes the same initial parameters (PRNGKey(0)) and its runs
+REFERENCE_PROCESSES = 3
+
+
+def _start_reference(init, out):
+    """Start every run of ``REFERENCE_RUNS`` on the reference's 2-device CPU
+    mesh, in ``REFERENCE_PROCESSES`` subprocesses at once, XLA on one thread
+    each (``_torch_reference_runs.one_thread_env``); the first to initialise
+    writes the initial parameters to ``init``.  -> the processes and their
+    output paths, for :func:`_finish_reference`."""
+    env = one_thread_env(dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""), XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}"))
+    names = list(REFERENCE_RUNS)
+    procs = []
+    for g in range(REFERENCE_PROCESSES):
+        paths = (f"{out}.{g}.npz", f"{init}.comp{g}.npz")
+        runs = {n: REFERENCE_RUNS[n] for n in names[g::REFERENCE_PROCESSES]}
+        code = REFERENCE.format(world=WORLD, lr=LR, runs=runs, data=DATA, init=init,
+                                out=paths[0], init_comp=paths[1])
+        procs.append((paths, subprocess.Popen(
+            [sys.executable, "-c", textwrap.dedent(code)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env)))
+    return procs
+
+
+def _finish_reference(procs, init, out):
+    """Wait for :func:`_start_reference`'s processes and merge their
+    outputs into ``out`` and ``_init_comp(init)``."""
+    try:
+        for _, p in procs:
+            _, stderr = p.communicate(timeout=600)
+            assert p.returncode == 0, stderr[-4000:]
+    finally:
+        _kill(p for _, p in procs)
+    merged, comp = {}, {}
+    for (out_g, comp_g), _ in procs:
+        merged.update(np.load(out_g))
+        comp.update(np.load(comp_g))
+    np.savez(out, **merged)
+    np.savez(_init_comp(init), **comp)
+
+
 def _run_reference(init, out):
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
-    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    code = REFERENCE.format(world=WORLD, lr=LR, runs=REFERENCE_RUNS, data=DATA,
-                            init=init, out=out, init_comp=_init_comp(init))
-    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
-                       capture_output=True, text=True, timeout=600, env=env)
-    assert r.returncode == 0, r.stderr[-4000:]
+    _finish_reference(_start_reference(init, out), init, out)
 
 
-def _spawn(worker, args, tmp_path, prefix):
-    """Run ``worker(rank, *args)`` on ``WORLD`` spawned processes; -> each
-    rank's ``<prefix><rank>.npz``."""
-    ctx = mp.start_processes(worker, args=args, nprocs=WORLD, join=False,
-                             start_method="spawn")
-    for _ in range(600):
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _wait_for(path, procs, timeout=600):
+    """Wait until ``path`` exists; fail early when a process exits non-zero."""
+    for _ in range(int(timeout / 0.2)):
+        if os.path.exists(path):
+            return
+        bad = [p for _, p in procs if p.poll() not in (None, 0)]
+        assert not bad, bad[0].communicate()[1][-4000:]
+        time.sleep(0.2)
+    raise AssertionError(f"{path} was not written within {timeout} s")
+
+
+def _join(ctx, timeout=600):
+    for _ in range(timeout):
         if ctx.join(timeout=1):
             break
     else:
         for p in ctx.processes:
             p.kill()
-        raise AssertionError("gloo workers did not finish within 600 s")
+        raise AssertionError(f"gloo workers did not finish within {timeout} s")
     assert not any(p.is_alive() for p in ctx.processes)
+
+
+def _start(worker, args):
+    return mp.start_processes(worker, args=args, nprocs=WORLD, join=False,
+                              start_method="spawn")
+
+
+def _spawn(worker, args, tmp_path, prefix):
+    """Run ``worker(rank, *args)`` on ``WORLD`` spawned processes; -> each
+    rank's ``<prefix><rank>.npz``."""
+    _join(_start(worker, args))
     return [dict(np.load(tmp_path / f"{prefix}{r}.npz")) for r in range(WORLD)]
 
 
+def _port_args(tmp_path, init, name, runs, init_comp=None):
+    return (WORLD, str(tmp_path / f"rendezvous-{name}"), init, str(tmp_path / name), runs,
+            DATA, "sgd", LR, STEPS, init_comp)
+
+
 def _run_port(tmp_path, init):
-    return _spawn(train_worker,
-                  (WORLD, str(tmp_path / "rendezvous"), init, str(tmp_path / "port"),
-                   PORT_RUNS, DATA, "sgd", LR, STEPS, _init_comp(init)),
-                  tmp_path, "port")
+    return _spawn(train_worker, _port_args(tmp_path, init, "port", PORT_RUNS,
+                                           _init_comp(init)), tmp_path, "port")
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """-> (reference, [rank 0, rank 1]): every run of both sides, once."""
+    """-> (reference, [rank 0, rank 1]): every run of both sides, once.  The
+    port's runs start as soon as the reference has written the initial
+    parameters; its PowerSGD run, which starts from the reference's Q,
+    once the reference is done."""
     tmp = tmp_path_factory.mktemp("multiworker")
     init, out = str(tmp / "init.npz"), str(tmp / "ref.npz")
-    _run_reference(init, out)
-    return dict(np.load(out)), _run_port(tmp, init)
+    procs = _start_reference(init, out)
+    early = None
+    try:
+        _wait_for(init, procs)
+        first = {k: v for k, v in PORT_RUNS.items() if v["compressor"] != "powersgd"}
+        early = _start(train_worker, _port_args(tmp, init, "port-a", first))
+        _finish_reference(procs, init, out)
+        late = _spawn(train_worker, _port_args(
+            tmp, init, "port-b", {k: v for k, v in PORT_RUNS.items() if k not in first},
+            _init_comp(init)), tmp, "port-b")
+        _join(early)
+    finally:
+        _kill(p for _, p in procs)
+        if early is not None:
+            for p in early.processes:
+                if p.is_alive():
+                    p.kill()
+    ranks = [{**dict(np.load(tmp / f"port-a{r}.npz")), **late[r]} for r in range(WORLD)]
+    return dict(np.load(out)), ranks
 
 
 def _part(run, tree, part):

@@ -63,6 +63,7 @@ from repro_torch.runtime import AutotuneConfig, synthetic_probe
 from repro_torch.runtime.monitor import PhaseSample
 from repro_torch.train import TrainConfig, Trainer
 
+import _torch_reference_runs as ref_runs
 from _torch_dist_worker import (chaos_worker, residual_fault_worker, sharded_replan_skip_worker,
                                 sharded_skip_worker)
 
@@ -79,6 +80,30 @@ LADDER_SPEC = "grad_nan@8,ef_blowup@12,grad_inf@16x3"
 
 def _cfg(pkg):
     return pkg.get_reduced("gpt2-paper").with_(vocab_size=256)
+
+
+def _ladder_guards(ckpt_dir):
+    return dict(ckpt_dir=str(ckpt_dir), ckpt_every=6, residual_check_every=2,
+                max_skips=1, max_flushes=1, sync_every=1)
+
+
+# api.fit's arguments in test_api_fit_guards_and_faults_equal_reference
+FIT_KW = dict(reduced=True, interval=4, steps=8, seq_len=16, global_batch=4,
+              vocab_size=128, guards={"sync_every": 2}, faults="grad_inf@4")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def references(tmp_path_factory):
+    """The reference's longest runs of the module, started in two processes
+    of their own when the module starts and read where a test needs them:
+    ``"ladder"`` (``_torch_reference_runs.resilience_ladder`` on
+    ``LADDER_SPEC``) and ``"fit"`` (``api.fit(**FIT_KW)``)."""
+    ckpt = tmp_path_factory.mktemp("reference-ladder")
+    calls = {"ladder": (ref_runs.resilience_ladder,
+                        (TC, DATA, LR, 256, _ladder_guards(ckpt), LADDER_SPEC, 40)),
+             "fit": (ref_runs.api_fit, ("gpt2-paper", FIT_KW))}
+    with ref_runs.reference_pool(calls, 2) as futures:
+        yield futures
 
 
 @pytest.fixture(scope="module")
@@ -460,7 +485,7 @@ def test_ladder_all_rungs_with_schema_valid_telemetry(tmp_path):
     assert [t.policy for t in tr.transitions] == ["flush"] * s["actions_by_rung"]["ef_flush"]
 
 
-def test_ladder_equals_reference_on_the_same_spec(init, tmp_path):
+def test_ladder_equals_reference_on_the_same_spec(init, tmp_path, references):
     """The same spec and seed: the same trips by guard and step, actions by
     rung, attempts and rewind targets, faults fired and final step; params
     within atol 0.05 of the reference's, and 99% of their elements within
@@ -473,26 +498,21 @@ def test_ladder_equals_reference_on_the_same_spec(init, tmp_path):
     initial params have 4.9% of their elements within 1e-3 of the
     reference's end point, and a clean run over the same number of other
     batches 11%."""
-    def guards(d):
-        return dict(ckpt_dir=str(tmp_path / d), ckpt_every=6, residual_check_every=2,
-                    max_skips=1, max_flushes=1, sync_every=1)
-
-    rtr, rstate = _ref()
-    rstate = rtr.run(rstate, _rloader(), steps=40, log=None,
-                     guards=rres.GuardConfig(**guards("r")), faults=LADDER_SPEC)
     tr, state = _port(init)
     state = tr.run(state, iter(make_loader(DataConfig(**DATA), device="cpu")), steps=40,
-                   log=None, guards=res.GuardConfig(**guards("p")), faults=LADDER_SPEC)
-    want, got = rtr.resilience, tr.resilience
-    assert [(t.step, t.guard) for t in got.guards.trips] == \
-        [(t.step, t.guard) for t in want.guards.trips]
+                   log=None, guards=res.GuardConfig(**_ladder_guards(tmp_path / "p")),
+                   faults=LADDER_SPEC)
+    want = references["ladder"].result(timeout=900)     # the reference's run
+    got = tr.resilience
+    assert _cfg(rconfigs).vocab_size == 256
+    assert [(t.step, t.guard) for t in got.guards.trips] == want["trips"]
     assert [{k: v for k, v in a.items() if k != "detail"} for a in got.actions] == \
-        [{k: v for k, v in a.items() if k != "detail"} for a in want.actions]
-    assert got.summary() == want.summary()
-    assert got.injector.log == want.injector.log
-    assert state["step"] == int(rstate["step"])
+        want["actions"]
+    assert got.summary() == want["summary"]
+    assert got.injector.log == want["injector_log"]
+    assert state["step"] == want["step"]
     gaps = []
-    for p, r in zip(state["params"], jax.tree.leaves(rstate["params"])):
+    for p, r in zip(state["params"], want["params"]):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(r), rtol=1e-4, atol=0.05)
         gaps.append(np.abs(p.detach().numpy() - np.asarray(r)).ravel())
     assert (np.concatenate(gaps) <= 1e-3).mean() >= 0.99
@@ -726,20 +746,18 @@ def test_ccr_skew_rides_the_adaptive_probe_like_the_reference():
         {"events": 1, "fired": 2, "by_kind": {"ccr_skew": 2}}
 
 
-def test_api_fit_guards_and_faults_equal_reference():
-    import repro.api as rapi
-
-    kw = dict(reduced=True, interval=4, steps=8, seq_len=16, global_batch=4,
-              vocab_size=128, guards={"sync_every": 2}, faults="grad_inf@4")
-    want = rapi.fit("gpt2-paper", **kw)
+def test_api_fit_guards_and_faults_equal_reference(references):
+    """The reference's fit ran in ``references``' process."""
     cfg = rconfigs.get_reduced("gpt2-paper").with_(vocab_size=128)
     init = jax.tree.map(np.asarray, r_build_model(cfg).init(jax.random.PRNGKey(0)))
-    got = api.fit("gpt2-paper", device="cpu", init=params_from_jax(init, device="cpu"), **kw)
-    assert got.resilience == want.resilience
+    got = api.fit("gpt2-paper", device="cpu", init=params_from_jax(init, device="cpu"),
+                  **FIT_KW)
+    want = references["fit"].result(timeout=900)
+    assert got.resilience == want["resilience"]
     assert got.resilience["actions_by_rung"] == {"skip_step": 1}
     # the port commits the 8 steps asked for; the reference counts step
     # executions, and its final drain rolls the state back to step 5
-    assert got.state["step"] == 8 and int(want.state["step"]) == 5
+    assert got.state["step"] == 8 and want["step"] == 5
 
 
 def test_cli_guards_faults_kill_and_resume(tmp_path):
@@ -769,29 +787,61 @@ def _chaos_fields(out):
     return {k: fields[k] for k in CHAOS_KEYS}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def chaos_procs():
+    """The reference gate (``python -m repro.launch.chaos_gate`` on an
+    8-device CPU mesh, XLA on one thread) and the port's gate on two gloo
+    ranks (``python -m repro_torch.launch.chaos_gate --device cpu``),
+    started together when the module starts: ``{"ref", "port"} ->
+    Popen``."""
+    path = SRC + os.pathsep + os.environ.get("PYTHONPATH", "")
+    cmds = {
+        "ref": ([sys.executable, "-m", "repro.launch.chaos_gate"],
+                ref_runs.one_thread_env(dict(
+                    os.environ, PYTHONPATH=path, JAX_PLATFORMS="cpu",
+                    XLA_FLAGS="--xla_force_host_platform_device_count=8"))),
+        "port": ([sys.executable, "-m", "repro_torch.launch.chaos_gate", "--device", "cpu"],
+                 dict(os.environ, PYTHONPATH=path)),
+    }
+    procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True, env=env) for k, (cmd, env) in cmds.items()}
+    try:
+        yield procs
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+
+
 @pytest.fixture(scope="module")
-def ref_chaos():
-    """The reference gate's ``CHAOS`` line (``python -m
-    repro.launch.chaos_gate`` on an 8-device CPU mesh), without its loss."""
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               XLA_FLAGS="--xla_force_host_platform_device_count=8", JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-m", "repro.launch.chaos_gate"],
-                       capture_output=True, text=True, env=env, timeout=300)
-    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
-    return _chaos_fields(r.stdout)
+def chaos_runs(chaos_procs):
+    """``chaos_procs``' results: ``{"ref", "port"} -> (return code, stdout,
+    stderr)``."""
+    out = {}
+    for k, p in chaos_procs.items():
+        stdout, stderr = p.communicate(timeout=600)
+        out[k] = (p.returncode, stdout, stderr)
+    return out
 
 
-def test_chaos_gate_cli_on_two_gloo_ranks(ref_chaos):
+@pytest.fixture(scope="module")
+def ref_chaos(chaos_runs):
+    """The reference gate's ``CHAOS`` line, without its loss."""
+    rc, stdout, stderr = chaos_runs["ref"]
+    assert rc == 0, stdout + stderr[-3000:]
+    return _chaos_fields(stdout)
+
+
+def test_chaos_gate_cli_on_two_gloo_ranks(ref_chaos, chaos_runs):
     """The port's gate on two gloo ranks prints the reference gate's
     ``CHAOS`` fields (the loss aside: the meshes differ) and agrees across
     its ranks."""
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.chaos_gate", "--device",
-                        "cpu"], capture_output=True, text=True, env=env, timeout=300)
-    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
-    assert _chaos_fields(r.stdout) == ref_chaos
+    rc, stdout, stderr = chaos_runs["port"]
+    assert rc == 0, stdout + stderr[-3000:]
+    assert _chaos_fields(stdout) == ref_chaos
     assert ref_chaos["rungs"] == "ef_flush:3,rewind:1,skip_step:1"
-    assert "ranks=2 ranks_agree=1" in r.stdout
+    assert "ranks=2 ranks_agree=1" in stdout
 
 
 # ---------------------------------------------------------------------------

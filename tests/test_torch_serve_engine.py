@@ -308,13 +308,43 @@ def test_overload_qps_sweep_sheds_without_losing_requests(model_and_params):
     assert all(c.finish_s >= c.first_token_s >= c.admit_s >= c.submit_s for c in admitted)
 
 
+class VirtualClock:
+    """Time that moves only by a fixed cost a call of ``step`` and by what
+    ``sleep`` is asked for, so a pump's outcomes do not ride the machine's
+    speed or load."""
+
+    def __init__(self, step_s: float):
+        self.now, self.step_s = 0.0, step_s
+
+    def __call__(self) -> float:
+        return self.now
+
+    def sleep(self, s: float) -> None:
+        self.now += s
+
+    def charge(self, step):
+        def timed_step():
+            self.now += self.step_s
+            return step()
+        return timed_step
+
+
+# a virtual engine step's cost: about an unloaded REDUCED engine step on a CPU
+VIRTUAL_STEP_S = 0.005
+
+
 def test_overload_retry_with_backoff_resolves(model_and_params):
+    """On a virtual clock (:class:`VirtualClock`, ``VIRTUAL_STEP_S`` an
+    engine step), so that the count of finished requests does not move
+    with the load of the machine running the test."""
     model, params = model_and_params
     eng = Engine(model, params, ServeConfig(batch_slots=2, max_len=32, max_new_tokens=4,
                                             max_queue=2))
     cfg = TrafficConfig(qps=500.0, num_requests=12, prompt_len=(3, 6), vocab_size=128,
                         seed=3, max_retries=4, retry_backoff_s=0.01)
-    rep = run_traffic(eng, cfg)
+    clock = VirtualClock(VIRTUAL_STEP_S)
+    eng.step = clock.charge(eng.step)
+    rep = run_traffic(eng, cfg, clock=clock, sleep=clock.sleep)
     assert sum(rep.finish_reasons.values()) == 12
     assert rep.retries > 0
     assert rep.finish_reasons.get("length", 0) >= 10

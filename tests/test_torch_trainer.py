@@ -8,21 +8,15 @@ default), not the fused/arena/sharded equalities it fails on this tree."""
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-import repro.configs as rconfigs
-from repro.data import DataConfig as RDataConfig
-from repro.data import make_loader as r_make_loader
-from repro.models import build_model as r_build_model
-from repro.optim import adamw as r_adamw
+import _torch_reference_runs as ref_runs
 from repro.optim import cosine_warmup as r_cosine_warmup
-from repro.optim import sgd as r_sgd
-from repro.train.trainer import TrainConfig as RTrainConfig
-from repro.train.trainer import Trainer as RTrainer
 
 import repro_torch.configs as tconfigs
 from repro_torch.data import DataConfig, make_loader
@@ -51,13 +45,40 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _run_reference(opt):
-    model = r_build_model(rconfigs.get_reduced("gpt2-paper"))
-    tr = RTrainer(model, opt, RTrainConfig(**TC))
-    state = tr.init_state(jax.random.PRNGKey(0))
-    init = jax.tree.map(np.asarray, state["params"])
-    state = tr.run(state, iter(r_make_loader(RDataConfig(**DATA))), log=None)
-    return init, tr, state
+# every reference run of the module, by name: (TrainConfig kwargs,
+# optimizer spec of ``_torch_reference_runs._optimizer``)
+REFERENCE_RUNS = {
+    "sgd": (TC, ("sgd", LR, 0.9)),
+    "adamw": (TC, ("adamw-cosine", 1e-3, STEPS)),
+    "fp8wire": (dict(TC, compressor="fp8wire"), ("sgd", LR, 0.9)),
+    "efsignsgd": (dict(TC, compressor="efsignsgd"), ("sgd", LR, 0.9)),
+    **{f"powersgd-{k}": (dict(TC, compressor="powersgd", compressor_options=o),
+                         ("sgd", LR, 0.9))
+       for k, o in (("defaults", {}), ("no-ef", {"ef": False}), ("rank-4", {"rank": 4}))},
+}
+# the reference runs go to this many processes at once
+REFERENCE_PROCESSES = 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def references():
+    """Every run of ``REFERENCE_RUNS`` (``_torch_reference_runs.trainer_run``
+    on the REDUCED gpt2-paper), all started when the module starts:
+    ``name -> future``."""
+    calls = {name: (ref_runs.trainer_run, ("gpt2-paper", tc, DATA, opt))
+             for name, (tc, opt) in REFERENCE_RUNS.items()}
+    with ref_runs.reference_pool(calls, REFERENCE_PROCESSES) as futures:
+        yield futures
+
+
+def _run_reference(references, name):
+    """-> ``(initial params, trainer, final state)`` of a reference run:
+    the trainer as its history and schedule report, the state's arrays as
+    numpy in their trees."""
+    ref = references[name].result(timeout=900)
+    rep = ref["schedule_report"]
+    rtr = types.SimpleNamespace(history=ref["history"], schedule_report=lambda: rep)
+    return ref["init"], rtr, ref["state"]
 
 
 def _run_port(init, opt):
@@ -84,21 +105,21 @@ def _compare(rtr, rstate, tr, state, *, rtol, atol):
                                    rtol=rtol, atol=atol, err_msg=path)
 
 
-def test_trainer_sgd_matches_reference():
-    init, rtr, rstate = _run_reference(r_sgd(LR, momentum=0.9))
+def test_trainer_sgd_matches_reference(references):
+    init, rtr, rstate = _run_reference(references, "sgd")
     tr, state = _run_port(init, sgd(LR, momentum=0.9))
     assert tr.schedule_report() == rtr.schedule_report()
     _compare(rtr, rstate, tr, state, rtol=1e-4, atol=1e-6)
 
 
-def test_trainer_adamw_matches_reference():
+def test_trainer_adamw_matches_reference(references):
     """Adam divides by ``sqrt(v) + eps``: where a gradient element is near
     zero (|g| ~ eps) an ulp of difference in ``g`` moves the step by up to
     ``lr``, whatever ``g``'s size.  So params are held to ``atol = 2 * lr
     * steps`` (the most two runs can drift apart), and in addition 99.9% of
     elements to the SGD bound; residuals and losses stay tight."""
-    lr = 1e-3
-    init, rtr, rstate = _run_reference(r_adamw(r_cosine_warmup(lr, 1, STEPS)))
+    lr = REFERENCE_RUNS["adamw"][1][1]
+    init, rtr, rstate = _run_reference(references, "adamw")
     tr, state = _run_port(init, adamw(cosine_warmup(lr, 1, STEPS)))
     _compare(rtr, rstate, tr, state, rtol=1e-4, atol=2 * lr * STEPS)
     rparams = _flat(rstate["params"])
@@ -110,17 +131,13 @@ def test_trainer_adamw_matches_reference():
     assert close / total > 0.999
 
 
-def _flat_wire_runs(name):
+def _flat_wire_runs(references, name):
     """The reference trainer and the port's, with and without the arena,
     over 5 SGD steps of ``compressor=name`` from the same parameters.
     -> ``(reference trainer, reference parts, [(trainer, parts), ...])``;
     parts are ``{"params", "mu", "resid"}`` leaf lists as numpy arrays."""
     tc = dict(TC, compressor=name)
-    rtr = RTrainer(r_build_model(rconfigs.get_reduced("gpt2-paper")),
-                   r_sgd(LR, momentum=0.9), RTrainConfig(**tc))
-    rstate = rtr.init_state(jax.random.PRNGKey(0))
-    init = jax.tree.map(np.asarray, rstate["params"])
-    rstate = rtr.run(rstate, iter(r_make_loader(RDataConfig(**DATA))), log=None)
+    init, rtr, rstate = _run_reference(references, name)
     want = {part: [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
             for part, tree in (("params", rstate["params"]),
                                ("mu", rstate["opt"]["mu"]), ("resid", rstate["comp"]))}
@@ -139,7 +156,7 @@ def _flat_wire_runs(name):
 
 
 @pytest.mark.parametrize("name", ["fp8wire", "efsignsgd"])
-def test_trainer_flat_wire_matches_reference(name):
+def test_trainer_flat_wire_matches_reference(name, references):
     """``TrainConfig(compressor=name)`` through ``Trainer.run``, with and
     without the arena, against the reference trainer over 5 SGD steps:
     losses at rtol 1e-5, grad norms at rtol 1e-4, params, momenta and EF
@@ -150,7 +167,7 @@ def test_trainer_flat_wire_matches_reference(name):
     prints the drift."""
     from _torch_dist_worker import assert_quantized_wire_close
 
-    rtr, want, runs = _flat_wire_runs(name)
+    rtr, want, runs = _flat_wire_runs(references, name)
     mu_max = max(float(np.max(np.abs(x))) for x in want["mu"])
     for arena, (tr, got) in zip((False, True), runs):
         assert tr.num_phases == 1 and tr.compressor.name == name
@@ -168,21 +185,17 @@ def test_trainer_flat_wire_matches_reference(name):
                for a, b in zip(plain[part], arena[part]))
 
 
-def _powersgd_runs(compressor_options):
+def _powersgd_runs(references, name):
     """The reference trainer and the port's over 5 SGD steps of
     ``compressor="powersgd"`` from the same parameters and the same
     starting Q (the reference's, carried over by
     ``interop.compressor_state_from_jax``).  -> ``(reference trainer, port
     trainer, {part: (port leaves, reference leaves)})`` for params, SGD's
     momenta, residuals and Q, as numpy arrays."""
-    tc = dict(TC, compressor="powersgd", compressor_options=compressor_options)
-    rtr = RTrainer(r_build_model(rconfigs.get_reduced("gpt2-paper")),
-                   r_sgd(LR, momentum=0.9), RTrainConfig(**tc))
-    rstate = rtr.init_state(jax.random.PRNGKey(0))
-    init = jax.tree.map(np.asarray, rstate["params"])
+    tc = REFERENCE_RUNS[name][0]
+    init, rtr, rstate = _run_reference(references, name)
     comp0 = {k: [None if v is None else np.asarray(v) for v in vs]
-             for k, vs in rstate["comp"].items()}
-    rstate = rtr.run(rstate, iter(r_make_loader(RDataConfig(**DATA))), log=None)
+             for k, vs in references[name].result()["comp0"].items()}
     model = build_model(tconfigs.get_reduced("gpt2-paper"), device="cpu")
     model.load_state_dict(params_from_jax(init, device="cpu"))
     tr = Trainer(model, sgd(LR, momentum=0.9), TrainConfig(**tc))
@@ -207,7 +220,7 @@ def _powersgd_runs(compressor_options):
 
 @pytest.mark.parametrize("options", [{}, {"ef": False}, {"rank": 4}],
                          ids=["defaults", "no-ef", "rank-4"])
-def test_trainer_powersgd_matches_reference(options):
+def test_trainer_powersgd_matches_reference(options, references, request):
     """``TrainConfig(compressor="powersgd")`` through ``Trainer.run`` against
     the reference trainer over 5 SGD steps.  Q is warm-started from step to
     step, so the frameworks' last-bit differences in P pass through QR into
@@ -216,7 +229,9 @@ def test_trainer_powersgd_matches_reference(options):
     the drift).  Held at: losses and grad norms rtol 1e-5; params at the
     float32 bound (rtol 1e-4, atol 1e-6); momenta, residuals and Q at rtol
     1e-4, atol 1e-4 of the part's largest reference value."""
-    rtr, tr, parts = _powersgd_runs(options)
+    name = f"powersgd-{request.node.callspec.id}"
+    assert REFERENCE_RUNS[name][0]["compressor_options"] == options
+    rtr, tr, parts = _powersgd_runs(references, name)
     assert tr.num_phases == 1 and tr.compressor.name == "powersgd"
     assert tr.schedule_report() == rtr.schedule_report()
     np.testing.assert_allclose([h["loss"] for h in tr.history],
@@ -264,31 +279,56 @@ def test_unported_train_options_raise():
         make_compressor(TrainConfig(compressor="qsgd"))
 
 
-def test_cli_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
-         "--steps", "2", "--seq-len", "16", "--global-batch", "4",
-         "--device", "cpu", "--log-every", "1"],
-        capture_output=True, text=True, env=env, timeout=300,
-    )
-    assert r.returncode == 0, r.stderr[-3000:]
-    out = r.stdout
+_CLI_BASE = ["--reduced", "--steps", "2", "--seq-len", "16", "--global-batch", "4",
+             "--device", "cpu", "--log-every", "1"]
+# each CLI test's arguments; the module runs them all at once, on first use
+CLI_RUNS = {
+    "defaults": [],
+    "powersgd": ["--compressor", "powersgd"],
+    "fp8wire": ["--compressor", "fp8wire", "--arena"],
+    "efsignsgd": ["--compressor", "efsignsgd", "--arena"],
+    "interval-auto": ["--interval", "auto", "--overlap", "fused"],
+}
+
+
+@pytest.fixture(scope="module")
+def cli_runs():
+    """``repro_torch.launch.train`` with each of ``CLI_RUNS``, in
+    subprocesses run at once: ``name -> (return code, stdout, stderr)``."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *_CLI_BASE, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for name, args in CLI_RUNS.items()}
+    out = {}
+    try:
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=300)
+            out[name] = (p.returncode, stdout, stderr)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def _cli(cli_runs, name) -> str:
+    rc, stdout, stderr = cli_runs[name]
+    assert rc == 0, stderr[-3000:]
+    return stdout
+
+
+def test_cli_runs_on_cpu(cli_runs):
+    out = _cli(cli_runs, "defaults")
     for tag in ("[plan] 1 buckets", "[schedule] mean", "[model] gpt2-paper",
                 "step     1  loss", "step     2  loss", "[done]"):
         assert tag in out, out
 
 
-def test_cli_runs_powersgd_on_cpu():
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
-         "--compressor", "powersgd", "--steps", "2", "--seq-len", "16",
-         "--global-batch", "4", "--device", "cpu", "--log-every", "1"],
-        capture_output=True, text=True, env=env, timeout=300,
-    )
-    assert r.returncode == 0, r.stderr[-3000:]
-    out = r.stdout
+def test_cli_runs_powersgd_on_cpu(cli_runs):
+    out = _cli(cli_runs, "powersgd")
     # 47,648 bytes a step at REDUCED: 12 leaf all-reduces of rank-2 factors
     for tag in ("1 phase executable(s)", "[schedule] mean 0.048 MB/step",
                 "step     1  loss", "step     2  loss", "[done]"):
@@ -296,36 +336,19 @@ def test_cli_runs_powersgd_on_cpu():
 
 
 @pytest.mark.parametrize("compressor", ["fp8wire", "efsignsgd"])
-def test_cli_runs_flat_wires_on_cpu(compressor):
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
-         "--compressor", compressor, "--arena", "--steps", "2", "--seq-len", "16",
-         "--global-batch", "4", "--device", "cpu", "--log-every", "1"],
-        capture_output=True, text=True, env=env, timeout=300,
-    )
-    assert r.returncode == 0, r.stderr[-3000:]
-    out = r.stdout
+def test_cli_runs_flat_wires_on_cpu(cli_runs, compressor):
+    out = _cli(cli_runs, compressor)
     for tag in ("[plan] 1 buckets, target", "1 phase executable(s)",
                 "[schedule] mean", "step     1  loss", "step     2  loss", "[done]"):
         assert tag in out, out
 
 
-def test_cli_interval_auto_raises():
+def test_cli_interval_auto_raises(cli_runs):
     """``--interval auto`` no longer raises: it resolves the paper's ``I =
     ceil(CCR)`` as the reference's CLI does and prints its ``[ccr]`` line
     (the same interval as ``repro.launch.train``: 64 at REDUCED with the
     default 8 modelled workers), here with ``--overlap fused``."""
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
-         "--interval", "auto", "--overlap", "fused", "--steps", "2",
-         "--seq-len", "16", "--global-batch", "4", "--device", "cpu",
-         "--log-every", "1"],
-        capture_output=True, text=True, env=env, timeout=300,
-    )
-    assert r.returncode == 0, r.stderr[-3000:]
-    out = r.stdout
+    out = _cli(cli_runs, "interval-auto")
     for tag in ("[ccr] analytic CCR=2552.08 -> interval I=64",
                 "64 phase executable(s)", "step     2  loss", "[done]"):
         assert tag in out, out
@@ -335,12 +358,16 @@ if __name__ == "__main__":
     # the drift of the quantizing wires from the reference, one worker
     from _torch_dist_worker import wire_drift
 
-    for wire in ("fp8wire", "efsignsgd"):
-        _, want, runs = _flat_wire_runs(wire)
-        for part in ("params", "mu", "resid"):
-            print(wire, part, wire_drift(runs[0][1][part], want[part]))
-    # PowerSGD's drift, each part's largest difference over its largest value
-    _, _, parts = _powersgd_runs({})
+    names = ("fp8wire", "efsignsgd", "powersgd-defaults")
+    calls = {n: (ref_runs.trainer_run, ("gpt2-paper", *REFERENCE_RUNS[n][0:1], DATA,
+                                        REFERENCE_RUNS[n][1])) for n in names}
+    with ref_runs.reference_pool(calls, REFERENCE_PROCESSES) as refs:
+        for wire in ("fp8wire", "efsignsgd"):
+            _, want, runs = _flat_wire_runs(refs, wire)
+            for part in ("params", "mu", "resid"):
+                print(wire, part, wire_drift(runs[0][1][part], want[part]))
+        # PowerSGD's drift, each part's largest difference over its largest value
+        _, _, parts = _powersgd_runs(refs, "powersgd-defaults")
     for part, (got, want) in parts.items():
         drift = wire_drift(got, want)
         print("powersgd", part, drift, drift["max"] / drift["max_want"])
