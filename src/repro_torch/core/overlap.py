@@ -46,8 +46,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-from torch.profiler import record_function
 
+from ..obs.spans import span
 from . import arena as ar
 from . import bucketing as bk
 from .comm import flat_axis_index, start_all_gather_tiled, world_size
@@ -254,9 +254,9 @@ class BucketHooks:
     ``fired`` lists the buckets in the order their hooks fired; ``streams``
     the CUDA stream each hook's backward ran on (``None`` off the card), and
     ``forward_stream`` the stream current when the hooks were installed.
-    Each fire runs inside ``record_function(f"covap_bucket_{b}/phase_{p}")``,
-    the reference's ``named_scope`` name, so a profiler trace shows each
-    bucket's issue."""
+    Each fire runs inside ``span(f"covap_bucket_{b}/phase_{p}")``
+    (``obs.spans``), the reference's ``named_scope`` name, so a profiler
+    trace shows each bucket's issue."""
 
     def __init__(self, sync: StepSync, leaves: Sequence[torch.Tensor]):
         self.sync = sync
@@ -285,7 +285,7 @@ class BucketHooks:
     def fire(self, b: int, grads) -> None:
         sync = self.sync
         if sync.ef_on or b in sync.selected:
-            with record_function(f"covap_bucket_{b}/phase_{self.phase}"):
+            with span(f"covap_bucket_{b}/phase_{self.phase}"):
                 sync.start(b, list(grads))
         self.fired.append(b)
         self.streams.append(torch.cuda.current_stream(grads[0].device).cuda_stream
@@ -392,13 +392,16 @@ def overlapped_loss_and_grads(model, pipeline: SyncPipeline, schedule: CommSched
             f"fp16); got {pipeline!r}: use overlap='post'")
     sync = StepSync(pipeline, schedule, params, comp_state, step=step, group=group)
     tree, hooks = install_hooks(sync, params)
-    total, metrics = model.loss_fn(batch, before_layer=before_layer, params=tree)
-    total.backward()
+    with span("train/forward"):
+        total, metrics = model.loss_fn(batch, before_layer=before_layer, params=tree)
+    with span("train/backward"):
+        total.backward()
     hooks.outputs.clear()
     sync.events.append(("backward_done", -1))
-    for b in list(sync.started):
-        sync.finish(b)
-    synced, new_state = sync.close()
+    with span("train/sync"):
+        for b in list(sync.started):
+            sync.finish(b)
+        synced, new_state = sync.close()
     metrics = {k: v.detach() for k, v in metrics.items()}
     return total.detach(), metrics, synced, new_state, sync, hooks
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.spans import span
 from .synthetic import markov_corpus
 
 
@@ -56,12 +57,17 @@ class ShardedLoader:
         return {"tokens": window[:, :-1], "labels": window[:, 1:]}
 
     def make(self, step: int) -> dict[str, torch.Tensor]:
-        return {
-            k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                self.device, torch.int64
-            )
-            for k, v in self.make_numpy(step).items()
-        }
+        """The batch of ``step`` on the device: drawn on the host (span
+        ``data/draw``), then copied (span ``data/copy``)."""
+        with span("data/draw"):
+            arrays = self.make_numpy(step)
+        with span("data/copy"):
+            return {
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    self.device, torch.int64
+                )
+                for k, v in arrays.items()
+            }
 
     def __iter__(self) -> Iterator[dict[str, torch.Tensor]]:
         step = 0

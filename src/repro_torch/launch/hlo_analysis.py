@@ -360,12 +360,13 @@ class InterleaveReport:
         return self.num_collectives > 0 and self.before_final_grad >= 1
 
 
-def _launches_by_correlation(trace: list[dict]) -> tuple[dict, dict]:
-    """The device kernels by correlation id, and the host calls that
-    launched them (the CUDA API events of the same correlation ids) by
-    thread."""
+def _launches_by_correlation(trace: list[dict], *, cats=("kernel",)
+                             ) -> tuple[dict, dict]:
+    """The device kernels (events of the categories ``cats``) by correlation
+    id, and the host calls that launched them (the CUDA API events of the
+    same correlation ids) by thread."""
     kernels = {e["args"]["correlation"]: e for e in trace
-               if e.get("cat") == "kernel" and "correlation" in e.get("args", {})}
+               if e.get("cat") in cats and "correlation" in e.get("args", {})}
     launches: dict[int, list[dict]] = {}
     for e in trace:
         if (e.get("cat", "").startswith("cuda_")

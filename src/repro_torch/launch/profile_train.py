@@ -11,8 +11,14 @@ prints, for the profiled window: the host wall time per step, the share of
 that wall time in which some kernel ran (the device's busy share), the
 device milliseconds per step by kernel group and for the top kernels, and
 the host calls per step of QR (``powersgd``) and of the CUDA runtime's
-synchronising calls, with their host time.  Needs a GPU; with none it
-raises.
+synchronising calls, with their host time, and then by program span
+(``repro_torch.obs.spans``: ``train/*``, ``moe/*``, ``data/*``, the
+buckets' ``covap_bucket_*`` taken together): the device ms a step of the
+kernels launched inside the span (on the launching thread, or on the
+stepping thread, which waits inside ``train/backward`` while the autograd
+engine's thread launches), the host ms a step inside it, and the device's
+idle ms a step that began while it was the innermost span open on the
+stepping thread.  Needs a GPU; with none it raises.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from ..data import DataConfig, make_loader
 from ..models import build_model
 from ..optim import adamw, cosine_warmup
 from ..train.trainer import TrainConfig, Trainer
+from .hlo_analysis import _enclosing, _end, _inside, _launches_by_correlation, load_trace
 
 # kernel-name fragments, matched in order on the lower-cased name
 GROUPS = (
@@ -57,19 +64,78 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
+def union(intervals: list[tuple[float, float]]) -> list[list[float]]:
+    """The union of ``(start, end)`` intervals as sorted disjoint ``[start,
+    end]`` pairs."""
+    out: list[list[float]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
 def busy_us(intervals: list[tuple[float, float]]) -> float:
     """Length of the union of ``(start, end)`` intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+    return sum(e - s for s, e in union(intervals))
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_PREFIXES = ("train/", "moe/", "data/", "covap_bucket_")
+OUTSIDE = "(no program span)"
+
+
+def _span_key(name: str) -> str:
+    return "covap_bucket_*" if name.startswith("covap_bucket_") else name
+
+
+def span_table(trace: list[dict], steps: int) -> list[tuple[str, float, float, float]]:
+    """``(span, device ms, host ms, idle ms)`` a step for every program span
+    of a trace (``hlo_analysis.load_trace``'s events); last, the device time
+    launched and the idle time begun outside every span.
+
+    A device operation belongs to every span that holds its launch call, on
+    the launching thread or on the stepping thread (the one that opened
+    ``train/forward``); an idle interval of the device, between the first
+    span's start and the last span's end, to the innermost span open on the
+    stepping thread when it began."""
+    spans: dict = {}
+    for prefix in SPAN_PREFIXES:
+        for tid, rows in _enclosing(trace, prefix).items():
+            spans.setdefault(tid, []).extend((s, t, _span_key(n)) for s, t, n in rows)
+    if not spans:
+        return []
+    main = next((tid for tid, rows in spans.items()
+                 if any(n == "train/forward" for *_, n in rows)), next(iter(spans)))
+
+    def holding(tid, ts):
+        return {n for s, t, n in spans.get(tid, ()) if s <= ts <= t}
+
+    device, launches = _launches_by_correlation(trace, cats=DEVICE_CATS)
+    dev: dict = defaultdict(list)
+    for tid, calls in launches.items():
+        for c in calls:
+            names = holding(tid, c["ts"]) | holding(main, c["ts"])
+            e = device[c["args"]["correlation"]]
+            for name in names or (OUTSIDE,):
+                dev[name].append((e["ts"], _end(e)))
+    lo = min(s for rows in spans.values() for s, _, _ in rows)
+    hi = max(t for rows in spans.values() for _, t, _ in rows)
+    edges = [lo] + [x for iv in union([(e["ts"], _end(e)) for e in device.values()])
+                    for x in iv] + [hi]
+    idle: dict = defaultdict(float)
+    for g0, g1 in zip(edges[::2], edges[1::2]):
+        g0, g1 = max(g0, lo), min(g1, hi)
+        if g1 > g0:
+            at = {"ts": g0, "dur": 0.0, "tid": main}
+            idle[_inside(spans, at) or OUTSIDE] += g1 - g0
+    host: dict = defaultdict(float)
+    for rows in spans.values():
+        for s, t, name in rows:
+            host[name] += t - s
+    return [(name, busy_us(dev[name]) / 1e3 / steps, host.get(name, 0.0) / 1e3 / steps,
+             idle.get(name, 0.0) / 1e3 / steps) for name in [*sorted(host), OUTSIDE]]
 
 
 def main(argv=None):
@@ -117,18 +183,20 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    trace = load_trace(args.trace or prof)
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device's operations; a ``gpu_user_annotation`` (a span's copy on
+    # the device's rows) is not one
+    kernels = [e for e in trace if e.get("cat") in DEVICE_CATS]
     if not kernels:
         raise RuntimeError("the profiler recorded no device events; not measured")
-    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0.0)) for e in kernels]
     by_group: dict[str, float] = defaultdict(float)
     by_name: dict[str, float] = defaultdict(float)
     for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_group[kernel_group(e.name)] += us
-        by_name[e.name] += us
+        us = e.get("dur", 0.0)
+        by_group[kernel_group(e["name"])] += us
+        by_name[e["name"]] += us
     n = args.steps
     kernel_ms = sum(by_group.values()) / 1e3 / n
     busy = busy_us(spans) / 1e3 / n
@@ -153,6 +221,9 @@ def main(argv=None):
                 e.key.startswith("cuda") and ("Synchronize" in e.key or "Memcpy" in e.key)):
             print(f"[profile] host {e.key}: {e.count / n:.1f} calls/step, "
                   f"{e.cpu_time_total / 1e3 / n:.3f} ms/step host time (with children)")
+    for name, dev_ms, host_ms, idle_ms in span_table(trace, n):
+        print(f"[profile] span {name:<20s} device {dev_ms:9.3f} ms/step  host "
+              f"{host_ms:9.3f} ms/step  idle begun {idle_ms:9.3f} ms/step")
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ Dispatch is capacity-based gather/scatter with static shapes:
 
 An assignment past capacity ``C = ceil(N*k/E * capacity_factor)`` (over
 this worker's ``N`` tokens) is dropped: earlier tokens, and within a token
-the higher-probability choice, win a full expert.  The Switch-style aux
+the higher-probability choice, win a full expert; while a profiler
+records, the counters ``moe/assigned`` and ``moe/dropped`` (``obs.spans``)
+add up the assignments and the dropped ones.  The Switch-style aux
 loss uses ``mean(probs)`` and the first choice's one-hot.  The routed
 experts use ``silu(g) * u`` whatever ``mlp_act`` is; the shared experts
 are one ``mlp(..., cfg.mlp_act)`` of width ``d_ff * num_shared_experts``.
@@ -23,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..obs.spans import count, recording, span
 from .layers import mlp
 
 
@@ -87,31 +90,39 @@ def moe_apply(params, x: torch.Tensor, cfg):
     N = B * S
     xt = x.reshape(N, d)
 
-    _, top_p, top_e, aux = route(params, xt, cfg)
-    C = capacity(cfg, N)
-    slot, keep = dispatch(top_e, cfg, C)
-    w = top_p.reshape(-1).to(cd)
+    with span("moe/route"):
+        _, top_p, top_e, aux = route(params, xt, cfg)
+    with span("moe/dispatch"):
+        C = capacity(cfg, N)
+        slot, keep = dispatch(top_e, cfg, C)
+        w = top_p.reshape(-1).to(cd)
+        if recording():
+            count("moe/assigned", keep.numel())
+            # summed after the profiled window: no launch inside the step
+            count("moe/dropped", lambda keep=keep: (~keep).sum())
+        # each token's row k times, token-major (the reference's
+        # ``xt[repeat(arange(N), k)]``): an expand, whose backward sums each
+        # token's k rows in a fixed order, where an index's would scatter-add
+        rows = xt.to(cd)[:, None, :].expand(N, k, d).reshape(N * k, d)
+        # one spare row takes every dropped assignment; it is cut off
+        buf = torch.zeros((E * C + 1, d), dtype=cd, device=x.device)
+        buf = buf.index_put((slot,), rows)[:E * C].reshape(E, C, d)
 
-    # each token's row k times, token-major (the reference's
-    # ``xt[repeat(arange(N), k)]``): an expand, whose backward sums each
-    # token's k rows in a fixed order, where an index's would scatter-add
-    rows = xt.to(cd)[:, None, :].expand(N, k, d).reshape(N * k, d)
-    # one spare row takes every dropped assignment; it is cut off
-    buf = torch.zeros((E * C + 1, d), dtype=cd, device=x.device)
-    buf = buf.index_put((slot,), rows)[:E * C].reshape(E, C, d)
+    with span("moe/experts"):
+        g = torch.bmm(buf, params["w_gate"].to(cd))
+        u = torch.bmm(buf, params["w_up"].to(cd))
+        h = F.silu(g) * u
+        out_buf = torch.bmm(h, params["w_down"].to(cd)).reshape(E * C, d)
 
-    g = torch.bmm(buf, params["w_gate"].to(cd))
-    u = torch.bmm(buf, params["w_up"].to(cd))
-    h = F.silu(g) * u
-    out_buf = torch.bmm(h, params["w_down"].to(cd)).reshape(E * C, d)
-
-    gathered = out_buf[torch.where(keep, slot, torch.full_like(slot, E * C - 1))]
-    gathered = gathered * keep[:, None].to(cd) * w[:, None]
-    # the reference's scatter-add over tokens ``y.at[tok].add``: a sum over
-    # each token's k rows, with a fixed order on every device
-    y = gathered.reshape(N, k, d).sum(dim=1)
+    with span("moe/combine"):
+        gathered = out_buf[torch.where(keep, slot, torch.full_like(slot, E * C - 1))]
+        gathered = gathered * keep[:, None].to(cd) * w[:, None]
+        # the reference's scatter-add over tokens ``y.at[tok].add``: a sum
+        # over each token's k rows, with a fixed order on every device
+        y = gathered.reshape(N, k, d).sum(dim=1)
 
     if cfg.num_shared_experts > 0:
-        y = y + mlp(params["shared"], xt, cfg.mlp_act, cd)
+        with span("moe/experts"):
+            y = y + mlp(params["shared"], xt, cfg.mlp_act, cd)
     return y.reshape(B, S, d), aux
 

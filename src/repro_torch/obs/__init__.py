@@ -16,6 +16,10 @@ Three views of one run:
 :class:`Telemetry` bundles the three behind one handle; the ``telemetry=``
 arguments of ``Trainer.run``, ``api.fit``, ``api.tune`` and the CLI accept
 ``None``, a directory path or a bundle through :func:`as_telemetry`.
+
+Apart from them, :mod:`~repro_torch.obs.spans` puts spans and counters
+inside the training step on the profiler's clock (:func:`span`,
+:func:`count`), at no cost while no profiler records.
 """
 from .events import (
     NULL_EVENTS,
@@ -33,6 +37,7 @@ from .registry import (
     Histogram,
     MetricsRegistry,
 )
+from .spans import count, counters, recording, reset_counters, span
 from .telemetry import NULL_TELEMETRY, Telemetry, as_telemetry
 
 __all__ = [
@@ -48,7 +53,12 @@ __all__ = [
     "SCHEMA_PATH",
     "Telemetry",
     "as_telemetry",
+    "count",
+    "counters",
     "load_schema",
     "plan_digest",
+    "recording",
+    "reset_counters",
+    "span",
     "validate_event",
 ]

@@ -74,7 +74,7 @@ from ..core.overlap import (
     supports_fused_overlap,
 )
 from ..core.schedule import CollectiveCall, CommSchedule, mean_bytes_per_step
-from ..obs import NULL_TELEMETRY, as_telemetry, plan_digest
+from ..obs import NULL_TELEMETRY, as_telemetry, plan_digest, span
 from ..optim import Optimizer, apply_updates, clip_by_global_norm, global_norm
 from ..runtime.monitor import synchronize
 
@@ -128,10 +128,11 @@ def _pmean_metrics(metrics: dict[str, torch.Tensor], group) -> dict[str, torch.T
     """Average scalar metrics over the group with one all-reduce."""
     if group is None:
         return metrics
-    keys = sorted(metrics)
-    packed = torch.stack([metrics[k].detach().float() for k in keys])
-    dist.all_reduce(packed, op=dist.ReduceOp.AVG, group=group)
-    return dict(zip(keys, packed.unbind(0)))
+    with span("train/metrics"):
+        keys = sorted(metrics)
+        packed = torch.stack([metrics[k].detach().float() for k in keys])
+        dist.all_reduce(packed, op=dist.ReduceOp.AVG, group=group)
+        return dict(zip(keys, packed.unbind(0)))
 
 
 def loss_and_grads(model, params: list[torch.Tensor], batch, group=None, *,
@@ -145,8 +146,10 @@ def loss_and_grads(model, params: list[torch.Tensor], batch, group=None, *,
     ``.grad`` fields are cleared again before returning."""
     for p in params:
         p.grad = None
-    total, metrics = model.loss_fn(batch, before_layer=before_layer)
-    total.backward()
+    with span("train/forward"):
+        total, metrics = model.loss_fn(batch, before_layer=before_layer)
+    with span("train/backward"):
+        total.backward()
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     for p in params:
         p.grad = None
@@ -354,17 +357,18 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
 
     def apply(state, synced, comp_state):
         params = state["params"]
-        if sharded:
-            gnorm = _sharded_grad_norm(synced, group)
-            if clip_norm > 0:
-                scale = torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
-                synced = [(x.float() * scale).to(x.dtype) for x in synced]
-        elif clip_norm > 0:
-            synced, gnorm = clip_by_global_norm(synced, clip_norm)
-        else:
-            gnorm = global_norm(synced)
-        updates, opt_state = optimizer.update(synced, state["opt"], params)
-        apply_updates(params, updates)
+        with span("train/optimizer"):
+            if sharded:
+                gnorm = _sharded_grad_norm(synced, group)
+                if clip_norm > 0:
+                    scale = torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
+                    synced = [(x.float() * scale).to(x.dtype) for x in synced]
+            elif clip_norm > 0:
+                synced, gnorm = clip_by_global_norm(synced, clip_norm)
+            else:
+                gnorm = global_norm(synced)
+            updates, opt_state = optimizer.update(synced, state["opt"], params)
+            apply_updates(params, updates)
         if pod_schedule is not None:
             pod_reconcile(params, pod_schedule, group=group, pod_group=pod_group,
                           owned_only=sharded, layout=pod_layout)
@@ -373,9 +377,10 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
         return new_state, gnorm
 
     def sync(state, grads):
-        synced, comp_state, _ = compressor.execute(
-            comm_schedule, grads, state["comp"], step=state["step"], group=group,
-        )
+        with span("train/sync"):
+            synced, comp_state, _ = compressor.execute(
+                comm_schedule, grads, state["comp"], step=state["step"], group=group,
+            )
         return synced, comp_state
 
     def update(state, grads):
