@@ -26,14 +26,23 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            beside ``torch.bmm`` and the tiled kernel; ``threshold_filter`` bit
            for bit in y and counts (ragged, t = 0, NaN and +-inf, offset 1,
            the largest bucket) and timed over one step's buckets at
-           ``sample_threshold`` ratios 0.01 and 0.001
+           ``sample_threshold`` ratios 0.01 and 0.001; ``adamw_fused`` (one
+           AdamW step in place, the norm folded) at every leaf of
+           deepseek-moe-16b cut to 2 layers (bf16 moments) and of
+           gpt2-paper: p, m, v bit for bit and the norm within 1e-6 of the
+           plain card path, timed beside its bound, the plain path and
+           ``torch._fused_adamw_`` where that takes the same dtypes
   adamw    one AdamW update on the card against the CPU: moments and
            divisions bit for bit, ``torch.sqrt`` at 1 ulp, the update bit
-           for bit where the roots agree
+           for bit where the roots agree; and ``Optimizer.apply`` (the
+           fused kernel) against ``update`` + ``apply_updates`` on the
+           card, bit for bit
   train    full-width gpt2-paper (190,532,352 parameters), AdamW, seq 1024,
            global batch 8, 5 steps in a one-rank NCCL process group, seven
            times: COVAP I=4 on the ``TrainConfig`` defaults (every loss
-           finite, ``ef_update.launches`` == segments x steps), then
+           finite, ``ef_update.launches`` == segments x steps; in every
+           ``[train]`` run on the card, here and in later phases,
+           ``adamw_fused`` launches once a leaf a step), then
            ``arena=True``, ``arena=True`` with a bf16 wire, and
            ``sync="sharded"`` (``pack_ef_cast.launches`` == segments x
            steps and ``ef_update.launches`` == 0 on each; sharded prints
@@ -149,8 +158,8 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            batch 8, I=4, 5 steps) in a one-rank NCCL group with
            ``--history-out``: exit code 0, its history's losses equal an
            in-process run on the same seed and batches bit for bit, its own
-           ``[kernels]`` launches ``ef_update`` once per segment a step;
-           prints its step ms and tok/s
+           ``[kernels]`` launches ``ef_update`` once per segment a step and
+           ``adamw_fused`` once a leaf a step; prints its step ms and tok/s
   pods     hierarchical pods at full width (``pod_interval=2``, a one-rank
            intra-pod and a one-rank cross-pod group), on the post form and
            on sharded+arena: 5 steps equal the flat run of the form bit for
@@ -270,7 +279,7 @@ STEPS = 5
 F32_FLOPS_PER_S = 67e12
 THRESHOLD_BLOCK = 32768
 KERNELS = ("ef_covap", "pack_ef_cast", "quantize_fp8", "sign_compress",
-           "lowrank_matmul", "threshold_filter")
+           "lowrank_matmul", "threshold_filter", "adamw_fused")
 MATMUL = "lowrank.matmul"      # the counter and record name of lowrank.matmul
 # the flat-bucket path: each one full-width run
 FLAT_RUNS = (
@@ -1189,6 +1198,136 @@ def phase_threshold_kernels() -> dict:
     }
 
 
+# [kernels] row 8: the configurations whose leaves the fused AdamW is timed at
+# (label, arch, layers, moment dtype)
+ADAMW_CONFIGS = (
+    ("deepseek-moe-16b-2L", "deepseek-moe-16b", 2, "bfloat16"),
+    ("gpt2-paper", "gpt2-paper", None, None),
+)
+
+
+def adamw_bytes(params, moments) -> int:
+    """The fused step's least device-memory traffic: read g, p, m, v and
+    write p, m, v once (grads in the params' dtype)."""
+    return sum(x.numel() * (3 * x.element_size() + 4 * m.element_size())
+               for x, m in zip(params, moments))
+
+
+def phase_adamw_kernel() -> dict:
+    """``adamw_fused`` at every leaf of deepseek-moe-16b cut to 2 layers
+    (f32 params, bf16 moments) and of gpt2-paper (f32 moments), as the
+    trainer calls it (``Optimizer.apply`` with the norm folded: the bias
+    corrections' fills, a launch a leaf, the partials' sum and root): p, m,
+    v bit for bit and the norm within 1e-6 of the plain card path
+    (``global_norm``, ``update``, ``apply_updates``), then both timed beside
+    the bound (bytes over 3.35 TB/s) and, as a yardstick the port never
+    calls, ``torch._fused_adamw_`` where it takes the same dtypes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw_fused import adamw_fused
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, apply_updates, global_norm
+
+    rows = {}
+    for label, arch, layers, moments in ADAMW_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.with_(num_layers=layers)
+        shapes = [tuple(p.shape) for _, p in build_model(cfg, device="meta").named_leaves()]
+        gen = torch.Generator("cuda").manual_seed(8)
+        mdt = getattr(torch, moments) if moments else torch.float32
+        p = [torch.randn(s, generator=gen, device="cuda") * 0.02 for s in shapes]
+        g = [torch.randn(s, generator=gen, device="cuda") * 1e-3 for s in shapes]
+        m = [(torch.randn(s, generator=gen, device="cuda") * 1e-4).to(mdt) for s in shapes]
+        v = [(torch.rand(s, generator=gen, device="cuda") * 1e-6).to(mdt) for s in shapes]
+        opt = adamw(1.5e-4, moment_dtype=moments)
+        state = {"step": 2, "m": m, "v": v}
+        n = sum(x.numel() for x in p)
+
+        plain_p = [x.clone() for x in p]
+        upd, plain = opt.update(g, {"step": 2, "m": [x.clone() for x in m],
+                                    "v": [x.clone() for x in v]}, plain_p)
+        apply_updates(plain_p, upd)
+        want_norm = float(global_norm(g))
+        del upd
+        before = adamw_fused.launches
+        new, norm = opt.apply(g, state, p, with_norm=True)
+        torch.cuda.synchronize()
+        check(adamw_fused.launches - before == len(shapes),
+              f"adamw_fused {label}: {adamw_fused.launches - before} launches for "
+              f"{len(shapes)} leaves")
+        for part, got, want in (("p", p, plain_p), ("m", new["m"], plain["m"]),
+                                ("v", new["v"], plain["v"])):
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"adamw_fused {label}: {part} differs from the plain card path")
+        rel = abs(float(norm) - want_norm) / want_norm
+        check(rel <= 1e-6, f"adamw_fused {label}: folded norm {float(norm)} vs "
+              f"global_norm {want_norm} ({rel:.3g} relative)")
+        del plain_p, plain, new
+        torch.cuda.empty_cache()
+
+        def run_kernel():
+            opt.apply(g, state, p, with_norm=True)
+
+        def run_plain():
+            global_norm(g)
+            u, _ = opt.update(g, state, p)
+            apply_updates(p, u)
+
+        kernel_ms = device_timed(run_kernel)
+        plain_ms = device_timed(run_plain, reps=9)
+        lib_ms, lib_note = None, None
+        steps = [torch.full((), 3.0, device="cuda") for _ in shapes]
+        try:
+            torch._fused_adamw_(p, g, m, v, [], steps, amsgrad=False, lr=1.5e-4,
+                                beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                                maximize=False)
+            torch.cuda.synchronize()
+            lib_ms = device_timed(lambda: torch._fused_adamw_(
+                p, g, m, v, [], steps, amsgrad=False, lr=1.5e-4, beta1=0.9,
+                beta2=0.999, weight_decay=0.0, eps=1e-8, maximize=False))
+            lib_note = "torch._fused_adamw_ (no norm, no bias corrections as tensors)"
+        except (RuntimeError, TypeError) as e:
+            lib_note = (f"torch._fused_adamw_ refuses these dtypes: "
+                        f"{str(e).splitlines()[0][:160]}")
+        nbytes = adamw_bytes(p, m)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[label] = {"params": n, "leaves": len(shapes), "bytes": nbytes,
+                       "ms": kernel_ms, "bound_ms": bound_ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "library_call": lib_note,
+                       "norm_rel_err": rel}
+        print(f"[kernels] adamw_fused {label}: {n} params in {len(shapes)} leaves, "
+              f"f32 params, {mdt} moments, one launch a leaf: p, m, v bitwise == the "
+              f"plain card path, folded norm within {rel:.2g} relative; apply "
+              f"(norm folded) kernel_ms {kernel_ms:.4f}  bound_ms {bound_ms:.4f} "
+              f"({nbytes / n:.0f} B/param at 3.35 TB/s, {bound_ms / kernel_ms:.1%} "
+              f"of it)  plain_ms {plain_ms:.4f} (global_norm + update + "
+              f"apply_updates)  library_ms "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f}'} ({lib_note})",
+              flush=True)
+        del p, g, m, v, state, steps
+    torch.cuda.empty_cache()
+    first = rows[ADAMW_CONFIGS[0][0]]
+    return {
+        "name": "adamw_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw_fused.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the reference leaves AdamW to XLA",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": first["library_ms"],
+        "library_call": first["library_call"],
+        "timed_work": f"one AdamW step over {ADAMW_CONFIGS[0][0]}'s leaves, norm folded",
+        "by_config": rows,
+    }
+
+
 def phase_adamw() -> None:
     """One AdamW update, as the main path's optimizer makes it, on the card
     and on the CPU from the same moments, gradients and params (leaves of
@@ -1239,12 +1378,30 @@ def phase_adamw() -> None:
         off_gpu += int((root_gpu != exact).sum())
         bitwise += int((ug == uc).sum())
         worst = max(worst, float((diff / term.clamp_min(1e-30)).max()))
+    from repro_torch.kernels.adamw_fused import adamw_fused
+    from repro_torch.optim import apply_updates
+
+    on = lambda xs: [x.cuda() for x in xs]   # noqa: E731
+    plain_p, fused_p = on(p), on(p)
+    upd, plain = opt.update(on(g), {"step": step, "m": on(m), "v": on(v)}, plain_p)
+    apply_updates(plain_p, upd)
+    before = adamw_fused.launches
+    fused = opt.apply(on(g), {"step": step, "m": on(m), "v": on(v)}, fused_p)
+    torch.cuda.synchronize()
+    check(adamw_fused.launches - before == len(shapes),
+          f"adamw: {adamw_fused.launches - before} fused launches for {len(shapes)} leaves")
+    for part, a, b in (("p", fused_p, plain_p), ("m", fused["m"], plain["m"]),
+                       ("v", fused["v"], plain["v"])):
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"adamw: the fused kernel's {part} differs from the plain card path")
     print(f"[adamw] one update (step {step + 1}, lr {lr:.6g}) of {n} elements on the "
           f"card vs the CPU: m, v and m / bc1 bitwise; torch.sqrt differs by 1 ulp on "
           f"{off} elements ({off / n:.4%}; the CPU's root is not the correctly rounded "
           f"one on {off_cpu}, the card's on {off_gpu}); the update bitwise on {bitwise} "
           f"elements ({bitwise / n:.4%}), elsewhere within {worst * 2 ** 23:.3g} ulps of "
-          f"lr * m_hat / denominator (held at 4)", flush=True)
+          f"lr * m_hat / denominator (held at 4); the fused kernel (Optimizer.apply, "
+          f"{len(shapes)} launches) == update + apply_updates on the card in p, m and v, "
+          f"bit for bit", flush=True)
 
 
 def gather_order(tr) -> str:
@@ -1402,10 +1559,19 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
         fn.launches = 0
     by_route = counters[MATMUL].launches_by_route
     by_route.update(dict.fromkeys(by_route, 0))
+    from repro_torch.kernels.adamw_fused import adamw_fused
+
+    adamw_before = adamw_fused.launches
     state = tr.run(state, loader, steps=steps, log=lines.append)
     launches = {name: fn.launches for name, fn in counters.items()}
+    adamw_launches = adamw_fused.launches - adamw_before
     if device != "cpu":
         torch.cuda.synchronize()
+    want_adamw = steps * len(state["params"]) if device != "cpu" else 0
+    check(adamw_launches == want_adamw,
+          f"{label}: adamw_fused launched {adamw_launches} times in {steps} steps of "
+          f"{len(state['params'])} leaves (want {want_adamw})")
+    tr.adamw_launches = adamw_launches
 
     hist = tr.history
     losses = [h["loss"] for h in hist]
@@ -1429,7 +1595,7 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
           f"{1e3 * hist[0]['wall_s']:.1f} ms, steps 1-{steps - 1} ms "
           f"{[round(v, 2) for v in step_ms]}  {tok_s:.0f} tok/s after step 0  "
           f"peak {peak:.2f} GiB (of which {base:.2f} GiB held before the "
-          f"run)  launches {launches}", flush=True)
+          f"run)  launches {launches}, adamw_fused {adamw_launches}", flush=True)
     if tr.gather_events:
         print(f"[train] {label}: head all-gather of step {steps}, by bucket: "
               f"{gather_order(tr)}", flush=True)
@@ -2870,6 +3036,10 @@ def phase_launch(cfg, group) -> int:
     counts = json.loads(lines["[kernels]"].split("launches ", 1)[1])
     tr, state = fresh_trainer(cfg, group, {"interval": 4})
     segs = tr.plan.num_segments
+    leaves = len(state["params"])
+    adamw = counts.pop("adamw_fused")
+    check(adamw == STEPS * leaves, f"[launch] the launched run's adamw_fused launches "
+          f"{adamw}; {leaves} leaves x {STEPS} steps")
     check(counts == launch_counts(ef_update=STEPS * segs),
           f"[launch] the launched run's launches {counts}; the plan has {segs} segments")
     state = tr.run(state, iter(ckpt_batches(cfg)), steps=STEPS, log=None)
@@ -2883,7 +3053,8 @@ def phase_launch(cfg, group) -> int:
     print(f"[launch] torch.distributed.run, 1 process, one-rank NCCL group: "
           f"{lines['[done]']}; steps 1-{STEPS - 1} ms {step_ms}; "
           f"{(STEPS - 1) * 8 * 1024 / (walls[-1] - walls[0]):.0f} tok/s after step 0; "
-          f"losses {got} == the in-process run's, bit for bit; launches {counts}; "
+          f"losses {got} == the in-process run's, bit for bit; launches {counts}, "
+          f"adamw_fused {adamw}; "
           f"the command took {secs:.1f} s", flush=True)
     del tr, state
     torch.cuda.empty_cache()
@@ -3552,7 +3723,8 @@ def main() -> int:
 
     phase_build()
     records = [phase_kernels(), phase_pack_kernels(), *phase_wire_kernels(),
-               phase_lowrank_kernels(), phase_threshold_kernels()]
+               phase_lowrank_kernels(), phase_threshold_kernels(),
+               phase_adamw_kernel()]
     phase_adamw()
     by_name = {r["name"]: r for r in records}
     torch.cuda.set_device(0)
@@ -3569,6 +3741,7 @@ def main() -> int:
               f"defaults: launches {launches} in {STEPS} steps; the plan has "
               f"{segs} segments")
         records[0]["launches"] = launches["ef_update"]
+        by_name["adamw_fused"]["launches"] = tr.adamw_launches
         phase_parity(tr, state, loader, group)
         del tr, state, loader
         torch.cuda.empty_cache()

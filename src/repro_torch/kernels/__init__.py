@@ -1,7 +1,10 @@
 """Kernels written by hand for Hopper, each beside its plain PyTorch version
-in ``ref.py``; ``ops.py`` is the counterpart of ``repro.kernels.ops``.  CUDA
-sources live in ``csrc/`` and are built at first use (``_build.py``);
+in ``ref.py`` (AdamW's beside ``optim.adamw``'s ``update`` and
+``apply_updates``); ``ops.py`` is the counterpart of ``repro.kernels.ops``.
+CUDA sources live in ``csrc/`` and are built at first use (``_build.py``);
 nothing is compiled at import time."""
+# under another name, so that ``repro_torch.kernels.adamw_fused`` stays the module
+from .adamw_fused import adamw_fused as _adamw_fused
 from .ef_covap import ef_update, ef_update_cuda
 from .lowrank import matmul
 from .pack_ef_cast import pack_ef_cast, pack_ef_cast_into
@@ -26,7 +29,8 @@ def launch_counts() -> dict[str, int]:
     """Each kernel wrapper's launches in this process, by name (the matmul
     as ``"lowrank.matmul"``)."""
     fns = {f.__name__: f for f in (ef_update, pack_ef_cast, quantize_fp8,
-                                   dequantize_fp8, sign_compress, threshold_filter)}
+                                   dequantize_fp8, sign_compress, threshold_filter,
+                                   _adamw_fused)}
     fns["lowrank.matmul"] = matmul
     return {name: int(f.launches) for name, f in fns.items()}
 

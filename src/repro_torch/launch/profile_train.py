@@ -18,7 +18,9 @@ kernels launched inside the span (on the launching thread, or on the
 stepping thread, which waits inside ``train/backward`` while the autograd
 engine's thread launches), the host ms a step inside it, and the device's
 idle ms a step that began while it was the innermost span open on the
-stepping thread.  Needs a GPU; with none it raises.
+stepping thread; last the program's counters a step (``moe/*``, and
+``optim/params`` beside ``optim/fused_params``, the parameters AdamW's
+kernel stepped).  Needs a GPU; with none it raises.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import get_config, get_reduced
 from ..data import DataConfig, make_loader
 from ..models import build_model
+from ..obs import counters, reset_counters
 from ..optim import adamw, cosine_warmup
 from ..train.trainer import TrainConfig, Trainer
 from .hlo_analysis import _enclosing, _end, _inside, _launches_by_correlation, load_trace
@@ -46,6 +49,7 @@ GROUPS = (
     ("sign_compress", ("sign_compress_kernel",)),
     ("lowrank.matmul", ("lowrank_matmul_kernel", "lowrank_splitk_reduce_kernel")),
     ("threshold_filter", ("threshold_filter_kernel",)),
+    ("adamw_fused", ("adamw_fused_kernel",)),
     ("qr", ("geqr", "orgqr", "ungqr", "larf", "householder", "cusolver", "magma")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")),
@@ -176,11 +180,13 @@ def main(argv=None):
     state = tr.run(tr.init_state(), it, steps=args.warmup, log=None)
     torch.cuda.synchronize()
 
+    reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         tr.run(state, it, steps=args.steps, log=None)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = counters()
     if args.trace:
         prof.export_chrome_trace(args.trace)
     trace = load_trace(args.trace or prof)
@@ -224,6 +230,8 @@ def main(argv=None):
     for name, dev_ms, host_ms, idle_ms in span_table(trace, n):
         print(f"[profile] span {name:<20s} device {dev_ms:9.3f} ms/step  host "
               f"{host_ms:9.3f} ms/step  idle begun {idle_ms:9.3f} ms/step")
+    for name, total in sorted(counts.items()):
+        print(f"[profile] counter {name:<20s} {total / n:.6g} a step")
 
 
 if __name__ == "__main__":

@@ -22,7 +22,8 @@ The step's spans (``PERF.md`` lists each with the metric that reads it):
 ``train/metrics``, the fused overlap's ``covap_bucket_{b}/phase_{p}``,
 ``moe/route``, ``moe/dispatch``, ``moe/experts``, ``moe/combine``,
 ``data/draw``, ``data/copy``; the counters ``moe/assigned`` and
-``moe/dropped``.
+``moe/dropped``, ``optim/params`` and ``optim/fused_params`` (the
+parameters ``Optimizer.apply`` stepped, and those its CUDA kernel stepped).
 """
 from __future__ import annotations
 

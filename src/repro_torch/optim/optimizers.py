@@ -7,6 +7,12 @@ Adam/AdamW, the counterparts of ``repro.optim.optimizers``.
     updates, state = opt.update(grads, state, params)
     apply_updates(params, updates)
 
+plus ``opt.apply(grads, state, params) -> state``, the step the trainer
+takes, in place.  By default it is ``update`` followed by
+``apply_updates``; AdamW's runs one CUDA kernel a leaf on the card
+(``kernels/adamw_fused.py``), which writes the moments and the parameters
+where they lie and gives the bits ``update`` + ``apply_updates`` give there.
+
 Step counts, bias corrections and learning rates are computed on the host
 in float32 (``numpy.float32`` arithmetic, the reference's f32 scalar math),
 so an update issues no device-to-host synchronisation.  AdamW's bias
@@ -23,11 +29,41 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..kernels.adamw_fused import adamw_fused
+from ..obs.spans import count, recording
+from .clip import global_norm
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[list[torch.Tensor]], Any]
     update: Callable[..., tuple[list[torch.Tensor], Any]]
+    # the in-place step for leaves on a CUDA card, where the optimizer has a
+    # kernel for it: (grads, state, params, norm) -> (state, norm or None)
+    cuda_apply: Callable[..., tuple[Any, torch.Tensor | None]] | None = None
+
+    @torch.no_grad()
+    def apply(self, grads, state, params, *, with_norm: bool = False):
+        """One step, the parameters written in place (and the state too, on
+        the card, where ``cuda_apply`` runs).  -> the new state; with
+        ``with_norm=True``, ``(state, global_norm(grads))``, the norm taken
+        from the step's own read of the gradients where ``cuda_apply``
+        runs.  While a profiler records, counts the parameters stepped
+        (``optim/params``) and those stepped by ``cuda_apply``
+        (``optim/fused_params``)."""
+        fused = (self.cuda_apply is not None and bool(params)
+                 and params[0].device.type == "cuda")
+        if fused:
+            state, norm = self.cuda_apply(grads, state, params, with_norm)
+        else:
+            norm = global_norm(grads) if with_norm else None
+            updates, state = self.update(grads, state, params)
+            apply_updates(params, updates)
+        if recording():
+            n = sum(p.numel() for p in params)
+            count("optim/params", n)
+            count("optim/fused_params", n if fused else 0)
+        return (state, norm) if with_norm else state
 
 
 def _sched(lr):
@@ -87,7 +123,9 @@ def adamw(
 ) -> Optimizer:
     """Adam/AdamW.  The moments are kept in ``moment_dtype`` (a torch dtype
     name), by default in each parameter's own dtype (bf16 moments for bf16
-    parameters, as in the reference); the update is computed in f32."""
+    parameters, as in the reference); the update is computed in f32.  On
+    the card ``apply`` writes the new moments into the state's own tensors
+    (``kernels.adamw_fused``); ``update`` returns new ones."""
     lr_fn = _sched(lr)
 
     def _zeros(p):
@@ -126,7 +164,15 @@ def adamw(
         updates = [upd(m_, v_, p) for m_, v_, p in zip(m, v, params)]
         return updates, {"step": step, "m": m, "v": v}
 
-    return Optimizer(init, update)
+    def cuda_apply(grads, state, params, norm):
+        step = state["step"] + 1
+        bc1, bc2 = bias_corrections(step, b1, b2, params[0].device)
+        gnorm = adamw_fused(params, grads, state["m"], state["v"], bc1, bc2,
+                            lr=float(lr_fn(step)), b1=b1, b2=b2, eps=eps,
+                            weight_decay=weight_decay, norm=norm)
+        return {"step": step, "m": state["m"], "v": state["v"]}, gnorm
+
+    return Optimizer(init, update, cuda_apply)
 
 
 @torch.no_grad()

@@ -75,7 +75,7 @@ from ..core.overlap import (
 )
 from ..core.schedule import CollectiveCall, CommSchedule, mean_bytes_per_step
 from ..obs import NULL_TELEMETRY, as_telemetry, plan_digest, span
-from ..optim import Optimizer, apply_updates, clip_by_global_norm, global_norm
+from ..optim import Optimizer, clip_by_global_norm
 from ..runtime.monitor import synchronize
 
 
@@ -365,10 +365,13 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
                     synced = [(x.float() * scale).to(x.dtype) for x in synced]
             elif clip_norm > 0:
                 synced, gnorm = clip_by_global_norm(synced, clip_norm)
+            if sharded or clip_norm > 0:
+                opt_state = optimizer.apply(synced, state["opt"], params)
             else:
-                gnorm = global_norm(synced)
-            updates, opt_state = optimizer.update(synced, state["opt"], params)
-            apply_updates(params, updates)
+                # the norm is only reported: the step takes it from its own
+                # read of the gradients
+                opt_state, gnorm = optimizer.apply(synced, state["opt"], params,
+                                                   with_norm=True)
         if pod_schedule is not None:
             pod_reconcile(params, pod_schedule, group=group, pod_group=pod_group,
                           owned_only=sharded, layout=pod_layout)
@@ -414,7 +417,7 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
         if not fused:
             synced, comp_state = sync(state, grads)
             # the raw gradients are dead once synced: free them before the
-            # optimizer allocates its new moments
+            # optimizer's step
             del grads
         new_state, metrics["grad_norm"] = apply(state, synced, comp_state)
         if pod_schedule is not None:

@@ -646,3 +646,91 @@ def test_launcher_under_torch_distributed_run_on_cuda(tmp_path):
     assert "[launch] 1 rank(s), 1 pod(s) x 1, backend nccl, device cuda:0" in r.stdout
     assert "[done] step 2 (2 committed)" in r.stdout
     assert [h["step"] for h in json.loads(hist.read_text())["history"]] == [1, 2]
+
+
+def _adamw_leaves(param_dtype, moment_dtype, seed):
+    """Leaves on the card: a 0-dim leaf, odd lengths, a matrix, and an
+    unaligned view (one element into a larger buffer, for p, g, m and v
+    alike); moments at a random state (v >= 0)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    shapes = [(), (7,), (1_000_003,), (768, 2304), (4099,)]
+
+    def make(scale=1.0, nonneg=False, dtype=param_dtype):
+        out = []
+        for i, s in enumerate(shapes):
+            n = int(torch.Size(s).numel())
+            off = 1 if i == len(shapes) - 1 else 0
+            x = torch.randn(n + off, generator=gen, device="cuda") * scale
+            x = (x.abs() if nonneg else x).to(dtype)[off:]
+            out.append(x.view(s))
+        return out
+
+    mdt = getattr(torch, moment_dtype) if moment_dtype else param_dtype
+    return (make(), make(), make(0.1, dtype=mdt), make(1e-3, nonneg=True, dtype=mdt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [0, 9, 999])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("param_dtype,moment_dtype", [
+    (torch.float32, None), (torch.float32, "bfloat16"), (torch.bfloat16, None)],
+    ids=["f32-f32", "f32-bf16", "bf16-bf16"])
+def test_adamw_fused_kernel_matches_the_plain_card_path(param_dtype, moment_dtype,
+                                                        weight_decay, step):
+    """``Optimizer.apply`` on the card (one ``adamw_fused`` launch a leaf,
+    in place) against ``update`` + ``apply_updates`` on the card from the
+    same state: p, m and v bit for bit at steps 1, 10 and 1000; the folded
+    norm within 1e-6 relative of ``global_norm``'s; the state keeps its own
+    tensors; no host synchronisation inside the step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    from repro_torch.kernels.adamw_fused import adamw_fused
+    from repro_torch.optim import adamw, apply_updates, cosine_warmup, global_norm
+
+    p, g, m, v = _adamw_leaves(param_dtype, moment_dtype, seed=step + 1)
+    opt = adamw(cosine_warmup(1e-3, 5, 2000), weight_decay=weight_decay,
+                moment_dtype=moment_dtype)
+    plain_p = [x.clone() for x in p]
+    updates, plain = opt.update(g, {"step": step, "m": [x.clone() for x in m],
+                                    "v": [x.clone() for x in v]}, plain_p)
+    apply_updates(plain_p, updates)
+    want_norm = global_norm(g)
+    before = adamw_fused.launches
+    state = {"step": step, "m": m, "v": v}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, norm = opt.apply(g, state, p, with_norm=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert adamw_fused.launches == before + len(p)
+    assert new["step"] == step + 1
+    assert all(a is b for a, b in zip(new["m"] + new["v"], m + v))
+    for part, got, want in (("p", p, plain_p), ("m", new["m"], plain["m"]),
+                            ("v", new["v"], plain["v"])):
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), f"{part}[{i}]"
+    assert norm.dtype == torch.float32 and norm.dim() == 0
+    assert abs(float(norm) - float(want_norm)) <= 1e-6 * float(want_norm)
+
+
+@pytest.mark.cuda
+def test_adamw_fused_norm_is_deterministic_and_skips_empty_leaves():
+    """Two folds over the same gradients give the same bits; an empty leaf
+    is not launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    from repro_torch.kernels.adamw_fused import adamw_fused
+    from repro_torch.optim.optimizers import bias_corrections
+
+    p, g, m, v = _adamw_leaves(torch.float32, None, seed=7)
+    p, g, m, v = ([torch.empty(0, device="cuda")] + x for x in (p, g, m, v))
+    bc1, bc2 = bias_corrections(1, 0.9, 0.999, torch.device("cuda"))
+    norms = []
+    for _ in range(2):
+        before = adamw_fused.launches
+        norms.append(adamw_fused(p, g, m, v, bc1, bc2, lr=1e-3, b1=0.9, b2=0.999,
+                                 eps=1e-8, weight_decay=0.0, norm=True))
+        assert adamw_fused.launches == before + len(p) - 1
+    assert torch.equal(norms[0], norms[1])

@@ -194,6 +194,20 @@ def test_two_worker_sharded_clip_matches_allreduce(ranks):
                        for k in keys), part
 
 
+@pytest.mark.parametrize("run,base", [("sharded", "allreduce"),
+                                      ("sharded-arena", "allreduce"),
+                                      ("sharded-arena-bf16", "allreduce-bf16")])
+def test_two_worker_sharded_norm_matches_allreduce(ranks, run, base):
+    """Without a clip the allreduce step takes the reported norm from the
+    optimizer's step (on the card, from the fused AdamW kernel's read of
+    the gradients) and the sharded step from the all-reduced local square
+    sums, as before: the two agree to 1e-6 relative on both ranks."""
+    for got in ranks:
+        assert got[f"{run}/grad_norm"].shape == (STEPS,)
+        np.testing.assert_allclose(got[f"{run}/grad_norm"], got[f"{base}/grad_norm"],
+                                   rtol=1e-6)
+
+
 # ---- the asynchronous head all-gather ----------------------------------------
 
 def _spawn(worker, tmp, args, what):
