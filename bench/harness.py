@@ -26,10 +26,9 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
-from . import check, sketch, weights
-from .reference import model as ref_model
+from . import check, reference, sketch, weights
 from .reference import train as ref_train
-from .yardstick import ef_bytes, flops
+from .yardstick import ef_bytes
 from .yardstick.trace import LOADER_SPAN, STEP_SPAN, TraceView
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -116,12 +115,14 @@ class Program:
         marks = [time.perf_counter()]
         self.model = build_model(cfg, device=device, seed=0)
         marks.append(time.perf_counter())
-        self.paths = list(ref_model.param_shapes(ref_model.Arch.from_config(conf)))
+        ref = reference.of(conf)
+        self.rule = getattr(ref, "std_of", None)
+        self.paths = list(ref.param_shapes(ref.Arch.from_config(conf)))
         leaves = self.model.named_leaves()
         if [p for p, _ in leaves] != self.paths:
             raise RuntimeError("the model's leaves are not the reference's")
         for i, (path, p) in enumerate(leaves):
-            weights.fill_leaf(p.data, seed, i, path)
+            weights.fill_leaf(p.data, seed, i, path, self.rule)
         marks.append(time.perf_counter())
         self.b1 = o["b1"]
         opt = adamw(o["lr"], b1=o["b1"], b2=o["b2"], eps=o["eps"],
@@ -170,7 +171,8 @@ class Program:
             del first
             out["change"] = [
                 float(torch.linalg.vector_norm(
-                    p - weights.fill_leaf(torch.empty_like(p), self.seed, i, path)))
+                    p - weights.fill_leaf(torch.empty_like(p), self.seed, i, path,
+                                          self.rule)))
                 for i, (path, p) in enumerate(zip(self.paths, self.state["params"]))]
         return out
 
@@ -367,9 +369,11 @@ def _run(cell, ranks, *, seed, seconds, trace, t_start, patch):
         interval = cell.traffic["interval"]
         steps = [{"phase": p, "ef_bytes": ef_bytes.ef_bytes(buckets, shapes, p, interval)}
                  for p in phases]
-        context = {"flops_per_step": flops.step_flops(cell.conf, rows=rows, seq_len=seq),
-                   "chips": ranks.world, "untraced_steps": win["steps"],
-                   "untraced_s": win["wall_s"]}
+        step_flops = reference.of(cell.conf).step_flops(cell.conf, rows=rows, seq_len=seq)
+        context = {"flops_per_step": step_flops, "chips": ranks.world,
+                   "untraced_steps": win["steps"], "untraced_s": win["wall_s"],
+                   "conf": cell.conf, "traffic": cell.traffic, "rows": rows,
+                   "seq_len": seq}
         view = TraceView(events, steps=steps, window_us=prof_wall * 1e6, context=context)
         del events
         mine["busy_s"] = view.busy_us() / 1e6

@@ -1,6 +1,7 @@
 """The whole step's share of the card's peak, %: the FLOPs the steps need
-(``bench.yardstick.flops``) over the wall time of the traced run's
-untraced steps, over the dense bf16 peak times the chips."""
+(the configuration's reference module's ``step_flops``) over the wall time
+of the traced run's untraced steps, over the dense bf16 peak times the
+chips."""
 from bench.yardstick.peaks import BF16_FLOPS
 
 

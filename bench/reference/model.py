@@ -19,8 +19,9 @@ probabilities; the shared experts are one gated MLP of width
 ``coef * E * sum(mean(probs) * mean(one_hot(first choice)))``.
 
 Every matrix product goes through ``mm`` (``torch.matmul`` by default), so
-that the control can compute them in a lower precision.  Nothing here
-imports the system under test.
+that the control can compute them in a lower precision.  :func:`step_flops`
+is the frozen FLOPs count of a training step.  Nothing here imports the
+system under test.
 """
 from __future__ import annotations
 
@@ -76,7 +77,11 @@ class Arch:
 
     @property
     def padded_vocab(self) -> int:
-        return int(math.ceil(self.vocab_size / 128) * 128)
+        return padded_vocab(self.vocab_size)
+
+
+def padded_vocab(vocab: int) -> int:
+    return int(math.ceil(vocab / 128) * 128)
 
 
 def param_shapes(a: Arch) -> dict[str, tuple[int, ...]]:
@@ -210,3 +215,26 @@ def loss(params: dict[str, torch.Tensor], tokens, labels, a: Arch, mm=torch.matm
         xent = xent + F.cross_entropy(logits, labels[r], reduction="sum")
     xent = xent / (B * S)
     return xent + aux, xent, aux, dropped
+
+
+def step_flops(conf: dict, *, rows: int, seq_len: int) -> float:
+    """The global FLOPs of one training step over ``rows`` rows (every
+    worker's) of ``seq_len`` tokens, in closed form from the configuration:
+    a multiply-add is 2 FLOPs; the backward pass is twice the forward;
+    attention counts the causal half of its scores and values; a mixture of
+    experts counts the router and the active experts only (``k`` routed plus
+    the shared ones), not the capacity's padding; the embedding's gather is
+    free; nothing recomputed for memory counts."""
+    B, S = rows, seq_len
+    d = conf["d_model"]
+    H, K = conf["num_heads"], conf["num_kv_heads"]
+    hd = conf.get("head_dim") or d // H
+    proj = 2.0 * B * S * d * (2 * H * hd + 2 * K * hd)
+    attn = 2.0 * 2.0 * B * S * H * hd * (S / 2.0)
+    if conf.get("num_experts", 0) > 0:
+        active = conf["experts_per_token"] + conf.get("num_shared_experts", 0)
+        ffn = 2.0 * B * S * (d * conf["num_experts"] + active * 3 * d * conf["d_ff"])
+    else:
+        ffn = 2.0 * B * S * 3 * d * conf["d_ff"]
+    head = 2.0 * B * S * d * padded_vocab(conf["vocab_size"])
+    return 3.0 * (conf["num_layers"] * (proj + attn + ffn) + head)

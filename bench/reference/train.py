@@ -1,6 +1,7 @@
 """The reference's first COVAP cycle of a cell, from the seed: the
 weights of ``bench.weights``, the batches of :mod:`.data`, the loss and
-gradients of :mod:`.model`, the exchange and AdamW of :mod:`.covap`.
+gradients of the configuration's reference module (``bench.reference.of``),
+the exchange and AdamW of :mod:`.covap`.
 
 :func:`run` returns what the comparison reads: each step's loss, and per
 leaf the norm of the first step's raw gradient (before the exchange), the
@@ -18,9 +19,8 @@ import torch
 
 from ..sketch import project
 from ..weights import fill_leaf, make_leaves
-from . import covap
+from . import covap, of
 from .data import Batches
-from .model import Arch, loss, param_shapes
 
 E4M3_MAX = 448.0
 
@@ -82,14 +82,16 @@ def run(conf: dict, traffic: dict, *, seed: int, workers: int, device,
     steps = cycle(traffic) if steps is None else steps
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    a = Arch.from_config(conf)
-    shapes = param_shapes(a)
+    ref = of(conf)
+    rule = getattr(ref, "std_of", None)
+    a = ref.Arch.from_config(conf)
+    shapes = ref.param_shapes(a)
     paths = list(shapes)
-    params = make_leaves(shapes, seed, device)
+    params = make_leaves(shapes, seed, device, rule)
     leaves = list(params.values())
     rows, seq_len = traffic["rows_per_chip"], traffic["seq_len"]
     interval = traffic["interval"]
-    data = Batches(seed, a.vocab_size, seq_len, rows, workers)
+    data = Batches(seed, conf["vocab_size"], seq_len, rows, workers)
     buckets = covap.plan_buckets([shapes[p] for p in paths],
                                  bucket_bytes=traffic["bucket_bytes"],
                                  max_buckets=traffic["max_buckets"], interval=interval)
@@ -106,7 +108,7 @@ def run(conf: dict, traffic: dict, *, seed: int, workers: int, device,
             tokens, labels = (torch.from_numpy(x).to(device) for x in data.batch(step, w))
             for p in leaves:
                 p.requires_grad_(True)
-            tot, _, _, drop = loss(params, tokens, labels, a, matmul)
+            tot, _, _, drop = ref.loss(params, tokens, labels, a, matmul)
             g = torch.autograd.grad(tot, leaves)
             for p in leaves:
                 p.requires_grad_(False)
@@ -129,7 +131,7 @@ def run(conf: dict, traffic: dict, *, seed: int, workers: int, device,
     del first
     change = []
     for i, (path, p) in enumerate(params.items()):
-        p0 = fill_leaf(torch.empty_like(p), seed, i, path)
+        p0 = fill_leaf(torch.empty_like(p), seed, i, path, rule)
         change.append(float(torch.linalg.vector_norm(p - p0)))
         del p0
     return {"paths": paths, "loss": losses, "grad_raw": grad_raw, "grad": grad_first,

@@ -1,14 +1,17 @@
 """The benchmark's frozen metric arithmetic on the CPU: the trace reader on
 small hand-built traces, every per-layer reader, the step's FLOPs against
-the port's closed form, and the EF pass's bytes."""
+the port's closed form, and the EF pass's bytes; the two first cells'
+FLOPs, bucket plans and EF bytes pinned."""
 from __future__ import annotations
 
 import math
 
 import pytest
 
-from bench import harness
-from bench.yardstick import ef_bytes, flops
+from bench_cells import WORKLOADS
+
+from bench import harness, reference
+from bench.yardstick import ef_bytes
 from bench.yardstick.trace import TraceView, kernel_group, length, union
 
 
@@ -97,9 +100,9 @@ def test_every_metric_has_a_reader():
     import json
 
     spec = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-    assert {m["name"] for m in spec["per_layer"]} <= set(EXPECTED)
     readers = {p.stem for p in (harness.BENCH / "metrics").glob("*.py")}
-    assert readers == set(EXPECTED)
+    assert readers == {m["name"] for m in spec["per_layer"]}
+    assert set(EXPECTED) <= readers
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
@@ -111,27 +114,53 @@ def test_readers_read_nothing_from_an_empty_trace(name):
     assert harness.reader(name)(v) is None
 
 
-@pytest.mark.parametrize("config", ["gpt2-paper", "deepseek-moe-16b-2L"])
-def test_step_flops_equal_the_port(config):
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import InputShape
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_step_flops_equal_the_port(name):
+    import dataclasses
+
+    from repro_torch.configs.base import ArchConfig, InputShape
     from repro_torch.launch.analytic_costs import step_flops
 
-    cell = harness.load_cell({"gpt2-paper": "gpt2-paper.covap.b8",
-                              "deepseek-moe-16b-2L": "deepseek-moe-16b-2L.covap.b8"}[config])
-    port_cfg = get_config(cell.conf["name"]).with_(num_layers=cell.conf["num_layers"])
-    want = step_flops(port_cfg, InputShape("x", 1024, 8, "train"))
-    assert flops.step_flops(cell.conf, rows=8, seq_len=1024) == pytest.approx(want, rel=1e-12)
-    if config == "gpt2-paper":
-        assert want == pytest.approx(7.929e12, rel=1e-3)
+    cell = harness.load_cell(name)
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    port_cfg = ArchConfig(**{k: v for k, v in cell.conf.items() if k in fields})
+    rows, seq = cell.traffic["rows_per_chip"] * cell.chips, cell.traffic["seq_len"]
+    want = step_flops(port_cfg, InputShape("x", seq, rows, "train"))
+    got = reference.of(cell.conf).step_flops(cell.conf, rows=rows, seq_len=seq)
+    assert got == pytest.approx(want, rel=1e-12)
 
 
-def test_ef_bytes_count_every_element_once():
-    cell = harness.load_cell("gpt2-paper.covap.b8")
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_ef_bytes_count_every_element_once(name):
+    cell = harness.load_cell(name)
+    interval = cell.traffic["interval"]
     buckets, shapes = ef_bytes.plan_of(cell.conf, cell.traffic)
     total = sum(math.prod(s) for s in shapes)
-    assert total == 190_532_352
-    per_phase = [ef_bytes.ef_bytes(buckets, shapes, p, 4) for p in range(4)]
-    # every element is selected in exactly one of the four phases
-    assert sum(per_phase) == total * (16 + 3 * 12)
+    per_phase = [ef_bytes.ef_bytes(buckets, shapes, p, interval) for p in range(interval)]
+    # every element is selected in exactly one of the phases
+    assert sum(per_phase) == total * (16 + (interval - 1) * 12)
     assert all(12 * total < b < 16 * total for b in per_phase)
+
+
+# what the two first cells read, as computed before the reference was looked
+# up by configuration: the step's FLOPs at 8 rows of 1024 tokens, the
+# buckets, each phase's EF bytes, the parameters
+PINNED = {
+    "gpt2-paper.covap.b8": (7_929_046_499_328, 35, [2_490_089_472, 2_466_055_680,
+                                                    2_466_370_560, 2_485_166_592],
+                            190_532_352),
+    "deepseek-moe-16b-2L.covap.b8": (18_979_460_481_024, 66,
+                                     [20_752_916_480, 20_726_505_472, 20_726_505_472,
+                                      20_742_209_536], 1_595_156_480),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_the_first_cells_read_what_they_read_before(name):
+    flops, n_buckets, per_phase, params = PINNED[name]
+    cell = harness.load_cell(name)
+    assert reference.of(cell.conf).step_flops(cell.conf, rows=8, seq_len=1024) == flops
+    buckets, shapes = ef_bytes.plan_of(cell.conf, cell.traffic)
+    assert len(buckets) == n_buckets
+    assert sum(math.prod(s) for s in shapes) == params
+    assert [ef_bytes.ef_bytes(buckets, shapes, p, 4) for p in range(4)] == per_phase

@@ -1,23 +1,27 @@
 """The benchmark's plain reference against ``repro_torch`` on the CPU, at
-small sizes: the batches, the decoder's and the MoE block's loss and
-gradients, the bucket plan, and whole first steps through ``Trainer.step``
-(exchange, error feedback and AdamW) on one and on two gloo workers.  The
+small sizes: the batches, each configuration's loss and gradients by its
+own reference module, the bucket plan, and whole first steps through
+``Trainer.step`` (exchange, error feedback and AdamW) on one and on two
+gloo workers, over ``BENCHMARK.json``'s configurations and cells.  The
 tests import the port; the reference does not."""
 from __future__ import annotations
 
 import ast
 import json
 import multiprocessing as mp
+import re
+import sys
+import types
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from bench_cells import small_cell
+from bench_cells import CONFIGS, WORKLOADS, small_cell
 
-from bench import check, harness, weights
-from bench.reference import covap, model as ref_model
+from bench import check, harness, reference, weights
+from bench.reference import covap
 from bench.reference import train as ref_train
 from bench.reference.data import Batches
 
@@ -63,26 +67,29 @@ def test_batches_equal_the_loader(workers):
             np.testing.assert_array_equal(labels, port["labels"])
 
 
-@pytest.mark.parametrize("config", ["gpt2-paper", "deepseek-moe-16b-2L"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_loss_and_gradients_equal_the_port(config, small):
     from repro_torch.models import build_model
 
     cell = small(config)
-    a = ref_model.Arch.from_config(cell.conf)
-    shapes = ref_model.param_shapes(a)
+    ref = reference.of(cell.conf)
+    rule = getattr(ref, "std_of", None)
+    a = ref.Arch.from_config(cell.conf)
+    shapes = ref.param_shapes(a)
     seed = 9
-    params = weights.make_leaves(shapes, seed, "cpu")
+    params = weights.make_leaves(shapes, seed, "cpu", rule)
     port = build_model(_port_cfg(cell.conf), device="cpu")
     leaves = port.named_leaves()
     assert [p for p, _ in leaves] == list(shapes)
     for i, (path, p) in enumerate(leaves):
-        weights.fill_leaf(p.data, seed, i, path)
-    tokens, labels = (torch.from_numpy(x) for x in Batches(seed, a.vocab_size, 32, 4, 1).batch(0, 0))
+        weights.fill_leaf(p.data, seed, i, path, rule)
+    vocab = cell.conf["vocab_size"]
+    tokens, labels = (torch.from_numpy(x) for x in Batches(seed, vocab, 32, 4, 1).batch(0, 0))
     total, metrics = port.loss_fn({"tokens": tokens, "labels": labels})
     total.backward()
     for p in params.values():
         p.requires_grad_(True)
-    ref_total, xent, aux, _ = ref_model.loss(params, tokens, labels, a)
+    ref_total, xent, aux, _ = ref.loss(params, tokens, labels, a, torch.matmul)
     ref_total.backward()
     assert float(total.detach()) == pytest.approx(float(ref_total.detach()), rel=1e-5)
     assert float(metrics["aux_loss"]) == pytest.approx(float(aux.detach()), rel=1e-5, abs=1e-7)
@@ -90,14 +97,15 @@ def test_loss_and_gradients_equal_the_port(config, small):
         torch.testing.assert_close(p.grad, r.grad, rtol=1e-4, atol=1e-6, msg=path)
 
 
-@pytest.mark.parametrize("config", ["gpt2-paper", "deepseek-moe-16b-2L"])
+@pytest.mark.parametrize("name", WORKLOADS)
 @pytest.mark.parametrize("full", [False, True])
-def test_bucket_plan_equals_the_port(config, full, small):
+def test_bucket_plan_equals_the_port(name, full, small):
     from repro_torch.core import build_plan
     from repro_torch.models import build_model
 
-    cell = harness.load_cell(small(config).name) if full else small(config)
-    shapes = ref_model.param_shapes(ref_model.Arch.from_config(cell.conf))
+    cell = harness.load_cell(name) if full else small(cell=name)
+    ref = reference.of(cell.conf)
+    shapes = ref.param_shapes(ref.Arch.from_config(cell.conf))
     model = build_model(_port_cfg(cell.conf), device="meta")
     t = cell.traffic
     plan = build_plan(model.named_leaves(), bucket_bytes=t["bucket_bytes"],
@@ -111,9 +119,9 @@ def test_bucket_plan_equals_the_port(config, full, small):
     assert len(mine) > 1
 
 
-@pytest.mark.parametrize("config", ["gpt2-paper", "deepseek-moe-16b-2L"])
-def test_first_steps_equal_the_port(config, small, port):
-    cell = small(config)
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_first_steps_equal_the_port(name, small, port):
+    cell = small(cell=name)
     out = harness.run_rank(cell, seed=2**31 + 5, seconds=0.0, trace=False, rank=0,
                            world=1, port=port, device="cpu", t_start=0.0)
     assert out["correct"], out["checks"]
@@ -167,3 +175,103 @@ def test_the_reference_refuses_a_mix_it_does_not_model(key, value, small):
     cell.traffic[key] = value
     with pytest.raises(ValueError, match=key):
         ref_train.run(cell.conf, cell.traffic, seed=3, workers=1, device="cpu")
+
+
+# the small cells' reference losses over the first cycle (seed 2**31 + 11),
+# as computed before the reference was looked up by configuration: the
+# weights and the reference's first cycle have not moved
+PINNED_LOSS = {
+    "gpt2-paper": [6.473791122436523, 6.485506057739258, 6.325545310974121,
+                   6.52878475189209],
+    "deepseek-moe-16b-2L": [6.338286399841309, 6.419840335845947, 6.286617755889893,
+                            6.541128158569336],
+}
+
+
+@pytest.mark.parametrize("config", sorted(PINNED_LOSS))
+def test_the_reference_reads_what_it_read_before(config, small):
+    cell = small(config)
+    ref = ref_train.run(cell.conf, cell.traffic, seed=2**31 + 11, workers=1, device="cpu")
+    assert ref["loss"] == pytest.approx(PINNED_LOSS[config], rel=1e-5)
+
+
+MARKER = 1234.5
+
+
+def _stub(calls: dict):
+    """The decoder's module under a new name, each function recording the
+    module that called it; its ``step_flops`` returns :data:`MARKER`, its
+    ``std_of`` gives the embedding its own start."""
+    model = reference.of({})
+
+    def traced(fn):
+        def call(*args, **kwargs):
+            calls.setdefault(fn.__name__, set()).add(sys._getframe(1).f_globals["__name__"])
+            return fn(*args, **kwargs)
+        call.__name__ = fn.__name__
+        return call
+
+    @traced
+    def step_flops(conf, *, rows, seq_len):
+        return MARKER
+
+    @traced
+    def std_of(path, shape):
+        return 0.05 if path == "embed.table" else None
+
+    stub = types.ModuleType(f"{reference.__name__}.stub_decoder")
+    stub.Arch = model.Arch
+    stub.param_shapes, stub.loss = traced(model.param_shapes), traced(model.loss)
+    stub.step_flops, stub.std_of = step_flops, std_of
+    return stub
+
+
+def test_a_configuration_brings_its_own_reference(small, port, monkeypatch):
+    """A configuration naming a reference module is served by it: the
+    program's leaf check, the bucket plan, the trace's FLOPs and the
+    reference's first cycle all reach the module, and its ``std_of`` sets
+    the weights of both sides."""
+    calls: dict = {}
+    stub = _stub(calls)
+    monkeypatch.setitem(sys.modules, stub.__name__, stub)
+    cell = small(CONFIGS[0])
+    cell.conf["reference"] = "stub_decoder"
+    assert reference.of(cell.conf) is stub
+    seen = {}
+    monkeypatch.setattr(harness, "reader", lambda name: lambda view: seen.update(view.context))
+    out = harness.run_rank(cell, seed=2**31 + 19, seconds=0.0, trace=True, rank=0, world=1,
+                           port=port, device="cpu", t_start=0.0)
+    assert out["correct"], out["checks"]
+    assert calls["param_shapes"] >= {"bench.harness", "bench.yardstick.ef_bytes",
+                                      "bench.reference.train"}
+    assert calls["loss"] == {"bench.reference.train"}
+    assert calls["step_flops"] == {"bench.harness"}
+    assert calls["std_of"] == {"bench.weights"}
+    assert seen["flops_per_step"] == MARKER
+    assert seen["conf"] is cell.conf and seen["traffic"] is cell.traffic
+    assert (seen["rows"], seen["seq_len"]) == (4, 32)
+    assert weights.std_of("embed.table", (300, 64), stub.std_of) == 0.05
+    assert weights.std_of("head.w", (64, 384), stub.std_of) == weights.std_of("head.w", (64, 384))
+
+
+@pytest.mark.parametrize("name, error", [("no_such_family", "no_such_family.py is missing"),
+                                         ("../model", "no module name"),
+                                         (3, "no module name")])
+def test_an_unknown_reference_is_refused(name, error):
+    with pytest.raises(LookupError, match=error):
+        reference.of({"reference": name})
+
+
+def test_only_the_lookup_names_the_decoder_module():
+    """Outside ``bench/reference/`` every caller reaches the decoder through
+    ``reference.of``: nothing else names its module."""
+    names = re.compile(r"reference[^\n]model|reference[ ]import[ ]model")
+    hits = []
+    for path in sorted(BENCH.rglob("*")):
+        rel = path.relative_to(BENCH)
+        if (not path.is_file() or rel.parts[0] == "reference" or "__pycache__" in rel.parts
+                or path.suffix not in (".py", ".md", ".json")):
+            continue
+        hits += [f"{rel}:{i}" for i, line in enumerate(path.read_text().splitlines(), 1)
+                 if names.search(line)]
+    assert not hits, hits

@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from bench_cells import SMALL_LIMITS, small_cell
+from bench_cells import CONFIGS, SMALL_LIMITS, WORKLOADS, small_cell
 
 from bench import check, harness
 from bench.faults import FAULTS
@@ -29,10 +29,10 @@ def _patched(kind):
     return lambda prog: FAULTS[kind](prog)
 
 
-@pytest.mark.parametrize("config", ["gpt2-paper", "deepseek-moe-16b-2L"])
+@pytest.mark.parametrize("name", WORKLOADS)
 @pytest.mark.parametrize("kind", ["unchanged", "half_batch", "altered", "residual"])
-def test_a_planted_fault_is_not_correct(config, kind, small, port):
-    out = harness.run_rank(small(config), seed=2**31 + 3, seconds=0.0, trace=False, rank=0,
+def test_a_planted_fault_is_not_correct(name, kind, small, port):
+    out = harness.run_rank(small(cell=name), seed=2**31 + 3, seconds=0.0, trace=False, rank=0,
                            world=1, port=port, device="cpu", t_start=0.0,
                            patch=_patched(kind))
     assert not out["correct"], out["checks"]
@@ -61,7 +61,7 @@ def test_the_exchange_left_out_is_not_correct(kind, tmp_path, port):
     assert out["correct"] == (kind == ""), out["checks"]
 
 
-@pytest.mark.parametrize("config", ["gpt2-paper", "deepseek-moe-16b-2L"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_the_float8_control_is_not_correct(config, small):
     cell = small(config)
     ref = ref_train.run(cell.conf, cell.traffic, seed=12, workers=1, device="cpu")
@@ -129,7 +129,7 @@ def test_forbidden_names_are_whole_top_level_names():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell_name", ["gpt2-paper.covap.b8", "deepseek-moe-16b-2L.covap.b8"])
+@pytest.mark.parametrize("cell_name", WORKLOADS)
 def test_the_float8_control_fails_on_the_card(cell_name):
     """The control against the reference at the cell's own size on the card
     (a few seconds each)."""

@@ -5,7 +5,8 @@ under test and for the reference.
 Rules: the embedding N(0, 0.02); the norms' scales 0 (the decoder
 multiplies by ``1 + scale``); the router N(0, 1) * 0.1 / sqrt(fan_in);
 every other matrix N(0, 1) / sqrt(fan_in), ``fan_in`` the leaf's
-second-to-last axis.
+second-to-last axis.  A reference module's own ``std_of`` (``rule``, below)
+comes first where it gives a number.
 """
 from __future__ import annotations
 
@@ -21,7 +22,11 @@ def leaf_seed(seed: int, index: int) -> int:
     return int(state.generate_state(1, dtype=np.uint64)[0] >> np.uint64(1))
 
 
-def std_of(path: str, shape: tuple[int, ...]) -> float:
+def std_of(path: str, shape: tuple[int, ...], rule=None) -> float:
+    if rule is not None:
+        std = rule(path, shape)
+        if std is not None:
+            return std
     if path == "embed.table":
         return 0.02
     if path.endswith(".scale"):
@@ -32,18 +37,20 @@ def std_of(path: str, shape: tuple[int, ...]) -> float:
 
 
 @torch.no_grad()
-def fill_leaf(out: torch.Tensor, seed: int, index: int, path: str) -> torch.Tensor:
+def fill_leaf(out: torch.Tensor, seed: int, index: int, path: str, rule=None
+              ) -> torch.Tensor:
     """Write leaf ``index`` (``path``) of the run into ``out`` (float32, any
     device) in place."""
-    std = std_of(path, tuple(out.shape))
+    std = std_of(path, tuple(out.shape), rule)
     if std == 0.0:
         return out.zero_()
     gen = torch.Generator(out.device).manual_seed(leaf_seed(seed, index))
     return out.normal_(0.0, std, generator=gen)
 
 
-def make_leaves(shapes: dict[str, tuple[int, ...]], seed: int, device) -> dict[str, torch.Tensor]:
+def make_leaves(shapes: dict[str, tuple[int, ...]], seed: int, device, rule=None
+                ) -> dict[str, torch.Tensor]:
     """Every leaf of ``shapes`` (path -> shape, in leaf order), new tensors."""
     return {path: fill_leaf(torch.empty(shape, dtype=torch.float32, device=device),
-                            seed, i, path)
+                            seed, i, path, rule)
             for i, (path, shape) in enumerate(shapes.items())}

@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import math
 
+from .. import reference
 from ..reference.covap import exchanged, plan_buckets
-from ..reference.model import Arch, param_shapes
 
 SELECTED_BYTES = 16
 UNSELECTED_BYTES = 12
@@ -26,8 +26,9 @@ def ef_bytes(buckets, shapes, step: int, interval: int) -> int:
 
 def plan_of(conf: dict, traffic: dict):
     """The bucket plan of a configuration under a traffic mix, with the
-    leaf shapes it covers: ``(buckets, shapes)``."""
-    shapes = list(param_shapes(Arch.from_config(conf)).values())
+    leaf shapes (its reference module's) it covers: ``(buckets, shapes)``."""
+    ref = reference.of(conf)
+    shapes = list(ref.param_shapes(ref.Arch.from_config(conf)).values())
     buckets = plan_buckets(shapes, bucket_bytes=traffic["bucket_bytes"],
                            max_buckets=traffic["max_buckets"],
                            interval=traffic["interval"])

@@ -73,7 +73,13 @@ class TraceView:
 
     ``steps`` is one entry a profiled step, in order: ``{"phase": p}`` and
     whatever the readers need of it.  ``window_us`` is the profiled
-    window's wall time."""
+    window's wall time.  ``context`` is the run's: in a run of
+    ``bench/harness.py``, ``flops_per_step``, ``chips``, ``untraced_steps``
+    and ``untraced_s`` (the untraced steps after the profile, and their wall
+    seconds), ``conf`` and ``traffic`` (the cell's configuration and traffic
+    files' objects), ``rows`` (a step's rows over every chip) and
+    ``seq_len``, from which a reader counts a kernel's operations and
+    bytes."""
 
     def __init__(self, events: list[dict], *, steps: list[dict], window_us: float,
                  context: dict):
