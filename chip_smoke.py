@@ -3230,12 +3230,12 @@ BF16_RTOL, BF16_ULP = 2.0 ** -6, 2.0 ** -7
 
 
 def phase_small_families() -> None:
-    """The ten assigned archs' REDUCED configs (and grok-1-314b's with bfloat16
-    parameters, whose f32 router shares buckets with bf16 experts) on the
-    card against the port on the CPU: 5 SGD steps on the defaults from the
-    same parameters and batches (pixtral's with patch embeddings,
-    seamless's with frames); ``ef_update`` once per f32 segment a step on
-    the card, never on the CPU."""
+    """The eleven assigned archs' REDUCED configs (moonlight-16b-a3b's among
+    them; and grok-1-314b's with bfloat16 parameters, whose f32 router
+    shares buckets with bf16 experts) on the card against the port on the
+    CPU: 5 SGD steps on the defaults from the same parameters and batches
+    (pixtral's with patch embeddings, seamless's with frames); ``ef_update``
+    once per f32 segment a step on the card, never on the CPU."""
     from repro_torch.configs import get_reduced, list_archs
     from repro_torch.models import build_model
     from repro_torch.optim import sgd
@@ -3677,7 +3677,8 @@ def phase_serve_small() -> None:
     from repro_torch.serve import Engine, ServeConfig
 
     worst = {}
-    for arch in list_archs():
+    # latent attention has no decode path (the port has no latent cache)
+    for arch in [a for a in list_archs() if not get_reduced(a).is_mla]:
         cfg = get_reduced(arch)
         if cfg.num_experts:
             cfg = cfg.with_(moe_capacity_factor=float(cfg.num_experts))

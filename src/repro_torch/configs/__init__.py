@@ -1,8 +1,9 @@
 """Config registry: ``get_config(name)`` / ``get_reduced(name)`` /
-``list_archs()``.  One module per architecture (the ten assigned archs
-and the paper's own GPT-2), exporting CONFIG and REDUCED as the
-reference's does, listed in the reference's order; an unknown name
-raises ``KeyError``."""
+``list_archs()``.  One module per architecture (the ten assigned archs,
+the paper's own GPT-2, and the archs only the port has), exporting CONFIG
+and REDUCED as the reference's does, listed in the reference's order and
+then the port's own (:data:`PORT_ONLY`); an unknown name raises
+``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -21,7 +22,11 @@ _ARCH_MODULES = {
     "gemma2-27b": "gemma2_27b",
     "zamba2-2.7b": "zamba2_2_7b",
     "gpt2-paper": "gpt2_paper",
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
 }
+# the archs the JAX reference does not have: held against their own plain
+# references (``bench/reference/moonlight.py``), not against ``repro``
+PORT_ONLY = ("moonlight-16b-a3b",)
 
 
 def list_archs(assigned_only: bool = False) -> list[str]:
@@ -31,6 +36,11 @@ def list_archs(assigned_only: bool = False) -> list[str]:
     if assigned_only:
         names.remove("gpt2-paper")
     return names
+
+
+def reference_archs(assigned_only: bool = False) -> list[str]:
+    """:func:`list_archs` without :data:`PORT_ONLY`: the reference's list."""
+    return [a for a in list_archs(assigned_only) if a not in PORT_ONLY]
 
 
 def _module(name: str):
@@ -51,7 +61,9 @@ __all__ = [
     "ArchConfig",
     "InputShape",
     "INPUT_SHAPES",
+    "PORT_ONLY",
     "get_config",
     "get_reduced",
     "list_archs",
+    "reference_archs",
 ]

@@ -2,7 +2,10 @@
 SSM (xlstm), hybrid (zamba2), VLM (pixtral) and the encoder-decoder audio
 family (seamless)), with the same defaults as
 ``repro.configs.base.ArchConfig`` (the serving field ``kv_cache_dtype``
-included), and the named input shapes (``INPUT_SHAPES``)."""
+included), and the named input shapes (``INPUT_SHAPES``).  The fields the
+reference lacks (latent attention, the sigmoid router, a leading dense
+layer, an expert share), named after the published DeepSeek-V3 keys,
+leave every other configuration's path unchanged at their defaults."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,6 +29,22 @@ class ArchConfig:
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
     aux_loss_coef: float = 0.01
+    # the router's width when the layer holds a share of the experts:
+    # ``num_experts`` experts from ``first_expert`` on, of
+    # ``n_routed_experts`` (0: all ``num_experts``, the whole layer)
+    n_routed_experts: int = 0
+    first_expert: int = 0
+    scoring_func: str = "softmax"    # softmax | sigmoid (the DeepSeek-V3 router)
+    routed_scaling_factor: float = 1.0   # sigmoid: the weights' factor
+    first_k_dense_replace: int = 0   # leading dense layers of an MoE stack
+    intermediate_size: int = 0       # their MLP width
+
+    # --- multi-head latent attention (MLA; kv_lora_rank 0 = none) -------------
+    kv_lora_rank: int = 0
+    q_lora_rank: int | None = 0      # 0 or None: queries projected from x
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # --- attention ----------------------------------------------------------
     qkv_bias: bool = False
@@ -71,6 +90,15 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def routed_experts(self) -> int:
+        """The experts the router scores: all of them, held here or not."""
+        return self.n_routed_experts or self.num_experts
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -268,10 +268,12 @@ _STAGE_MARKERS = (
     (1, ("encoder",), True),
     (2, ("enc_norm",), False),
     (3, ("decoder",), True),
-    (4, ("blocks",), True),
+    # an MoE stack's leading dense layers run before its superblocks
+    (4, ("dense",), True),
+    (5, ("blocks",), True),
     # a weight-shared block runs inside every layer, so its gradient is
     # complete with blocks row 0: it shares the blocks base
-    (4, ("shared",), False),
+    (5, ("shared",), False),
     (7, ("final_norm",), False),
     (8, ("head",), False),
 )

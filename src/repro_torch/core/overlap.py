@@ -82,9 +82,12 @@ def bucket_first_use(plan: bk.BucketPlan, num_stages: int) -> list[int]:
     """Each bucket's first-use stage in the model's forward pass: the
     earliest over its segments.
 
-    * Decoder: a stacked ``stack.blocks.*`` leaf's row ``r`` is read before
-      superblock ``r``, the weight-shared block's ``stack.shared.*`` before
-      superblock 0 (``transformer.stack_train`` reads it once there).
+    * Decoder, with ``k`` leading dense rows (the plan's ``stack.dense.*``
+      leaves' first axis, 0 without): a ``stack.dense.*`` leaf's row ``r``
+      is read before stage ``r``, a stacked ``stack.blocks.*`` leaf's row
+      ``r`` before stage ``k + r`` (superblock ``r``), the weight-shared
+      block's ``stack.shared.*`` before superblock 0 (``transformer.
+      stack_train`` reads it once there).
     * Encoder-decoder, with ``E`` encoder rows (the plan's
       ``encdec.encoder.*`` leaves' first axis): ``encdec.encoder.*`` row
       ``r`` before stage ``r``, ``encdec.enc_norm.*`` at ``E``,
@@ -93,15 +96,20 @@ def bucket_first_use(plan: bk.BucketPlan, num_stages: int) -> list[int]:
       the layer loop (stage ``num_stages``), and ``embed.*``,
       ``projector.*``, or a leaf of unknown use, before the embedding
       (:data:`EMBED_STAGE`), so that nothing is read stale."""
-    E = next((shape[0] for path, shape in zip(plan.leaf_paths, plan.leaf_shapes)
-              if path.startswith("encdec.encoder.")), 0)
+    def rows(prefix: str) -> int:
+        return next((shape[0] for path, shape in zip(plan.leaf_paths, plan.leaf_shapes)
+                     if path.startswith(prefix)), 0)
+
+    E, K = rows("encdec.encoder."), rows("stack.dense.")
 
     def first_use(seg: bk.Segment) -> int:
         path = plan.leaf_paths[seg.leaf_idx]
-        if path.startswith(("stack.blocks.", "encdec.encoder.")):
+        if path.startswith(("stack.dense.", "encdec.encoder.")):
             return seg.row_lo
+        if path.startswith("stack.blocks."):
+            return K + seg.row_lo
         if path.startswith("stack.shared."):
-            return 0
+            return K
         if path.startswith("encdec.enc_norm."):
             return E
         if path.startswith("encdec.decoder."):

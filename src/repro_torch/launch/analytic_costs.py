@@ -10,7 +10,11 @@ the H100 (``core.ccr.HardwareSpec.h100_sxm``).
 
 Conventions: a MAC counts as 2 FLOPs; the backward pass is 2x the forward
 for matrix products; attention counts the causal 1/2 factor; MoE counts the
-active experts only.
+active experts only.  The port's own mechanisms (moonlight's) count the
+same way: latent attention its four projections and its scores and values
+at the query/key and value widths, an MoE stack's leading dense layers
+their attention and MLP, a held share of the experts its expected load
+(``k`` of the router's ``E`` a token, ``num_experts / E`` of them here).
 """
 from __future__ import annotations
 
@@ -18,19 +22,49 @@ import torch
 
 from ..configs.base import ArchConfig, InputShape
 from ..models import count_params, padded_vocab
-from ..models.transformer import has_shared_block, num_superblocks, superblock_kinds
+from ..models.transformer import (
+    dense_prefix,
+    has_shared_block,
+    num_superblocks,
+    superblock_kinds,
+)
 
 
 def _attn_flops_per_layer(cfg, B, S, kv_len, window, kind) -> float:
-    """Score + value matmul flops for one attention layer."""
-    H, hd = cfg.num_heads, cfg.head_dim
+    """Score + value matmul flops for one attention layer (MLA: scores at
+    the query/key width, values at ``v_head_dim``)."""
+    H = cfg.num_heads
+    if cfg.is_mla:
+        widths = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim
+    else:
+        widths = 2 * cfg.head_dim
     if kind == "decode":
         ctx = min(window, kv_len) if window else kv_len
-        return 2.0 * 2.0 * B * H * hd * ctx  # q*K^T + p*V for 1 token
+        return 2.0 * B * H * widths * ctx  # q*K^T + p*V for 1 token
     ctx = min(window, S) if window else S
     # causal: average context ~ ctx/2 (window caps it)
     avg = ctx / 2.0 if not window else max(window / 2.0, 1.0)
-    return 2.0 * 2.0 * B * S * H * hd * avg
+    return 2.0 * B * S * H * widths * avg
+
+
+def _attn_proj_flops(cfg, B, S) -> float:
+    """One attention layer's projections: q, k, v and o, or MLA's q,
+    kv_a, kv_b and o."""
+    d, H = cfg.d_model, cfg.num_heads
+    if cfg.is_mla:
+        r, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        qk, vd = cfg.qk_nope_head_dim + rd, cfg.v_head_dim
+        return 2.0 * B * S * (d * H * qk + d * (r + rd) + r * H * (qk - rd + vd)
+                              + H * vd * d)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    return 2.0 * B * S * d * (2 * H * hd + 2 * K * hd)
+
+
+def _dense_prefix_flops(cfg, B, S, kv_len, kind) -> float:
+    """The leading dense layers of an MoE stack: attention and MLP."""
+    per = (_attn_proj_flops(cfg, B, S) + _attn_flops_per_layer(cfg, B, S, kv_len, 0, kind)
+           + 2.0 * B * S * 3 * cfg.d_model * cfg.intermediate_size)
+    return dense_prefix(cfg) * per
 
 
 def _layer_flops(cfg: ArchConfig, B: int, S: int, kv_len: int, kind: str) -> float:
@@ -39,12 +73,12 @@ def _layer_flops(cfg: ArchConfig, B: int, S: int, kv_len: int, kind: str) -> flo
     total = 0.0
     for bkind, window in superblock_kinds(cfg):
         if bkind == "attn":
-            H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-            proj = 2.0 * B * S * d * (2 * H * hd + 2 * K * hd)
+            proj = _attn_proj_flops(cfg, B, S)
             total += proj + _attn_flops_per_layer(cfg, B, S, kv_len, window, kind)
             if cfg.is_moe:
-                act = cfg.experts_per_token + cfg.num_shared_experts
-                total += 2.0 * B * S * (d * cfg.num_experts  # router
+                E = cfg.routed_experts
+                act = cfg.experts_per_token * cfg.num_experts / E + cfg.num_shared_experts
+                total += 2.0 * B * S * (d * E  # router
                                         + act * 3 * d * cfg.d_ff)
             else:
                 total += 2.0 * B * S * 3 * d * cfg.d_ff
@@ -94,6 +128,8 @@ def step_flops(cfg: ArchConfig, shape: InputShape) -> float:
     else:
         n_super = num_superblocks(cfg)
         core = n_super * _layer_flops(cfg, B, S, kv_len, kind)
+        if dense_prefix(cfg):
+            core += _dense_prefix_flops(cfg, B, S, kv_len, kind)
     if cfg.is_encdec:
         # encoder over the frontend frames (full bidirectional attention)
         Te = cfg.frontend_tokens

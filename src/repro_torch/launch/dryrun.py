@@ -57,7 +57,7 @@ from ..core import build_plan, get_compressor
 from ..core.ccr import HardwareSpec, analytic_ccr, select_interval
 from ..core.schedule import CollectiveCall
 from ..models import build_model, count_params, long_context_variant, model_flops
-from ..models.transformer import num_superblocks, superblock_kinds
+from ..models.transformer import dense_prefix, num_superblocks, superblock_kinds
 from . import analytic_costs, hlo_analysis
 
 HW = HardwareSpec.h100_sxm()
@@ -237,10 +237,10 @@ def _depth(cfg) -> int:
 
 def _cut(cfg, k: int):
     """``cfg`` at ``k`` superblocks (``k`` encoder and ``k`` decoder
-    layers)."""
+    layers); a leading dense prefix is kept whole."""
     if cfg.is_encdec:
         return cfg.with_(num_layers=k, encoder_layers=k)
-    return cfg.with_(num_layers=k * len(superblock_kinds(cfg)))
+    return cfg.with_(num_layers=dense_prefix(cfg) + k * len(superblock_kinds(cfg)))
 
 
 def _state(cfg, shape: InputShape, batch: int, *, compressor_name, interval, sync,

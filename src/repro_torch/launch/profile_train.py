@@ -12,13 +12,14 @@ that wall time in which some kernel ran (the device's busy share), the
 device milliseconds per step by kernel group and for the top kernels, and
 the host calls per step of QR (``powersgd``) and of the CUDA runtime's
 synchronising calls, with their host time, and then by program span
-(``repro_torch.obs.spans``: ``train/*``, ``moe/*``, ``data/*``, the
-buckets' ``covap_bucket_*`` taken together): the device ms a step of the
+(``repro_torch.obs.spans``: ``train/*``, ``moe/*``, ``mla/*``, ``data/*``,
+the buckets' ``covap_bucket_*`` taken together): the device ms a step of the
 kernels launched inside the span (on the launching thread, or on the
 stepping thread, which waits inside ``train/backward`` while the autograd
 engine's thread launches), the host ms a step inside it, and the device's
 idle ms a step that began while it was the innermost span open on the
-stepping thread; last the program's counters a step (``moe/*``, and
+stepping thread; last the program's counters a step (``moe/*``, with
+``moe/held`` under an expert share, and
 ``optim/params`` beside ``optim/fused_params``, the parameters AdamW's
 kernel stepped).  Needs a GPU; with none it raises.
 """
@@ -86,7 +87,7 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-SPAN_PREFIXES = ("train/", "moe/", "data/", "covap_bucket_")
+SPAN_PREFIXES = ("train/", "moe/", "mla/", "data/", "covap_bucket_")
 OUTSIDE = "(no program span)"
 
 

@@ -9,14 +9,27 @@ sliding window, on two paths:
   its state is O(window).  ``kv_cache_dtype="int8"`` stores keys and
   values quantised per (slot, position, head) with a bf16 scale.
 
-The decode step writes the new token's row into the cache in place."""
+The decode step writes the new token's row into the cache in place.
+
+Multi-head latent attention (MLA, DeepSeek-V2/V3; ``cfg.kv_lora_rank >
+0``) trains on the same q-chunked path (``mla_train``): per head the query
+is ``[q_nope | q_rope]`` from ``x W_q``; ``[c | k_r] = x W_kva``, the
+latent ``c`` RMS-normed and up-projected by ``W_kvb`` to per-head
+``[k_nope | v]``; the one rotary key ``k_r`` is shared by every head;
+scores at ``(nope + rope) ** -0.5`` over keys ``[k_nope | k_r]``, values
+``v_head_dim`` wide.  Decoding it needs a latent cache, which the port
+lacks: ``init_cache`` and ``attn_decode`` refuse it."""
 from __future__ import annotations
 
 import torch
 
-from .layers import rope, softcap
+from ..obs.spans import span
+from .layers import rmsnorm, rope, softcap
 
 NEG_INF = -2.0e38
+# the latent's RMSNorm: DeepSeek-V2/V3 build it at the norm's default eps,
+# not at the config's ``rms_norm_eps``
+LATENT_NORM_EPS = 1e-6
 
 
 def _qkv(params, x, cfg):
@@ -39,25 +52,48 @@ def _qkv(params, x, cfg):
 
 
 def _scores_softmax_value(q, k, v, mask, cfg):
-    """q: (B,Sq,K,G,hd)  k/v: (B,T,K,hd)  mask: bool, broadcast against the
-    (B,K,G,Sq,T) scores: (Sq,T) for training, (B,1,1,1,T) for decode;
-    ``None`` for a full mask (the encoder and cross-attention), which the
-    reference's all-true mask leaves unchanged.  Returns (B,Sq,K,G,hd).
-    The softcap applies to the scaled f32 scores, before the mask."""
-    scale = cfg.head_dim ** -0.5
+    """q: (B,Sq,K,G,hq)  k: (B,T,K,hq)  v: (B,T,K,hv)  mask: bool, broadcast
+    against the (B,K,G,Sq,T) scores: (Sq,T) for training, (B,1,1,1,T) for
+    decode; ``None`` for a full mask (the encoder and cross-attention),
+    which the reference's all-true mask leaves unchanged.  Returns
+    (B,Sq,K,G,hv).  The scores' scale is ``hq ** -0.5`` (``head_dim``, or
+    MLA's query/key width); the softcap applies to the scaled f32 scores,
+    before the mask."""
+    scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqkgh,btkh->bkgqt", q, k).float() * scale
     s = softcap(s, cfg.attn_softcap)
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bkgqt,btkh->bqkgh", p, v)
+    return torch.einsum("bkgqt,btkv->bqkgv", p, v)
+
+
+def _attend(q, k, v, cfg, window: int):
+    """Causal attention of q (B,S,K,G,hq) over k (B,S,K,hq) and v
+    (B,S,K,hv) in q-chunks of ``cfg.attn_chunk`` (the whole sequence when it
+    does not divide) -> (B,S,K,G,hv).  ``window > 0`` restricts query ``q``
+    to keys ``t`` in ``(q - window, q]``."""
+    S = q.shape[1]
+    chunk = min(cfg.attn_chunk, S)
+    if S % chunk != 0:
+        chunk = S
+    t_idx = torch.arange(S, device=q.device)
+    outs = []
+    for off in range(0, S, chunk):
+        q_idx = off + torch.arange(chunk, device=q.device)
+        mask = t_idx[None, :] <= q_idx[:, None]
+        if window > 0:
+            mask &= t_idx[None, :] > (q_idx[:, None] - window)
+        outs.append(_scores_softmax_value(q[:, off:off + chunk], k, v, mask, cfg))
+    return torch.cat(outs, dim=1)
 
 
 def attn_train(params, x: torch.Tensor, cfg, *, window: int = 0) -> torch.Tensor:
-    """Causal self-attention over a full sequence, in q-chunks of
-    ``cfg.attn_chunk`` (the whole sequence when it does not divide).
-    ``window > 0`` restricts query ``q`` to keys ``t`` in ``(q - window,
-    q]``."""
+    """Causal self-attention over a full sequence, q-chunked
+    (:func:`_attend`); MLA for a config with ``kv_lora_rank``
+    (:func:`mla_train`)."""
+    if cfg.is_mla:
+        return mla_train(params, x, cfg, window=window)
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K
@@ -66,21 +102,70 @@ def attn_train(params, x: torch.Tensor, cfg, *, window: int = 0) -> torch.Tensor
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     q = q.reshape(B, S, K, G, hd)
-
-    chunk = min(cfg.attn_chunk, S)
-    if S % chunk != 0:
-        chunk = S
-    t_idx = torch.arange(S, device=x.device)
-    outs = []
-    for off in range(0, S, chunk):
-        q_idx = off + torch.arange(chunk, device=x.device)
-        mask = t_idx[None, :] <= q_idx[:, None]
-        if window > 0:
-            mask &= t_idx[None, :] > (q_idx[:, None] - window)
-        outs.append(_scores_softmax_value(q[:, off:off + chunk], k, v, mask, cfg))
-    out = torch.cat(outs, dim=1).reshape(B, S, H * hd)
+    out = _attend(q, k, v, cfg, window).reshape(B, S, H * hd)
     cd = getattr(torch, cfg.compute_dtype)
     return out @ params["wo"].to(cd)
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention (training and prefill)
+# ---------------------------------------------------------------------------
+
+def mla_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """One MLA block's ``attn`` leaves (one row), by path under it."""
+    if cfg.q_lora_rank:
+        raise NotImplementedError("MLA with a query latent (q_lora_rank > 0) is not ported")
+    d, H, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": (d, H * (nope + rd)),
+        "wkv_a": (d, r + rd),
+        "kv_norm.scale": (r,),
+        "wkv_b": (r, H * (nope + vd)),
+        "wo": (H * vd, d),
+    }
+
+
+def _mla_qkv(params, x, cfg):
+    """-> q, k (B,S,H,nope+rope), v (B,S,H,v_head_dim), rotated."""
+    cd = getattr(torch, cfg.compute_dtype)
+    B, S, _ = x.shape
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    xc = x.to(cd)
+    q = (xc @ params["wq"].to(cd)).reshape(B, S, H, nope + rd)
+    kv_a = xc @ params["wkv_a"].to(cd)
+    c = rmsnorm(params["kv_norm"], kv_a[..., :r], LATENT_NORM_EPS)
+    kv = (c @ params["wkv_b"].to(cd)).reshape(B, S, H, nope + vd)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_rope = rope(q[..., nope:], positions, cfg.rope_theta)
+    k_rope = rope(kv_a[..., None, r:], positions, cfg.rope_theta)  # one head
+    q = torch.cat([q[..., :nope], q_rope], dim=-1)
+    k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rd)], dim=-1)
+    return q, k, kv[..., nope:]
+
+
+def mla_train(params, x: torch.Tensor, cfg, *, window: int = 0) -> torch.Tensor:
+    """Causal MLA over a full sequence: the projections, the latent's norm
+    and RoPE in span ``mla/latent``, the q-chunked scores, softmax and
+    values (:func:`_attend`, every head its own key) in ``mla/attend``,
+    then the output projection."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    with span("mla/latent"):
+        q, k, v = _mla_qkv(params, x, cfg)
+    with span("mla/attend"):
+        out = _attend(q[:, :, :, None], k, v, cfg, window)
+    cd = getattr(torch, cfg.compute_dtype)
+    return out.reshape(B, S, H * cfg.v_head_dim) @ params["wo"].to(cd)
+
+
+def _refuse_mla(cfg) -> None:
+    if cfg.is_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: decoding multi-head latent attention needs a latent "
+            f"cache (the normed kv_lora_rank latent and the shared rotary key "
+            f"per position), which the port does not have")
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +182,9 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0, device) -> dic
     """Rolling cache for a windowed layer (``T = min(window, max_len)``),
     linear otherwise; zeros.  With ``kv_cache_dtype="int8"`` keys and
     values are int8 with a bf16 scale per (slot, position, head).  On the
-    ``meta`` device it is the shapes and dtypes only (``cache_specs``)."""
+    ``meta`` device it is the shapes and dtypes only (``cache_specs``).  An
+    MLA config raises ``NotImplementedError``: it needs a latent cache."""
+    _refuse_mla(cfg)
     K, hd = cfg.num_kv_heads, cfg.head_dim
     T = min(window, max_len) if window > 0 else max_len
     dt = _cache_dtype(cfg)
@@ -136,7 +223,8 @@ def attn_decode(params, x: torch.Tensor, cache: dict, pos: torch.Tensor, cfg, *,
     """One decode step.  x: (B, 1, d); pos: (B,) absolute position of the
     new token.  Writes the token's key and value into ``cache`` in place
     (row ``pos``, or ``pos % T`` for a windowed layer) and returns
-    ``(y (B,1,d), cache)``."""
+    ``(y (B,1,d), cache)``.  An MLA config raises ``NotImplementedError``."""
+    _refuse_mla(cfg)
     B = x.shape[0]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K

@@ -115,12 +115,13 @@ def _is_routed_expert(path: str) -> bool:
 
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """The parameter count of ``cfg``; ``active_only`` counts each routed
-    expert weight at ``k/E`` of its size (the experts a token reaches)."""
+    expert weight at ``k/E`` of its size (the experts a token reaches; ``E``
+    the router's width, so a held share counts at its expected load)."""
     total = 0
     for path, shape in param_shapes(cfg).items():
         n = math.prod(shape)
         if active_only and cfg.is_moe and _is_routed_expert(path):
-            n = int(n * cfg.experts_per_token / cfg.num_experts)
+            n = int(n * cfg.experts_per_token / cfg.routed_experts)
         total += n
     return total
 
@@ -343,8 +344,9 @@ class DecoderLM(_LM):
     @property
     def num_stages(self) -> int:
         """The layer loop's stages before the final norm and head: the
-        superblock count (``before_layer``'s last index)."""
-        return transformer.num_superblocks(self.cfg)
+        dense prefix's rows and the superblocks (``before_layer``'s last
+        index)."""
+        return transformer.num_stages(self.cfg)
 
     def _embed_inputs(self, tree, batch):
         """The token embeddings, with ``patch_embeds`` (VLM, when the batch

@@ -17,6 +17,24 @@ add up the assignments and the dropped ones.  The Switch-style aux
 loss uses ``mean(probs)`` and the first choice's one-hot.  The routed
 experts use ``silu(g) * u`` whatever ``mlp_act`` is; the shared experts
 are one ``mlp(..., cfg.mlp_act)`` of width ``d_ff * num_shared_experts``.
+
+DeepSeek-V3's router (``scoring_func="sigmoid"``; the port's, not the
+reference's): ``s = sigmoid(x W_r)`` in f32, the top ``k`` of ``s``,
+each weighted by ``s_e`` over the top-k's sum (always: ``norm_topk_prob``
+true) times ``routed_scaling_factor``; its aux loss is the sequence-wise one,
+``coef * sum_i f_i P_i`` averaged over the rows, ``P_i`` the row's mean of
+``s_i / sum_j s_j`` and ``f_i`` the row's choices of ``i`` times ``E/(k T)``.
+The correction bias of ``noaux_tc`` is not modelled (it would be zero at
+the first step).
+
+An expert share (expert parallelism's layer, one chip's part): the layer
+holds ``num_experts`` experts from ``first_expert`` on, of the
+``n_routed_experts`` the router scores.  It routes over all of them, sizes
+``C`` by them, and dispatches and computes only the assignments to its
+own; the shared experts are added whole.  What the absent experts would
+add is left out: the shares' outputs, less the shared experts counted
+once, add up to the whole layer's.  While a profiler records,
+``moe/held`` counts the assignments to the held experts.
 """
 from __future__ import annotations
 
@@ -30,10 +48,11 @@ from .layers import mlp
 
 
 def moe_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
-    """Shapes of one block's ``moe`` leaves, keyed by their path under it."""
+    """Shapes of one block's ``moe`` leaves, keyed by their path under it:
+    the router over every routed expert, the held experts' weights."""
     E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
     shapes = {
-        "router": (d, E),
+        "router": (d, cfg.routed_experts),
         "w_gate": (E, d, ff),
         "w_up": (E, d, ff),
         "w_down": (E, ff, d),
@@ -52,15 +71,39 @@ ROUTER_INIT_SCALE = 0.1
 
 def capacity(cfg, n_tokens: int) -> int:
     """Per-expert capacity ``C`` for ``n_tokens`` tokens on one worker."""
-    return int(math.ceil(n_tokens * cfg.experts_per_token / cfg.num_experts
+    return int(math.ceil(n_tokens * cfg.experts_per_token / cfg.routed_experts
                          * cfg.moe_capacity_factor))
 
 
-def route(params, xt: torch.Tensor, cfg):
-    """The f32 router over tokens ``xt`` (N, d) -> ``(probs (N, E), top_p
-    (N, k) renormalised, top_e (N, k), aux)``."""
-    E, k = cfg.num_experts, cfg.experts_per_token
+def is_share(cfg) -> bool:
+    """Whether the layer holds only some of the routed experts."""
+    return cfg.num_experts < cfg.routed_experts
+
+
+def _route_sigmoid(logits, cfg, rows: int):
+    E, k = cfg.routed_experts, cfg.experts_per_token
+    scores = torch.sigmoid(logits)
+    top_s, top_e = torch.topk(scores, k, dim=-1)
+    top_s = top_s / (torch.sum(top_s, dim=-1, keepdim=True) + 1e-20)
+    top_p = top_s * cfg.routed_scaling_factor
+    T = logits.shape[0] // rows
+    share = (scores / torch.sum(scores, dim=-1, keepdim=True)).reshape(rows, T, E)
+    chosen = torch.zeros((rows, E), dtype=torch.float32, device=logits.device)
+    chosen.scatter_add_(1, top_e.reshape(rows, T * k),
+                        torch.ones((rows, T * k), dtype=torch.float32, device=logits.device))
+    f = chosen * (E / (k * T))
+    aux = cfg.aux_loss_coef * torch.mean(torch.sum(f * torch.mean(share, dim=1), dim=-1))
+    return scores, top_p, top_e, aux
+
+
+def route(params, xt: torch.Tensor, cfg, rows: int = 1):
+    """The f32 router over tokens ``xt`` (N, d), ``rows`` rows of tokens ->
+    ``(probs (N, E), top_p (N, k) renormalised, top_e (N, k), aux)``; for
+    the sigmoid router ``probs`` are the scores and ``top_p`` the weights."""
+    E, k = cfg.routed_experts, cfg.experts_per_token
     logits = xt.float() @ params["router"].float()
+    if cfg.scoring_func == "sigmoid":
+        return _route_sigmoid(logits, cfg, rows)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)
     top_p = top_p / (torch.sum(top_p, dim=-1, keepdim=True) + 1e-9)
@@ -70,14 +113,28 @@ def route(params, xt: torch.Tensor, cfg):
     return probs, top_p, top_e, aux
 
 
+def held(top_e: torch.Tensor, cfg) -> torch.Tensor:
+    """Which of the assignments ``top_e`` go to the experts held here."""
+    e = top_e - cfg.first_expert
+    return (e >= 0) & (e < cfg.num_experts)
+
+
 def dispatch(top_e: torch.Tensor, cfg, C: int):
-    """Each assignment's slot in the (E*C) expert buffer, token-major:
-    ``(slot, keep)``, with a dropped assignment at slot ``E*C``."""
+    """Each assignment's slot in the (E*C) buffer of the ``E`` held
+    experts, token-major: ``(slot, keep)``, with a dropped assignment (past
+    capacity, or to an expert not held) at slot ``E*C``."""
     E = cfg.num_experts
     eid = top_e.reshape(-1)
-    onehot = F.one_hot(eid, E)
+    share = is_share(cfg)
+    if share:
+        mine = held(eid, cfg)
+        # the experts not held share one spare column, never kept
+        eid = torch.where(mine, eid - cfg.first_expert, torch.full_like(eid, E))
+    onehot = F.one_hot(eid, E + share)
     pos = torch.gather(torch.cumsum(onehot, dim=0) - 1, 1, eid[:, None])[:, 0]
     keep = pos < C
+    if share:
+        keep &= mine
     slot = torch.where(keep, eid * C + pos, torch.full_like(eid, E * C))
     return slot, keep
 
@@ -91,7 +148,7 @@ def moe_apply(params, x: torch.Tensor, cfg):
     xt = x.reshape(N, d)
 
     with span("moe/route"):
-        _, top_p, top_e, aux = route(params, xt, cfg)
+        _, top_p, top_e, aux = route(params, xt, cfg, B)
     with span("moe/dispatch"):
         C = capacity(cfg, N)
         slot, keep = dispatch(top_e, cfg, C)
@@ -99,7 +156,13 @@ def moe_apply(params, x: torch.Tensor, cfg):
         if recording():
             count("moe/assigned", keep.numel())
             # summed after the profiled window: no launch inside the step
-            count("moe/dropped", lambda keep=keep: (~keep).sum())
+            if not is_share(cfg):
+                count("moe/dropped", lambda keep=keep: (~keep).sum())
+            else:
+                def mine(top_e=top_e):
+                    return held(top_e.reshape(-1), cfg)
+                count("moe/dropped", lambda keep=keep: (mine() & ~keep).sum())
+                count("moe/held", lambda: mine().sum())
         # each token's row k times, token-major (the reference's
         # ``xt[repeat(arange(N), k)]``): an expand, whose backward sums each
         # token's k rows in a fixed order, where an index's would scatter-add

@@ -9,9 +9,12 @@ block for plain dense, VLM and MoE, a (local, global) pair for gemma2,
 attention block (``stack.shared``) runs after every superblock.  Each
 block's parameters are stacked over a leading ``(num_superblocks,)`` axis
 under ``blocks.b{j}`` and consumed by a loop over the superblock index
-(the reference scans over the same stacked leaves).  ``cfg.remat`` wraps
-each superblock in ``torch.utils.checkpoint``, which changes memory, not
-values.
+(the reference scans over the same stacked leaves).  An MoE stack with
+``first_k_dense_replace = k`` runs ``k`` dense attention blocks first
+(``stack.dense``, stacked over ``k``, MLP width ``intermediate_size``):
+they are the loop's first ``k`` stages, and the superblocks follow.
+``cfg.remat`` wraps each superblock and each dense block in
+``torch.utils.checkpoint``, which changes memory, not values.
 
 The parameters come as a nested container whose leaves are tensors, as the
 module holds them, or as a replacement tree (``core.overlap.install_hooks``):
@@ -46,11 +49,22 @@ def superblock_kinds(cfg) -> list[tuple[str, int]]:
     raise NotImplementedError(f"family {fam!r} is not ported")
 
 
+def dense_prefix(cfg) -> int:
+    """The leading dense layers of an MoE stack (``stack.dense``'s rows)."""
+    return cfg.first_k_dense_replace if cfg.is_moe else 0
+
+
+def num_stages(cfg) -> int:
+    """The layer loop's stages before the final norm and head: the dense
+    prefix's rows, then the superblocks."""
+    return dense_prefix(cfg) + num_superblocks(cfg)
+
+
 def num_superblocks(cfg) -> int:
-    """The stacked leaves' row count: the loop's stages before the final
-    norm and head."""
+    """The stacked ``blocks`` leaves' row count: the layers after the dense
+    prefix over the superblock's size."""
     kinds = superblock_kinds(cfg)
-    n, r = divmod(cfg.num_layers, len(kinds))
+    n, r = divmod(cfg.num_layers - dense_prefix(cfg), len(kinds))
     if r:
         raise ValueError(
             f"{cfg.name}: num_layers={cfg.num_layers} not divisible by "
@@ -71,18 +85,22 @@ def _shared_sub_cfg(cfg):
     return cfg.with_(num_experts=0, d_ff=d_ff)
 
 
+def _dense_sub_cfg(cfg):
+    """A leading dense block's config: its attention, an MLP of width
+    ``intermediate_size``."""
+    return cfg.with_(num_experts=0, d_ff=cfg.intermediate_size)
+
+
 def _attn_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
     """One attention block's leaf shapes (one row), by path under it."""
     d, f = cfg.d_model, cfg.d_ff
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    shapes = {
-        "attn.wq": (d, H * hd),
-        "attn.wk": (d, K * hd),
-        "attn.wv": (d, K * hd),
-        "attn.wo": (H * hd, d),
-        "ln1.scale": (d,),
-        "ln2.scale": (d,),
-    }
+    if cfg.is_mla:
+        shapes = {f"attn.{k}": s for k, s in attn.mla_param_shapes(cfg).items()}
+    else:
+        shapes = {"attn.wq": (d, H * hd), "attn.wk": (d, K * hd),
+                  "attn.wv": (d, K * hd), "attn.wo": (H * hd, d)}
+    shapes.update({"ln1.scale": (d,), "ln2.scale": (d,)})
     if cfg.qkv_bias:
         shapes.update({"attn.bq": (H * hd,), "attn.bk": (K * hd,),
                        "attn.bv": (K * hd,)})
@@ -117,6 +135,10 @@ def stack_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
         for k, s in _block_param_shapes(cfg, kind).items()
     }
     shapes["final_norm.scale"] = (cfg.d_model,)
+    k = dense_prefix(cfg)
+    if k:
+        shapes.update({f"dense.{p}": (k,) + s
+                       for p, s in _attn_param_shapes(_dense_sub_cfg(cfg)).items()})
     if has_shared_block(cfg):
         shapes.update({f"shared.{k}": s
                        for k, s in _attn_param_shapes(_shared_sub_cfg(cfg)).items()})
@@ -125,10 +147,10 @@ def stack_param_shapes(cfg) -> dict[str, tuple[int, ...]]:
 
 def leaf_kind(cfg, path: str) -> str | None:
     """The block kind a stack leaf belongs to (``"attn"``, ``"mamba"``,
-    ``"mlstm"``, ``"slstm"``; the shared block is ``"attn"``), from its
-    path under ``stack``; ``None`` for any other leaf."""
+    ``"mlstm"``, ``"slstm"``; the shared and dense blocks are ``"attn"``),
+    from its path under ``stack``; ``None`` for any other leaf."""
     parts = path.split(".")
-    if parts[:1] == ["shared"]:
+    if parts[:1] in (["shared"], ["dense"]):
         return "attn"
     if parts[:1] == ["blocks"]:
         return superblock_kinds(cfg)[int(parts[1][1:])][0]
@@ -194,21 +216,36 @@ def _superblock_train(p, x, aux, cfg, kinds, shared=None):
     return x, aux
 
 
+def _dense_block_train(p, x, cfg):
+    return _attn_block_train(p, x, _dense_sub_cfg(cfg), 0)[0]
+
+
 def stack_train(params, x: torch.Tensor, cfg, before_layer=None):
     """x: (B, S, d) -> ``(y, aux_loss)``, the sum of the blocks' aux losses
-    (0 for dense).  ``before_layer(i)``, when given, is called before
-    superblock ``i`` reads its rows, and once more with ``i =
-    num_superblocks`` before the final norm.  It and the read of the rows
-    run outside the checkpointed superblock, so the backward pass's
-    recompute repeats neither.  The shared block's leaves are read once,
-    after ``before_layer(0)``: every application uses the same tensors."""
+    (0 for dense).  ``before_layer(i)``, when given, is called before stage
+    ``i`` reads its rows (dense row ``i`` for ``i`` under the dense prefix
+    ``k``, then superblock ``i - k``), and once more with ``i =``
+    :func:`num_stages` before the final norm.  It and the read of the rows
+    run outside the checkpointed block, so the backward pass's recompute
+    repeats neither.  The shared block's leaves are read once, after
+    ``before_layer(0)``: every application uses the same tensors."""
     kinds = superblock_kinds(cfg)
     n = num_superblocks(cfg)
+    k = dense_prefix(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        if before_layer is not None:
+            before_layer(i)
+        p = _layer(params["dense"], i)
+        if cfg.remat:
+            x = checkpoint(lambda x_, p_=p: _dense_block_train(p_, x_, cfg), x,
+                           use_reentrant=False)
+        else:
+            x = _dense_block_train(p, x, cfg)
     shared = None
     for i in range(n):
         if before_layer is not None:
-            before_layer(i)
+            before_layer(k + i)
         if i == 0 and "shared" in params:
             shared = _resolved(params["shared"])
         p = _layer(params["blocks"], i)
@@ -220,7 +257,7 @@ def stack_train(params, x: torch.Tensor, cfg, before_layer=None):
         else:
             x, aux = _superblock_train(p, x, aux, cfg, kinds, shared)
     if before_layer is not None:
-        before_layer(n)
+        before_layer(k + n)
     final_norm = {k: resolve(v) for k, v in params["final_norm"].items()}
     return rmsnorm(final_norm, x, cfg.norm_eps), aux
 
@@ -246,7 +283,12 @@ def init_caches(cfg, batch: int, max_len: int, *, device) -> dict:
     (n, B, T, K, hd), ...}}}`` as in the reference (the batch axis is 1):
     an attention block's KV cache, a recurrent block's state; with the
     shared block, ``"shared"``, one KV cache for each of its ``n``
-    applications.  Zeros, or shapes only on the ``meta`` device."""
+    applications.  Zeros, or shapes only on the ``meta`` device.  A stack
+    with a dense prefix raises ``NotImplementedError``: its only config,
+    moonlight's, has latent attention, whose cache the port lacks."""
+    attn._refuse_mla(cfg)
+    if dense_prefix(cfg):
+        raise NotImplementedError(f"{cfg.name}: decoding a dense prefix is not ported")
     n = num_superblocks(cfg)
 
     def stacked(kind, window):

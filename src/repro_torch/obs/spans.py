@@ -20,10 +20,12 @@ them.
 The step's spans (``PERF.md`` lists each with the metric that reads it):
 ``train/forward``, ``train/backward``, ``train/sync``, ``train/optimizer``,
 ``train/metrics``, the fused overlap's ``covap_bucket_{b}/phase_{p}``,
-``moe/route``, ``moe/dispatch``, ``moe/experts``, ``moe/combine``,
-``data/draw``, ``data/copy``; the counters ``moe/assigned`` and
-``moe/dropped``, ``optim/params`` and ``optim/fused_params`` (the
-parameters ``Optimizer.apply`` stepped, and those its CUDA kernel stepped).
+``moe/route``, ``moe/dispatch``, ``moe/experts``, ``moe/combine``, latent
+attention's ``mla/latent`` and ``mla/attend``, ``data/draw``,
+``data/copy``; the counters ``moe/assigned`` and ``moe/dropped``,
+``moe/held`` (the assignments to the experts a layer holding a share
+holds), ``optim/params`` and ``optim/fused_params`` (the parameters
+``Optimizer.apply`` stepped, and those its CUDA kernel stepped).
 """
 from __future__ import annotations
 

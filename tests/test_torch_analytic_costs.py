@@ -13,7 +13,7 @@ import repro_torch.configs as tconfigs
 from repro_torch.core.ccr import HardwareSpec
 from repro_torch.launch import analytic_costs
 
-ARCHS = tconfigs.list_archs()
+ARCHS = tconfigs.reference_archs()
 SHAPES = list(tconfigs.INPUT_SHAPES)
 SHARDS = [(1, 1), (16, 16), (1, 8)]
 

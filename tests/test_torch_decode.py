@@ -27,7 +27,7 @@ from repro_torch.models import build_model, transformer
 
 torch.set_num_threads(2)
 
-ARCHS = tconfigs.list_archs()
+ARCHS = tconfigs.reference_archs()
 # decode against the reference: f32 on the REDUCED configs; the order of
 # summation differs between XLA and ATen
 DECODE_RTOL, DECODE_ATOL = 1e-4, 1e-5

@@ -117,7 +117,7 @@ def test_auto_interval_is_the_reference_rule(mesh):
     pods, intra = dryrun.MESHES[mesh]
     shape = {"pod": pods, "data": intra} if pods > 1 else {"data": intra}
     dp = tuple(shape)
-    for arch in tconfigs.list_archs():
+    for arch in tconfigs.reference_archs():
         want = r_dryrun.auto_interval(rconfigs.get_config(arch),
                                       types.SimpleNamespace(shape=shape), dp)
         assert dryrun.auto_interval(tconfigs.get_config(arch), pods, intra, hw=spec) == want

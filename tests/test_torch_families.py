@@ -52,7 +52,7 @@ torch.set_num_threads(2)
 
 # loss and gradients: the order of summation differs between XLA and ATen
 RTOL, ATOL = 1e-4, 1e-6
-ARCHS = tconfigs.list_archs(assigned_only=True)
+ARCHS = tconfigs.reference_archs(assigned_only=True)
 SEQ = 64     # two attention chunks, two xent chunks, gemma2's window 16 active
 
 # the depth cuts that fit one 80 GB card at full width, and the reference's
@@ -93,7 +93,10 @@ def _tree_paths(tree, prefix=""):
 
 def test_registry_lists_the_ported_archs_in_the_reference_s_order():
     names = tconfigs.list_archs()
-    assert names == [a for a in rconfigs.list_archs() if a in names]
+    # the port's own archs (``PORT_ONLY``) come after the reference's
+    shared = tconfigs.reference_archs()
+    assert names == shared + list(tconfigs.PORT_ONLY)
+    assert shared == [a for a in rconfigs.list_archs() if a in shared]
     assert set(ARCHS) == {"qwen1.5-0.5b", "gemma-2b", "gemma2-27b",
                           "mistral-large-123b", "deepseek-moe-16b", "grok-1-314b",
                           "xlstm-125m", "zamba2-2.7b", "pixtral-12b",
@@ -105,20 +108,30 @@ def test_registry_lists_the_ported_archs_in_the_reference_s_order():
 @pytest.mark.parametrize("reduced", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_fields_match_reference(arch, reduced):
+    """Every field the reference's config has is equal; the fields only the
+    port has (latent attention, the sigmoid router, the dense prefix, the
+    expert share) are at their defaults, which leave the path unchanged."""
     rcfg, cfg = _configs(arch, reduced)
+    ref_fields = {f.name for f in dataclasses.fields(rcfg)}
     for f in dataclasses.fields(cfg):
-        assert getattr(cfg, f.name) == getattr(rcfg, f.name), f.name
+        if f.name in ref_fields:
+            assert getattr(cfg, f.name) == getattr(rcfg, f.name), f.name
+        else:
+            assert getattr(cfg, f.name) == f.default, f.name
     assert cfg.is_moe == rcfg.is_moe
+    assert not cfg.is_mla and cfg.routed_experts == cfg.num_experts
 
 
 @pytest.mark.parametrize("assigned_only", [False, True])
 def test_registry_equals_reference_and_refuses_unknown_archs(assigned_only):
     """``list_archs`` is the reference's, in its order, with and without
-    ``gpt2-paper``; every listed arch builds on ``meta`` as the model its
-    family calls for; an unknown arch raises ``KeyError`` in both
-    packages."""
+    ``gpt2-paper``, then the port's own; every listed arch builds on
+    ``meta`` as the model its family calls for; an unknown arch raises
+    ``KeyError`` in both packages."""
     names = tconfigs.list_archs(assigned_only=assigned_only)
-    assert names == rconfigs.list_archs(assigned_only=assigned_only)
+    assert tconfigs.reference_archs(assigned_only) == rconfigs.list_archs(
+        assigned_only=assigned_only)
+    assert names == tconfigs.reference_archs(assigned_only) + list(tconfigs.PORT_ONLY)
     for arch in names:
         model = build_model(tconfigs.get_reduced(arch), device="meta")
         assert type(model).__name__ == ("EncDecLM" if model.cfg.is_encdec
@@ -413,7 +426,7 @@ def test_fit_returns_finite_losses(arch):
         assert (h["aux_loss"] > 0) == tconfigs.get_reduced(arch).is_moe
 
 
-@pytest.mark.parametrize("arch", tconfigs.list_archs(assigned_only=True))
+@pytest.mark.parametrize("arch", tconfigs.reference_archs(assigned_only=True))
 def test_cli_trains_each_arch_on_cpu(arch, capsys):
     """The encoder-decoder arch has no frames on the CLI, in either
     package: its first step raises ``KeyError: 'frames'``."""

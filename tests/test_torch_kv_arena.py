@@ -126,7 +126,7 @@ def test_synthetic_layout_equals_reference(max_len):
 
 @pytest.mark.parametrize("kv", ["", "int8"])
 @pytest.mark.parametrize("full", [False, True])
-@pytest.mark.parametrize("arch", tconfigs.list_archs())
+@pytest.mark.parametrize("arch", tconfigs.reference_archs())
 def test_model_layout_equals_reference(arch, full, kv):
     """Probed on ``meta`` against the reference's ``ShapeDtypeStruct``s:
     every leaf (name, per-slot shape, dtype, axes, plane, offset, numel),

@@ -42,7 +42,7 @@ from repro_torch.serve import (
 
 torch.set_num_threads(2)
 
-ARCHS = tconfigs.list_archs()
+ARCHS = tconfigs.reference_archs()
 PROMPTS = [[5, 17, 3, 9], [88, 2], [1, 1, 1, 1, 1, 1, 1], [4, 40, 14]]
 SC = dict(max_len=48, max_new_tokens=4, page_size=8, prefill_chunk=4)
 # batched against sequential logits, f32 on the CPU
