@@ -279,7 +279,7 @@ STEPS = 5
 F32_FLOPS_PER_S = 67e12
 THRESHOLD_BLOCK = 32768
 KERNELS = ("ef_covap", "pack_ef_cast", "quantize_fp8", "sign_compress",
-           "lowrank_matmul", "threshold_filter", "adamw_fused")
+           "lowrank_matmul", "threshold_filter", "adamw_fused", "causal_attn")
 MATMUL = "lowrank.matmul"      # the counter and record name of lowrank.matmul
 # the flat-bucket path: each one full-width run
 FLAT_RUNS = (
@@ -1328,6 +1328,161 @@ def phase_adamw_kernel() -> dict:
     }
 
 
+# [kernels] row 9: the bench cells whose attention the causal kernel is timed
+# at: (label, B, S, K, G, hq, hv, v a strided view as MLA's kv[..., nope:])
+ATTN_SHAPES = (
+    ("moonlight-16b-a3b-5L-e32.covap.r2s8k", 2, 8192, 16, 1, 192, 128, True),
+    ("gpt2-paper.covap.b32", 32, 1024, 12, 1, 64, 64, False),
+)
+BF16_FLOPS_PER_S = 989.4e12   # H100 SXM dense bf16, the data sheet's
+
+
+def attn_flops(B: int, S: int, H: int, hq: int, hv: int) -> float:
+    """The causal forward's products, q·kᵀ and P·V over the S(S+1)/2 pairs
+    a head keeps; the backward's four (dV, dP, dQ, dK) are twice these."""
+    return B * H * S * (S + 1) * (hq + hv)
+
+
+def attn_inputs(B, S, K, G, hq, hv, v_view, dtype, seed=9):
+    """q, k, v, the leaves their gradients go to, and an upstream gradient."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k = rand(B, S, K, G, hq), rand(B, S, K, hq)
+    base = rand(B, S, K, hq + hv) if v_view else rand(B, S, K, hv)
+    leaves = [x.requires_grad_(True) for x in (q, k, base)]
+    v = base[..., base.shape[-1] - hv:]
+    return q, k, v, leaves, rand(B, S, K, G, hv)
+
+
+def phase_causal_attn_kernel() -> dict:
+    """``causal_attn`` (bf16, as the cells run it) at moonlight's and
+    gpt2-paper b32's attention shapes: output and q/k/v gradients against
+    the float32 plain path from the same bf16 inputs, each within twice the
+    plain bf16 path's distance (plus 1e-3 of the largest value); two runs
+    bit for bit; four launches a forward and backward.  Then forward and
+    backward device ms beside the bound (causal FLOPs over 989.4 TFLOP/s),
+    the plain path (``_attend_plain``, chunks of 256) and, as a yardstick
+    the port never calls, ``scaled_dot_product_attention``."""
+    from types import SimpleNamespace
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.causal_attn import causal_attn
+    from repro_torch.models.attention import _attend_plain
+
+    cfg = SimpleNamespace(attn_chunk=256, attn_softcap=0.0)
+    rows = {}
+    for label, B, S, K, G, hq, hv, v_view in ATTN_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        q, k, v, leaves, dout = attn_inputs(B, S, K, G, hq, hv, v_view, torch.bfloat16)
+
+        def kernel(q=q, k=k, v=v):
+            return causal_attn(q, k, v)
+
+        def plain(q=q, k=k, v=v):
+            return _attend_plain(q, k, v, cfg, 0)
+
+        def fwd_bwd(fn, leaves=leaves, dout=dout):
+            out = fn()
+            return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+        before = causal_attn.launches
+        got = fwd_bwd(kernel)
+        torch.cuda.synchronize()
+        check(causal_attn.launches - before == 4,
+              f"causal_attn {label}: {causal_attn.launches - before} launches for a "
+              f"forward and backward")
+        again = fwd_bwd(kernel)
+        same = torch.equal(got[0], again[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], again[1]))
+        check(same, f"causal_attn {label}: two runs differ")
+        del again
+        want = fwd_bwd(plain)
+        f32 = [x.detach().float().requires_grad_(True) for x in leaves]
+        vf = f32[2][..., f32[2].shape[-1] - hv:]
+        out = _attend_plain(f32[0], f32[1], vf, cfg, 0)
+        truth = (out.detach(), torch.autograd.grad(out, f32, dout.float()))
+        del out, f32, vf
+        errs = {}
+        for name, a, b, t in zip(("out", "dq", "dk", "dv"), [got[0], *got[1]],
+                                 [want[0], *want[1]], [truth[0], *truth[1]]):
+            e_k = float((a.float() - t).abs().max())
+            e_p = float((b.float() - t).abs().max())
+            scale = float(t.abs().max())
+            errs[name] = (e_k, e_p)
+            check(e_k <= 2 * e_p + 1e-3 * scale,
+                  f"causal_attn {label}: {name} max |kernel - f32| {e_k:.3g}, plain "
+                  f"bf16 {e_p:.3g}, largest {scale:.3g}")
+        del got, want, truth
+        torch.cuda.empty_cache()
+
+        with torch.no_grad():
+            fwd_ms = device_timed(kernel)
+            plain_fwd_ms = device_timed(plain, reps=5)
+        total_ms = device_timed(lambda: fwd_bwd(kernel))
+        plain_total_ms = device_timed(lambda: fwd_bwd(plain), reps=5)
+        lib_fwd = lib_total = None
+        lib_note = "scaled_dot_product_attention(is_causal=True), (B, H, S, d) views"
+        try:
+            qh = q.reshape(B, S, K * G, hq).transpose(1, 2)
+            kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+            doh = dout.reshape(B, S, K * G, hv).transpose(1, 2)
+
+            def lib():
+                return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+            with torch.no_grad():
+                lib_fwd = device_timed(lib)
+            lib_total = device_timed(lambda: fwd_bwd(lib, dout=doh))
+        except RuntimeError as e:
+            lib_note += f" refuses: {str(e).splitlines()[0][:160]}"
+        torch.cuda.synchronize()
+        flops = attn_flops(B, S, K * G, hq, hv)
+        bound_fwd = flops / BF16_FLOPS_PER_S * 1e3
+        bwd_ms, plain_bwd_ms = total_ms - fwd_ms, plain_total_ms - plain_fwd_ms
+        rows[label] = {"shape": [B, S, K, G, hq, hv], "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                       "bound_fwd_ms": bound_fwd, "bound_bwd_ms": 2 * bound_fwd,
+                       "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+                       "library_fwd_ms": lib_fwd,
+                       "library_bwd_ms": None if lib_total is None else lib_total - lib_fwd,
+                       "library_call": lib_note, "max_err_vs_f32": errs}
+        lib = ("none" if lib_fwd is None
+               else f"{lib_fwd:.3f} / {lib_total - lib_fwd:.3f}")
+        print(f"[kernels] causal_attn {label}: (B,S,K,G,hq,hv) {(B, S, K, G, hq, hv)} "
+              f"bf16; out/dq/dk/dv max |diff| from the f32 plain path, kernel vs plain "
+              f"bf16: {json.dumps({n: [float(f'{a:.3g}'), float(f'{b:.3g}')] for n, (a, b) in errs.items()})}; "
+              f"two runs bitwise equal; fwd / bwd kernel_ms {fwd_ms:.3f} / {bwd_ms:.3f}  "
+              f"bound_ms {bound_fwd:.3f} / {2 * bound_fwd:.3f} ({flops / 1e12:.2f} "
+              f"TFLOP causal forward at 989.4 TFLOP/s; {bound_fwd / fwd_ms:.1%} / "
+              f"{2 * bound_fwd / bwd_ms:.1%} of it)  plain_ms {plain_fwd_ms:.3f} / "
+              f"{plain_bwd_ms:.3f}  library_ms {lib} ({lib_note})", flush=True)
+        del q, k, v, leaves, dout
+    torch.cuda.empty_cache()
+    first = rows[ATTN_SHAPES[0][0]]
+    return {
+        "name": "causal_attn",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/causal_attn.py",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the reference leaves attention to XLA",
+        "launches": None,
+        "ms": first["fwd_ms"] + first["bwd_ms"],
+        "plain_ms": first["plain_fwd_ms"] + first["plain_bwd_ms"],
+        "bound_ms": 3 * first["bound_fwd_ms"],
+        "bound_by": "flops",
+        "library_ms": (None if first["library_fwd_ms"] is None
+                       else first["library_fwd_ms"] + first["library_bwd_ms"]),
+        "library_call": first["library_call"],
+        "timed_work": f"one causal attention forward and backward at "
+                      f"{ATTN_SHAPES[0][0]}'s shapes",
+        "by_config": rows,
+    }
+
+
 def phase_adamw() -> None:
     """One AdamW update, as the main path's optimizer makes it, on the card
     and on the CPU from the same moments, gradients and params (leaves of
@@ -1561,10 +1716,13 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
     by_route.update(dict.fromkeys(by_route, 0))
     from repro_torch.kernels.adamw_fused import adamw_fused
 
-    adamw_before = adamw_fused.launches
+    from repro_torch.kernels.causal_attn import causal_attn
+
+    adamw_before, attn_before = adamw_fused.launches, causal_attn.launches
     state = tr.run(state, loader, steps=steps, log=lines.append)
     launches = {name: fn.launches for name, fn in counters.items()}
     adamw_launches = adamw_fused.launches - adamw_before
+    attn_launches = causal_attn.launches - attn_before
     if device != "cpu":
         torch.cuda.synchronize()
     want_adamw = steps * len(state["params"]) if device != "cpu" else 0
@@ -1572,6 +1730,12 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
           f"{label}: adamw_fused launched {adamw_launches} times in {steps} steps of "
           f"{len(state['params'])} leaves (want {want_adamw})")
     tr.adamw_launches = adamw_launches
+    # every attention layer's forward, remat recompute and backward on the
+    # card goes through the causal kernel; the SSM family has none
+    want_attn = device != "cpu" and cfg.family != "ssm"
+    check((attn_launches > 0) == want_attn,
+          f"{label}: causal_attn launched {attn_launches} times in {steps} steps")
+    tr.attn_launches = attn_launches
 
     hist = tr.history
     losses = [h["loss"] for h in hist]
@@ -1595,7 +1759,8 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
           f"{1e3 * hist[0]['wall_s']:.1f} ms, steps 1-{steps - 1} ms "
           f"{[round(v, 2) for v in step_ms]}  {tok_s:.0f} tok/s after step 0  "
           f"peak {peak:.2f} GiB (of which {base:.2f} GiB held before the "
-          f"run)  launches {launches}, adamw_fused {adamw_launches}", flush=True)
+          f"run)  launches {launches}, adamw_fused {adamw_launches}, causal_attn "
+          f"{attn_launches}", flush=True)
     if tr.gather_events:
         print(f"[train] {label}: head all-gather of step {steps}, by bucket: "
               f"{gather_order(tr)}", flush=True)
@@ -3040,6 +3205,9 @@ def phase_launch(cfg, group) -> int:
     adamw = counts.pop("adamw_fused")
     check(adamw == STEPS * leaves, f"[launch] the launched run's adamw_fused launches "
           f"{adamw}; {leaves} leaves x {STEPS} steps")
+    attn = counts.pop("causal_attn")
+    check(attn == 5 * STEPS * cfg.num_layers, f"[launch] the launched run's causal_attn "
+          f"launches {attn}; {cfg.num_layers} layers x {STEPS} steps x 5")
     check(counts == launch_counts(ef_update=STEPS * segs),
           f"[launch] the launched run's launches {counts}; the plan has {segs} segments")
     state = tr.run(state, iter(ckpt_batches(cfg)), steps=STEPS, log=None)
@@ -3054,7 +3222,7 @@ def phase_launch(cfg, group) -> int:
           f"{lines['[done]']}; steps 1-{STEPS - 1} ms {step_ms}; "
           f"{(STEPS - 1) * 8 * 1024 / (walls[-1] - walls[0]):.0f} tok/s after step 0; "
           f"losses {got} == the in-process run's, bit for bit; launches {counts}, "
-          f"adamw_fused {adamw}; "
+          f"adamw_fused {adamw}, causal_attn {attn}; "
           f"the command took {secs:.1f} s", flush=True)
     del tr, state
     torch.cuda.empty_cache()
@@ -3725,7 +3893,7 @@ def main() -> int:
     phase_build()
     records = [phase_kernels(), phase_pack_kernels(), *phase_wire_kernels(),
                phase_lowrank_kernels(), phase_threshold_kernels(),
-               phase_adamw_kernel()]
+               phase_adamw_kernel(), phase_causal_attn_kernel()]
     phase_adamw()
     by_name = {r["name"]: r for r in records}
     torch.cuda.set_device(0)
@@ -3743,6 +3911,11 @@ def main() -> int:
               f"{segs} segments")
         records[0]["launches"] = launches["ef_update"]
         by_name["adamw_fused"]["launches"] = tr.adamw_launches
+        # a layer a step: forward, recompute, then prep, dK/dV and dQ
+        check(tr.attn_launches == 5 * STEPS * cfg.num_layers,
+              f"defaults: causal_attn launches {tr.attn_launches} in {STEPS} steps of "
+              f"{cfg.num_layers} layers")
+        by_name["causal_attn"]["launches"] = tr.attn_launches
         phase_parity(tr, state, loader, group)
         del tr, state, loader
         torch.cuda.empty_cache()

@@ -1,10 +1,13 @@
 """Kernels written by hand for Hopper, each beside its plain PyTorch version
 in ``ref.py`` (AdamW's beside ``optim.adamw``'s ``update`` and
 ``apply_updates``); ``ops.py`` is the counterpart of ``repro.kernels.ops``.
-CUDA sources live in ``csrc/`` and are built at first use (``_build.py``);
+CUDA sources live in ``csrc/`` and are built at first use (``_build.py``;
+the causal attention's plain path is ``models.attention._attend_plain``);
 nothing is compiled at import time."""
-# under another name, so that ``repro_torch.kernels.adamw_fused`` stays the module
+# under other names, so that ``repro_torch.kernels.adamw_fused`` and
+# ``repro_torch.kernels.causal_attn`` stay the modules
 from .adamw_fused import adamw_fused as _adamw_fused
+from .causal_attn import causal_attn as _causal_attn
 from .ef_covap import ef_update, ef_update_cuda
 from .lowrank import matmul
 from .pack_ef_cast import pack_ef_cast, pack_ef_cast_into
@@ -30,7 +33,7 @@ def launch_counts() -> dict[str, int]:
     as ``"lowrank.matmul"``)."""
     fns = {f.__name__: f for f in (ef_update, pack_ef_cast, quantize_fp8,
                                    dequantize_fp8, sign_compress, threshold_filter,
-                                   _adamw_fused)}
+                                   _adamw_fused, _causal_attn)}
     fns["lowrank.matmul"] = matmul
     return {name: int(f.launches) for name, f in fns.items()}
 

@@ -3,7 +3,8 @@
 (``qkv_bias``), the attention-logit softcap (``attn_softcap``) and a
 sliding window, on two paths:
 
-* training and prefill (``attn_train``): the whole sequence, q-chunked;
+* training and prefill (``attn_train``): the whole sequence, through the
+  hand-written causal kernel on the card and q-chunked elsewhere;
 * decode (``attn_decode``): one token per slot against a KV cache, linear
   in ``max_len``, or rolling (slot ``pos % T``) for a windowed layer, so
   its state is O(window).  ``kv_cache_dtype="int8"`` stores keys and
@@ -12,7 +13,7 @@ sliding window, on two paths:
 The decode step writes the new token's row into the cache in place.
 
 Multi-head latent attention (MLA, DeepSeek-V2/V3; ``cfg.kv_lora_rank >
-0``) trains on the same q-chunked path (``mla_train``): per head the query
+0``) trains on the same path (``mla_train``): per head the query
 is ``[q_nope | q_rope]`` from ``x W_q``; ``[c | k_r] = x W_kva``, the
 latent ``c`` RMS-normed and up-projected by ``W_kvb`` to per-head
 ``[k_nope | v]``; the one rotary key ``k_r`` is shared by every head;
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.causal_attn import causal_attn
 from ..obs.spans import span
 from .layers import rmsnorm, rope, softcap
 
@@ -70,9 +72,19 @@ def _scores_softmax_value(q, k, v, mask, cfg):
 
 def _attend(q, k, v, cfg, window: int):
     """Causal attention of q (B,S,K,G,hq) over k (B,S,K,hq) and v
-    (B,S,K,hv) in q-chunks of ``cfg.attn_chunk`` (the whole sequence when it
-    does not divide) -> (B,S,K,G,hv).  ``window > 0`` restricts query ``q``
-    to keys ``t`` in ``(q - window, q]``."""
+    (B,S,K,hv) -> (B,S,K,G,hv); ``window > 0`` restricts query ``q`` to
+    keys ``t`` in ``(q - window, q]``.  CUDA tensors go to the hand-written
+    kernel (``kernels/causal_attn.py``), any other to the plain q-chunked
+    path (:func:`_attend_plain`)."""
+    if q.is_cuda:
+        return causal_attn(q, k, v, window=window, softcap=cfg.attn_softcap)
+    return _attend_plain(q, k, v, cfg, window)
+
+
+def _attend_plain(q, k, v, cfg, window: int):
+    """:func:`_attend` in q-chunks of ``cfg.attn_chunk`` (the whole sequence
+    when it does not divide): every chunk's scores over every key, an f32
+    softmax, the causal (and window) mask applied to the scores."""
     S = q.shape[1]
     chunk = min(cfg.attn_chunk, S)
     if S % chunk != 0:
@@ -89,9 +101,8 @@ def _attend(q, k, v, cfg, window: int):
 
 
 def attn_train(params, x: torch.Tensor, cfg, *, window: int = 0) -> torch.Tensor:
-    """Causal self-attention over a full sequence, q-chunked
-    (:func:`_attend`); MLA for a config with ``kv_lora_rank``
-    (:func:`mla_train`)."""
+    """Causal self-attention over a full sequence (:func:`_attend`); MLA
+    for a config with ``kv_lora_rank`` (:func:`mla_train`)."""
     if cfg.is_mla:
         return mla_train(params, x, cfg, window=window)
     B, S, _ = x.shape
@@ -147,8 +158,8 @@ def _mla_qkv(params, x, cfg):
 
 def mla_train(params, x: torch.Tensor, cfg, *, window: int = 0) -> torch.Tensor:
     """Causal MLA over a full sequence: the projections, the latent's norm
-    and RoPE in span ``mla/latent``, the q-chunked scores, softmax and
-    values (:func:`_attend`, every head its own key) in ``mla/attend``,
+    and RoPE in span ``mla/latent``, the scores, softmax and values
+    (:func:`_attend`, every head its own key) in ``mla/attend``,
     then the output projection."""
     B, S, _ = x.shape
     H = cfg.num_heads
