@@ -1565,10 +1565,10 @@ def gather_order(tr) -> str:
     embedding, ``L<i>`` superblock i, ``H`` the final norm and head).  Checks
     that every issue precedes layer 0, issues follow the first use, and each
     bucket is settled just before the stage that first reads it."""
-    from repro_torch.core.overlap import EMBED_STAGE, bucket_first_use
+    from repro_torch.core.bucketing import EMBED_STAGE, bucket_first_use
 
     L = tr.model.num_stages
-    stages = bucket_first_use(tr.plan, L)
+    stages = bucket_first_use(tr.plan)
     events = tr.gather_events
     issues = [i for k, i in events if k == "issue"]
     check(issues == sorted(range(len(stages)), key=lambda b: (stages[b], b)),

@@ -10,6 +10,7 @@ a **row**, one slice along axis 0 of a leaf.  Oversized buckets are split
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Any, Iterable, Sequence
@@ -250,41 +251,83 @@ def segment_slices(plan: BucketPlan, leaves: Sequence[torch.Tensor], bucket: Buc
 
 
 # ---------------------------------------------------------------------------
-# ReadyOrder: reverse-topological bucket readiness (overlap engine)
+# the parameters' forward layout: ReadyOrder and each bucket's first use
 # ---------------------------------------------------------------------------
 #
-# The backward pass produces gradients in reverse forward order: the head's
-# first, the embedding's last.  A bucket's collective can start when its
-# LAST gradient lands, i.e. after the backward of the shallowest layer it
-# touches.  Forward depth comes from leaf paths: a leaf under a stacked
-# stage (``blocks`` / ``encoder`` / ``decoder``) puts row ``r`` at depth
-# ``stage_base + r``; every other stage takes one depth slot (embed ->
-# encoder -> enc_norm -> decoder -> blocks -> shared -> final_norm -> head).
-# A tree with no known marker gets one slot per leaf in parameter order.
-
-# (stage id, path markers, stacked over rows)
-_STAGE_MARKERS = (
-    (0, ("embed", "projector"), False),
-    (1, ("encoder",), True),
-    (2, ("enc_norm",), False),
-    (3, ("decoder",), True),
+# The one reading of a leaf path: the overlap engine's readiness order, the
+# fused overlap's per-row replacement tree and the sharded head all-gather's
+# first-use stages all derive from this table.  A model family whose layout
+# is new adds a row here, and nothing elsewhere.  A row: the stage id in
+# forward order, the path markers (substrings; the first row that matches
+# wins), whether the leaf is stacked over the layer loop's rows, and where
+# the forward pass reads it: "before" the layer loop, in the "loop", or
+# "after" it.
+_Stage = collections.namedtuple("_Stage", "sid markers stacked read")
+_LAYOUT = (
+    _Stage(0, ("embed", "projector"), False, "before"),
+    _Stage(1, ("encoder",), True, "loop"),
+    _Stage(2, ("enc_norm",), False, "loop"),     # with decoder row 0
+    _Stage(3, ("decoder",), True, "loop"),
     # an MoE stack's leading dense layers run before its superblocks
-    (4, ("dense",), True),
-    (5, ("blocks",), True),
+    _Stage(4, ("dense",), True, "loop"),
+    _Stage(5, ("blocks",), True, "loop"),
     # a weight-shared block runs inside every layer, so its gradient is
     # complete with blocks row 0: it shares the blocks base
-    (5, ("shared",), False),
-    (7, ("final_norm",), False),
-    (8, ("head",), False),
+    _Stage(5, ("shared",), False, "loop"),
+    _Stage(7, ("final_norm",), False, "after"),
+    _Stage(8, ("head",), False, "after"),
 )
-_UNKNOWN_STAGE = 6  # mid-network: between the stacks and final_norm
+# a leaf no marker names: mid-network for the readiness order, and read
+# before the embedding for its first use, so that it is never read stale
+_UNKNOWN = _Stage(6, (), False, "before")
+
+# the first-use stage of a leaf read before the loop; stage i in [0, n) is
+# the loop's stacked row i (encoder rows, then decoder rows; or dense rows,
+# then superblocks), and stage n the final norm and the head
+EMBED_STAGE = -1
 
 
-def _leaf_stage(path: str) -> tuple[int, bool]:
-    for sid, markers, stacked in _STAGE_MARKERS:
-        if any(m in path for m in markers):
-            return sid, stacked
-    return _UNKNOWN_STAGE, False
+def _leaf_stage(path: str) -> _Stage:
+    return next((st for st in _LAYOUT if any(m in path for m in st.markers)), _UNKNOWN)
+
+
+def leaf_stacked(path: str) -> bool:
+    """Whether the leaf at ``path`` has one row a layer along axis 0."""
+    return _leaf_stage(path).stacked
+
+
+def _layout(plan: BucketPlan) -> tuple[list[_Stage], dict[int, int]]:
+    """Each leaf's table row, and each stage's stacked rows (0 for none)."""
+    stages = [_leaf_stage(p) for p in plan.leaf_paths]
+    rows: dict[int, int] = {}
+    for shape, st in zip(plan.leaf_shapes, stages):
+        rows[st.sid] = max(rows.get(st.sid, 0), _row_count(shape) if st.stacked else 0)
+    return stages, rows
+
+
+def loop_stages(plan: BucketPlan) -> int:
+    """The layer loop's stages, the plan's stacked rows: ``model.num_stages``."""
+    return sum(_layout(plan)[1].values())
+
+
+def bucket_first_use(plan: BucketPlan) -> list[int]:
+    """Each bucket's first-use stage in the forward pass, the earliest of
+    its segments': :data:`EMBED_STAGE` for a leaf read before the layer
+    loop, :func:`loop_stages` for one read after it, and for one read in it
+    the stacked rows of the stages before its own, plus its own row if it is
+    stacked (encoder row ``r`` at ``r``, ``enc_norm`` and decoder row ``r``
+    at ``E + r``; dense row ``r`` at ``r``, superblock ``r`` at ``K + r``
+    and the shared block at ``K``)."""
+    stages, rows = _layout(plan)
+
+    def first_use(seg: Segment) -> int:
+        st = stages[seg.leaf_idx]
+        if st.read != "loop":
+            return EMBED_STAGE if st.read == "before" else sum(rows.values())
+        base = sum(n for sid, n in rows.items() if sid < st.sid)
+        return base + (seg.row_lo if st.stacked else 0)
+
+    return [min(map(first_use, bucket.segments)) for bucket in plan.buckets]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,43 +351,27 @@ class ReadyOrder:
         return self.ranks[bucket]
 
 
-def leaf_row_depth(plan: BucketPlan) -> list[Any]:
-    """Per-leaf forward depth: an ``int`` for a whole-leaf stage, or a
-    callable ``row -> depth`` for a leaf stacked over layers."""
-    stages = [_leaf_stage(p) for p in plan.leaf_paths]
-    known = any(sid != _UNKNOWN_STAGE for sid, _ in stages)
-    slots: dict[int, int] = {}
-    for li, (sid, stacked) in enumerate(stages):
-        if not known:
-            slots[li] = 1
-            continue
-        rows = _row_count(plan.leaf_shapes[li]) if stacked else 1
-        slots[sid] = max(slots.get(sid, 1), rows)
-    base: dict[int, int] = {}
-    off = 0
-    for sid in sorted(slots):
-        base[sid] = off
-        off += slots[sid]
-    depths: list[Any] = []
-    for li, (sid, stacked) in enumerate(stages):
-        b = base[sid if known else li]
-        depths.append((lambda r, _b=b: _b + r) if stacked and known else b)
-    return depths
-
-
 def build_ready_order(plan: BucketPlan) -> ReadyOrder:
     """Buckets ranked by descending shallowest forward depth; ties (several
     buckets of one layer) go to the higher bucket index first, the reverse
-    of the plan's forward packing order."""
-    depths = leaf_row_depth(plan)
-    layer: list[int] = []
-    for bucket in plan.buckets:
-        d = None
-        for seg in bucket.segments:
-            dl = depths[seg.leaf_idx]
-            v = dl(seg.row_lo) if callable(dl) else dl
-            d = v if d is None else min(d, v)
-        layer.append(int(d if d is not None else 0))
+    of the plan's forward packing order.  The backward pass produces
+    gradients in reverse forward order, so a bucket's collective can start
+    after the backward of the shallowest layer it touches.  A stacked
+    leaf's row ``r`` is at depth ``stage_base + r``, every other stage
+    takes one depth; a tree with no known marker takes one a leaf."""
+    stages, rows = _layout(plan)
+    known = any(st is not _UNKNOWN for st in stages)
+    base, off = {}, 0
+    for sid in sorted(rows):
+        base[sid], off = off, off + max(rows[sid], 1)
+
+    def depth(seg: Segment) -> int:
+        st = stages[seg.leaf_idx]
+        if not known:
+            return seg.leaf_idx
+        return base[st.sid] + (seg.row_lo if st.stacked else 0)
+
+    layer = [min(map(depth, bucket.segments)) for bucket in plan.buckets]
     order = sorted(range(len(layer)), key=lambda b: (-layer[b], -b))
     ranks = [0] * len(order)
     for rank, b in enumerate(order):

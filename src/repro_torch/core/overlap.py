@@ -32,7 +32,7 @@ the forward pass as the reference's ride XLA's schedule:
 
 * :func:`issue_param_allgather` packs every bucket's params and starts one
   asynchronous all-gather per bucket, in order of the bucket's first use
-  in the forward pass (:func:`bucket_first_use`);
+  in the forward pass (:func:`.bucketing.bucket_first_use`);
 * :meth:`ParamGather.before_layer` waits for, and unpacks, the buckets that
   the next stage reads, where the forward pass reaches that stage.
 
@@ -54,11 +54,6 @@ from .comm import flat_axis_index, start_all_gather_tiled, world_size
 from .schedule import CommSchedule
 from .stages import StepSync, SyncPipeline
 
-# the stage of a bucket read before the embedding; stage i in [0, n) is
-# superblock i (an encoder-decoder's encoder row i, or decoder row i - E),
-# and stage n the final norm and the head after the loop
-EMBED_STAGE = -1
-
 
 def supports_fused_overlap(compressor) -> bool:
     """The fused overlap needs a segmented bucket pipeline (covap / none /
@@ -76,49 +71,6 @@ def supports_sharded_sync(compressor) -> bool:
     is a dense slot view the collective can split evenly (covap / none /
     fp16): the fused overlap's requirement."""
     return supports_fused_overlap(compressor)
-
-
-def bucket_first_use(plan: bk.BucketPlan, num_stages: int) -> list[int]:
-    """Each bucket's first-use stage in the model's forward pass: the
-    earliest over its segments.
-
-    * Decoder, with ``k`` leading dense rows (the plan's ``stack.dense.*``
-      leaves' first axis, 0 without): a ``stack.dense.*`` leaf's row ``r``
-      is read before stage ``r``, a stacked ``stack.blocks.*`` leaf's row
-      ``r`` before stage ``k + r`` (superblock ``r``), the weight-shared
-      block's ``stack.shared.*`` before superblock 0 (``transformer.
-      stack_train`` reads it once there).
-    * Encoder-decoder, with ``E`` encoder rows (the plan's
-      ``encdec.encoder.*`` leaves' first axis): ``encdec.encoder.*`` row
-      ``r`` before stage ``r``, ``encdec.enc_norm.*`` at ``E``,
-      ``encdec.decoder.*`` row ``r`` at ``E + r`` (``EncDecLM.num_stages``).
-    * ``stack.final_norm.*``, ``encdec.final_norm.*`` and ``head.*`` after
-      the layer loop (stage ``num_stages``), and ``embed.*``,
-      ``projector.*``, or a leaf of unknown use, before the embedding
-      (:data:`EMBED_STAGE`), so that nothing is read stale."""
-    def rows(prefix: str) -> int:
-        return next((shape[0] for path, shape in zip(plan.leaf_paths, plan.leaf_shapes)
-                     if path.startswith(prefix)), 0)
-
-    E, K = rows("encdec.encoder."), rows("stack.dense.")
-
-    def first_use(seg: bk.Segment) -> int:
-        path = plan.leaf_paths[seg.leaf_idx]
-        if path.startswith(("stack.dense.", "encdec.encoder.")):
-            return seg.row_lo
-        if path.startswith("stack.blocks."):
-            return K + seg.row_lo
-        if path.startswith("stack.shared."):
-            return K
-        if path.startswith("encdec.enc_norm."):
-            return E
-        if path.startswith("encdec.decoder."):
-            return E + seg.row_lo
-        if path.startswith(("stack.final_norm.", "encdec.final_norm.", "head.")):
-            return num_stages
-        return EMBED_STAGE
-
-    return [min(map(first_use, bucket.segments)) for bucket in plan.buckets]
 
 
 class ParamGather:
@@ -177,7 +129,7 @@ class ParamGather:
         self.events.append(("layer", i))
 
     def settle_all(self) -> None:
-        self.settle_through(max(self.stage, default=EMBED_STAGE))
+        self.settle_through(max(self.stage, default=bk.EMBED_STAGE))
 
 
 @torch.no_grad()
@@ -189,7 +141,8 @@ def issue_param_allgather(pipeline: SyncPipeline, schedule: CommSchedule,
     its W-aligned slot (at the promoted bucket dtype: params go on the wire
     uncompressed) and start one asynchronous all-gather of the locally
     owned shard per bucket, in order of ``first_use`` (each bucket's stage,
-    :func:`bucket_first_use`; all at :data:`EMBED_STAGE` when ``None``).
+    :func:`.bucketing.bucket_first_use`; all at
+    :data:`.bucketing.EMBED_STAGE` when ``None``).
     The gather covers the whole plan, not the previous phase's selected
     buckets: once selected, a bucket's params keep moving under the
     optimizer's moments, correctly only on the owned shard.  Any
@@ -200,7 +153,7 @@ def issue_param_allgather(pipeline: SyncPipeline, schedule: CommSchedule,
     W = world_size(group)
     layout = pipeline.layout(plan, align=W)
     stage = (list(first_use) if first_use is not None
-             else [EMBED_STAGE] * plan.num_buckets)
+             else [bk.EMBED_STAGE] * plan.num_buckets)
     gather = ParamGather(layout, params, ar.pack_leaves(layout, params), stage)
     for b in sorted(range(plan.num_buckets), key=lambda b: (stage[b], b)):
         gather.issue(b, group)
@@ -367,7 +320,7 @@ def install_hooks(sync: StepSync, leaves: Sequence[torch.Tensor]) -> dict:
     through ``sync``'s bucket hooks, nested by path for
     ``DecoderLM.loss_fn(params=)``, and its :class:`BucketHooks`: ``(tree,
     hooks)``.  Forward values are the leaves' own.  A leaf of a stacked
-    stage (``bucketing.ReadyOrder``'s stacked markers) becomes a list of
+    stage (:func:`.bucketing.leaf_stacked`) becomes a list of
     per-row entries; every entry is deferred (``models.transformer.resolve``)
     until the forward pass reads it."""
     plan = sync.plan
@@ -379,7 +332,7 @@ def install_hooks(sync: StepSync, leaves: Sequence[torch.Tensor]) -> dict:
         node = tree
         for h in heads:
             node = node.setdefault(h, {})
-        node[last] = _replacement(hooks, li, cover[li], bk._leaf_stage(path)[1])
+        node[last] = _replacement(hooks, li, cover[li], bk.leaf_stacked(path))
     return tree, hooks
 
 
@@ -415,10 +368,8 @@ def overlapped_loss_and_grads(model, pipeline: SyncPipeline, schedule: CommSched
 
 
 __all__ = [
-    "EMBED_STAGE",
     "BucketHooks",
     "ParamGather",
-    "bucket_first_use",
     "install_hooks",
     "issue_param_allgather",
     "overlapped_loss_and_grads",

@@ -25,6 +25,10 @@ here that takes ``trace`` takes that list.
   ``aten::mm``/``addmm``/``bmm`` events inside an autograd
   ``evaluate_function`` span.
 
+It is also the one home of the trace primitives the port's tools share
+(``launch.profile_train`` reads its traces through them): the spans around
+an event, device operations by correlation, kernel groups and intervals.
+
 Wire model (ring algorithms), as the reference's: an all-reduce moves
 ``2 (n-1)/n`` of its buffer a device, the others about ``1x``; the estimate
 counts factor 2 for an all-reduce, 1 otherwise.
@@ -70,6 +74,52 @@ _GRAD_OPS = frozenset({"aten::mm", "aten::addmm", "aten::bmm"})
 _BACKWARD = "autograd::engine::evaluate_function"
 
 
+# kernel-name fragments, matched in order on the lower-cased name
+GROUPS = (
+    ("ef_update", ("ef_update_kernel",)),
+    ("pack_ef_cast", ("pack_ef_cast_kernel",)),
+    ("dequantize_fp8", ("dequantize_fp8_kernel",)),   # before its substring
+    ("quantize_fp8", ("quantize_fp8_kernel",)),
+    ("sign_compress", ("sign_compress_kernel",)),
+    ("lowrank.matmul", ("lowrank_matmul_kernel", "lowrank_splitk_reduce_kernel")),
+    ("threshold_filter", ("threshold_filter_kernel",)),
+    ("adamw_fused", ("adamw_fused_kernel",)),
+    ("qr", ("geqr", "orgqr", "ungqr", "larf", "householder", "cusolver", "magma")),
+    ("nccl", ("nccl",)),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")),
+    ("softmax/logsumexp", ("softmax", "logsumexp")),
+    ("copy/fill", ("copy", "fill", "memset", "memcpy", "cat")),
+    ("elementwise/reduce", ("elementwise", "vectorized", "reduce", "unrolled",
+                            "foreach")),
+)
+
+
+def kernel_group(name: str) -> str:
+    """The group of :data:`GROUPS` a kernel's name falls in, or "other"."""
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def union(intervals: list[tuple[float, float]]) -> list[list[float]]:
+    """The union of ``(start, end)`` intervals as sorted disjoint ``[start,
+    end]`` pairs."""
+    out: list[list[float]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    return sum(e - s for s, e in union(intervals))
+
+
 def load_trace(prof) -> list[dict]:
     """The complete (``ph == "X"``) events of a finished ``torch.profiler``
     profile (or of a Chrome-trace JSON file at that path), sorted by start."""
@@ -89,25 +139,27 @@ def _host(e: dict) -> bool:
     return e.get("cat") in ("cpu_op", "user_annotation")
 
 
-def _end(e: dict) -> float:
+def event_end(e: dict) -> float:
+    """When event ``e`` ends, on the trace's clock."""
     return e["ts"] + e.get("dur", 0.0)
 
 
-def _enclosing(trace: list[dict], prefix: str) -> dict[int, list[tuple[float, float, str]]]:
+def enclosing_spans(trace: list[dict], prefix: str
+                    ) -> dict[int, list[tuple[float, float, str]]]:
     """Host spans whose names start with ``prefix``, by thread."""
     out: dict[int, list[tuple[float, float, str]]] = {}
     for e in trace:
         if _host(e) and e["name"].startswith(prefix):
-            out.setdefault(e.get("tid"), []).append((e["ts"], _end(e), e["name"]))
+            out.setdefault(e.get("tid"), []).append((e["ts"], event_end(e), e["name"]))
     return out
 
 
-def _inside(spans, e: dict) -> str | None:
+def innermost_span(spans, e: dict) -> str | None:
     """The name of the innermost span of ``spans`` (one thread's) that holds
     event ``e``, or ``None``."""
     best = None
     for s, t, name in spans.get(e.get("tid"), ()):
-        if s <= e["ts"] and _end(e) <= t and (best is None or s >= best[0]):
+        if s <= e["ts"] and event_end(e) <= t and (best is None or s >= best[0]):
             best = (s, name)
     return None if best is None else best[1]
 
@@ -135,7 +187,7 @@ def parse_collectives(trace: list[dict]) -> list[CollectiveOp]:
     reduce-scatter's output shard, an all-to-all's output.  ``group_size``
     is read from the ratio of an all-gather's or reduce-scatter's output to
     its input."""
-    spans = _enclosing(trace, _SPAN)
+    spans = enclosing_spans(trace, _SPAN)
     ops = []
     for e in trace:
         kind = _C10D_KINDS.get(e["name"]) if e.get("cat") == "cpu_op" else None
@@ -144,7 +196,7 @@ def parse_collectives(trace: list[dict]) -> list[CollectiveOp]:
         args = e.get("args", {})
         dims, types = args.get("Input Dims") or [[]], args.get("Input type") or [""]
         first, dtype = dims[0], types[0]
-        span = _inside(spans, e)
+        span = innermost_span(spans, e)
         if first and isinstance(first[0], list):       # a TensorList: one tensor
             first = first[0]
         if dtype not in _DTYPE_BYTES:
@@ -316,9 +368,9 @@ def grad_ops(trace: list[dict]) -> list[dict]:
     ``addmm`` and ``bmm`` events inside an autograd ``evaluate_function``
     span (a checkpointed layer's recomputed forward runs there too; it
     precedes that layer's gradient products)."""
-    spans = _enclosing(trace, _BACKWARD)
+    spans = enclosing_spans(trace, _BACKWARD)
     return [e for e in trace if e.get("cat") == "cpu_op" and e["name"] in _GRAD_OPS
-            and _inside(spans, e) is not None]
+            and innermost_span(spans, e) is not None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,8 +412,8 @@ class InterleaveReport:
         return self.num_collectives > 0 and self.before_final_grad >= 1
 
 
-def _launches_by_correlation(trace: list[dict], *, cats=("kernel",)
-                             ) -> tuple[dict, dict]:
+def launches_by_correlation(trace: list[dict], *, cats=("kernel",)
+                            ) -> tuple[dict, dict]:
     """The device kernels (events of the categories ``cats``) by correlation
     id, and the host calls that launched them (the CUDA API events of the
     same correlation ids) by thread."""
@@ -379,7 +431,7 @@ def _first_kernel_start(span: dict, kernels, launches) -> float | None:
     """The earliest device start of the kernels launched inside ``span``."""
     starts = [kernels[c["args"]["correlation"]]["ts"]
               for c in launches.get(span.get("tid"), ())
-              if span["ts"] <= c["ts"] and _end(c) <= _end(span)]
+              if span["ts"] <= c["ts"] and event_end(c) <= event_end(span)]
     return min(starts) if starts else None
 
 
@@ -388,7 +440,7 @@ def device_overlap(trace: list[dict]) -> tuple[int, int]:
     launched kernels, how many had their first kernel start on the device
     before the last backward product's first kernel started.  ``(-1, -1)``
     when the trace has no device kernels."""
-    kernels, launches = _launches_by_correlation(trace)
+    kernels, launches = launches_by_correlation(trace)
     if not kernels:
         return -1, -1
     last = None
@@ -407,15 +459,13 @@ def device_overlap(trace: list[dict]) -> tuple[int, int]:
 def ef_kernel_overlap(trace: list[dict], plan, issue_order, *,
                       kernel: str = "ef_update") -> tuple[int, int]:
     """``(early, buckets)``: how many buckets' EF kernels (``kernel``, a
-    group of ``launch.profile_train.kernel_group``; one launch a segment)
+    group of :func:`kernel_group`; one launch a segment)
     start on the device before the step's last matrix-product kernel,
     layer 0's last backward GEMM (nothing after layer 0's backward runs a
     matrix product), out of how many buckets launched them.
     ``issue_order`` is the order the buckets' kernels were launched in.
     Raises when the trace has no kernels, no matrix product, or not one EF
     kernel a segment."""
-    from .profile_train import kernel_group
-
     kernels = [e for e in trace if e.get("cat") == "kernel"]
     if not kernels:
         raise ValueError("the profiler recorded no device kernels")

@@ -12,8 +12,8 @@ that wall time in which some kernel ran (the device's busy share), the
 device milliseconds per step by kernel group and for the top kernels, and
 the host calls per step of QR (``powersgd``) and of the CUDA runtime's
 synchronising calls, with their host time, and then by program span
-(``repro_torch.obs.spans``: ``train/*``, ``moe/*``, ``mla/*``, ``data/*``,
-the buckets' ``covap_bucket_*`` taken together): the device ms a step of the
+(``repro_torch.obs.spans.SPAN_FAMILIES``: ``train/*``, ``moe/*``,
+``mla/*``, ``data/*``, the buckets' ``covap_bucket_*`` taken together): the device ms a step of the
 kernels launched inside the span (on the launching thread, or on the
 stepping thread, which waits inside ``train/backward`` while the autograd
 engine's thread launches), the host ms a step inside it, and the device's
@@ -36,58 +36,12 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import get_config, get_reduced
 from ..data import DataConfig, make_loader
 from ..models import build_model
-from ..obs import counters, reset_counters
+from ..obs.spans import SPAN_FAMILIES, counters, reset_counters
 from ..optim import adamw, cosine_warmup
 from ..train.trainer import TrainConfig, Trainer
-from .hlo_analysis import _enclosing, _end, _inside, _launches_by_correlation, load_trace
-
-# kernel-name fragments, matched in order on the lower-cased name
-GROUPS = (
-    ("ef_update", ("ef_update_kernel",)),
-    ("pack_ef_cast", ("pack_ef_cast_kernel",)),
-    ("dequantize_fp8", ("dequantize_fp8_kernel",)),   # before its substring
-    ("quantize_fp8", ("quantize_fp8_kernel",)),
-    ("sign_compress", ("sign_compress_kernel",)),
-    ("lowrank.matmul", ("lowrank_matmul_kernel", "lowrank_splitk_reduce_kernel")),
-    ("threshold_filter", ("threshold_filter_kernel",)),
-    ("adamw_fused", ("adamw_fused_kernel",)),
-    ("qr", ("geqr", "orgqr", "ungqr", "larf", "householder", "cusolver", "magma")),
-    ("nccl", ("nccl",)),
-    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")),
-    ("softmax/logsumexp", ("softmax", "logsumexp")),
-    ("copy/fill", ("copy", "fill", "memset", "memcpy", "cat")),
-    ("elementwise/reduce", ("elementwise", "vectorized", "reduce", "unrolled",
-                            "foreach")),
-)
-
-
-def kernel_group(name: str) -> str:
-    low = name.lower()
-    for group, keys in GROUPS:
-        if any(k in low for k in keys):
-            return group
-    return "other"
-
-
-def union(intervals: list[tuple[float, float]]) -> list[list[float]]:
-    """The union of ``(start, end)`` intervals as sorted disjoint ``[start,
-    end]`` pairs."""
-    out: list[list[float]] = []
-    for s, e in sorted(intervals):
-        if out and s <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], e)
-        else:
-            out.append([s, e])
-    return out
-
-
-def busy_us(intervals: list[tuple[float, float]]) -> float:
-    """Length of the union of ``(start, end)`` intervals."""
-    return sum(e - s for s, e in union(intervals))
-
+from . import hlo_analysis as ha
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-SPAN_PREFIXES = ("train/", "moe/", "mla/", "data/", "covap_bucket_")
 OUTSIDE = "(no program span)"
 
 
@@ -106,8 +60,8 @@ def span_table(trace: list[dict], steps: int) -> list[tuple[str, float, float, f
     span's start and the last span's end, to the innermost span open on the
     stepping thread when it began."""
     spans: dict = {}
-    for prefix in SPAN_PREFIXES:
-        for tid, rows in _enclosing(trace, prefix).items():
+    for prefix in SPAN_FAMILIES:
+        for tid, rows in ha.enclosing_spans(trace, prefix).items():
             spans.setdefault(tid, []).extend((s, t, _span_key(n)) for s, t, n in rows)
     if not spans:
         return []
@@ -117,29 +71,29 @@ def span_table(trace: list[dict], steps: int) -> list[tuple[str, float, float, f
     def holding(tid, ts):
         return {n for s, t, n in spans.get(tid, ()) if s <= ts <= t}
 
-    device, launches = _launches_by_correlation(trace, cats=DEVICE_CATS)
+    device, launches = ha.launches_by_correlation(trace, cats=DEVICE_CATS)
     dev: dict = defaultdict(list)
     for tid, calls in launches.items():
         for c in calls:
             names = holding(tid, c["ts"]) | holding(main, c["ts"])
             e = device[c["args"]["correlation"]]
             for name in names or (OUTSIDE,):
-                dev[name].append((e["ts"], _end(e)))
+                dev[name].append((e["ts"], ha.event_end(e)))
     lo = min(s for rows in spans.values() for s, _, _ in rows)
     hi = max(t for rows in spans.values() for _, t, _ in rows)
-    edges = [lo] + [x for iv in union([(e["ts"], _end(e)) for e in device.values()])
+    edges = [lo] + [x for iv in ha.union([(e["ts"], ha.event_end(e)) for e in device.values()])
                     for x in iv] + [hi]
     idle: dict = defaultdict(float)
     for g0, g1 in zip(edges[::2], edges[1::2]):
         g0, g1 = max(g0, lo), min(g1, hi)
         if g1 > g0:
             at = {"ts": g0, "dur": 0.0, "tid": main}
-            idle[_inside(spans, at) or OUTSIDE] += g1 - g0
+            idle[ha.innermost_span(spans, at) or OUTSIDE] += g1 - g0
     host: dict = defaultdict(float)
     for rows in spans.values():
         for s, t, name in rows:
             host[name] += t - s
-    return [(name, busy_us(dev[name]) / 1e3 / steps, host.get(name, 0.0) / 1e3 / steps,
+    return [(name, ha.busy_us(dev[name]) / 1e3 / steps, host.get(name, 0.0) / 1e3 / steps,
              idle.get(name, 0.0) / 1e3 / steps) for name in [*sorted(host), OUTSIDE]]
 
 
@@ -190,7 +144,7 @@ def main(argv=None):
     counts = counters()
     if args.trace:
         prof.export_chrome_trace(args.trace)
-    trace = load_trace(args.trace or prof)
+    trace = ha.load_trace(args.trace or prof)
 
     # the device's operations; a ``gpu_user_annotation`` (a span's copy on
     # the device's rows) is not one
@@ -202,11 +156,11 @@ def main(argv=None):
     by_name: dict[str, float] = defaultdict(float)
     for e in kernels:
         us = e.get("dur", 0.0)
-        by_group[kernel_group(e["name"])] += us
+        by_group[ha.kernel_group(e["name"])] += us
         by_name[e["name"]] += us
     n = args.steps
     kernel_ms = sum(by_group.values()) / 1e3 / n
-    busy = busy_us(spans) / 1e3 / n
+    busy = ha.busy_us(spans) / 1e3 / n
     print(f"[profile] {smi} | {cfg.name} {args.compressor} {args.overlap} "
           f"arena={'on' if args.arena else 'off'} {args.sync} seq {args.seq_len} x batch "
           f"{args.global_batch}, {n} steps after {args.warmup}: wall "

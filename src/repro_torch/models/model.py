@@ -432,7 +432,7 @@ class EncDecLM(_LM):
     def num_stages(self) -> int:
         """The stages before the final norm and head: the encoder's rows
         ``0 .. E-1``, then ``enc_norm`` with decoder row 0 at ``E``, and
-        decoder row ``r`` at ``E + r`` (``core.overlap.bucket_first_use``)."""
+        decoder row ``r`` at ``E + r`` (``core.bucketing.bucket_first_use``)."""
         return self.cfg.encoder_layers + self.cfg.num_layers
 
     def _forward(self, tree, batch, before_layer=None):

@@ -34,6 +34,10 @@ import contextlib
 import torch
 import torch.autograd.profiler as _profiler
 
+# the name prefixes of the step's span families (the module notes list
+# each span), by which ``launch.profile_train`` reads a trace
+SPAN_FAMILIES = ("train/", "moe/", "mla/", "data/", "covap_bucket_")
+
 _OFF = contextlib.nullcontext()
 _values: dict[str, list] = {}
 
@@ -79,4 +83,4 @@ def reset_counters() -> None:
     _values.clear()
 
 
-__all__ = ["count", "counters", "recording", "reset_counters", "span"]
+__all__ = ["SPAN_FAMILIES", "count", "counters", "recording", "reset_counters", "span"]

@@ -56,7 +56,7 @@ import torch.distributed as dist
 from ..core import arena as ar
 from ..core import bucketing as bk
 from ..core import build_plan, get_compressor
-from ..core.bucketing import BucketPlan
+from ..core.bucketing import EMBED_STAGE, BucketPlan, bucket_first_use
 from ..core.comm import (
     Compressor,
     all_gather_tiled,
@@ -66,8 +66,6 @@ from ..core.comm import (
 )
 from ..core.filter import selected_buckets
 from ..core.overlap import (
-    EMBED_STAGE,
-    bucket_first_use,
     issue_param_allgather,
     overlapped_loss_and_grads,
     sharded_param_allgather,
@@ -351,9 +349,7 @@ def _build_phase_step(model, optimizer, compressor, plan, *, phase, group,
             n_pods=world_size(pod_group))
         pod_layout = ar.build_layout(plan, pod_schedule.selected,
                                      align=world_size(group))
-    # the stacked rows are superblocks: gemma2's layer loop has half as many
-    # stages as layers, and the head is read after the last of them
-    first_use = bucket_first_use(plan, model.num_stages) if sharded else None
+    first_use = bucket_first_use(plan) if sharded else None
 
     def apply(state, synced, comp_state):
         params = state["params"]

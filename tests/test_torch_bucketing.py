@@ -1,5 +1,6 @@
 """The port's bucket plan, coarse filter and static schedules against
-``repro.core`` on the gpt2-paper parameter shapes."""
+``repro.core`` on the gpt2-paper parameter shapes, and each bucket's
+first-use stage held, on every arch, to what the forward pass reads."""
 import jax
 import numpy as np
 import pytest
@@ -12,8 +13,14 @@ from repro.models import build_model as r_build_model
 
 import repro_torch.configs as tconfigs
 from repro_torch.core import build_plan, get_compressor
+from repro_torch.core.bucketing import (
+    EMBED_STAGE,
+    bucket_first_use,
+    loop_stages,
+    segment_slices,
+)
 from repro_torch.core.filter import compression_ratio, selected_buckets
-from repro_torch.models import build_model
+from repro_torch.models import build_model, multimodal
 
 FULL_WIDTH_BYTES_W8 = [203_701_248, 179_667_456, 179_982_336, 198_778_368]
 
@@ -117,3 +124,47 @@ def test_unported_options_raise():
         assert get_compressor(name).name == r_get_compressor(name).name == name
     with pytest.raises(KeyError):
         get_compressor("qsgd")
+
+
+@pytest.mark.parametrize("arch", tconfigs.list_archs())
+def test_first_use_restores_every_bucket_before_its_read(arch):
+    """With every parameter NaN and each bucket restored only at its
+    first-use stage (those at ``EMBED_STAGE`` before the loss, the rest at
+    the first ``before_layer(i)`` with ``i`` >= the stage, as
+    ``ParamGather.settle_through`` settles them), the loss equals the
+    unpoisoned loss bit for bit: no bucket is read before its stage.  The
+    plan's loop stages are the model's, at full width and reduced."""
+    full = build_model(tconfigs.get_config(arch), device="meta")
+    assert loop_stages(build_plan(full.named_leaves())) == full.num_stages
+    cfg = tconfigs.get_reduced(arch)
+    model = build_model(cfg, device="cpu", seed=0)
+    leaves = [p for _, p in model.named_leaves()]
+    plan = build_plan(model.named_leaves(), bucket_bytes=1 << 12, max_buckets=256,
+                      interval=1)
+    assert loop_stages(plan) == model.num_stages
+    stages = bucket_first_use(plan)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if cfg.is_encdec or cfg.family == "vlm":
+        key = "frames" if cfg.is_encdec else "patch_embeds"
+        batch[key] = multimodal.synth_frontend_embeds(gen, cfg, 2, device="cpu")
+    clean = [p.detach().clone() for p in leaves]
+    restored: list[int] = []
+
+    def restore_through(stage):
+        for b, bucket in enumerate(plan.buckets):
+            if b not in restored and stages[b] <= stage:
+                for (_, dst), (_, src) in zip(segment_slices(plan, leaves, bucket),
+                                              segment_slices(plan, clean, bucket)):
+                    dst.copy_(src)
+                restored.append(b)
+
+    with torch.no_grad():
+        want, _ = model.loss_fn(batch)
+        for p in leaves:
+            p.fill_(float("nan"))
+        restore_through(EMBED_STAGE)
+        got, _ = model.loss_fn(batch, before_layer=restore_through)
+    assert sorted(restored) == list(range(plan.num_buckets))
+    assert torch.isfinite(want) and torch.equal(got, want)

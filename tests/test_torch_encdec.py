@@ -28,7 +28,7 @@ from repro.models import encdec as red
 
 import repro_torch.configs as tconfigs
 from repro_torch.core import build_plan, build_ready_order
-from repro_torch.core.overlap import EMBED_STAGE, bucket_first_use
+from repro_torch.core.bucketing import EMBED_STAGE, bucket_first_use
 from repro_torch.interop import (
     caches_from_jax,
     caches_to_numpy,
@@ -301,7 +301,7 @@ def test_ready_order_and_first_use_on_the_reduced_plan():
     assert (got.bucket_layer, got.ranks, got.num_layers, got.order) == \
         (want.bucket_layer, want.ranks, want.num_layers, want.order)
     E, L = cfg.encoder_layers, cfg.num_layers
-    stages = bucket_first_use(plan, model.num_stages)
+    stages = bucket_first_use(plan)
 
     def stage(path, seg):
         if path.startswith("encdec.encoder."):

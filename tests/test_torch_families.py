@@ -30,7 +30,7 @@ import _torch_reference_runs as ref_runs
 import repro_torch.api as api
 import repro_torch.configs as tconfigs
 from repro_torch.core import build_plan, build_ready_order, get_compressor
-from repro_torch.core.overlap import EMBED_STAGE, bucket_first_use
+from repro_torch.core.bucketing import EMBED_STAGE, bucket_first_use
 from repro_torch.interop import (
     caches_from_jax,
     caches_to_numpy,
@@ -353,7 +353,7 @@ def test_ready_order_and_first_use_on_the_new_plans(arch, layers):
         # zamba2's weight-shared block is read once, before superblock 0
         base, fixed = {"stack.blocks.": 0}, {"stack.shared.": 0}
         tails = ("head.", "stack.final_norm.")
-    stages = bucket_first_use(plan, n)
+    stages = bucket_first_use(plan)
     for b, stage in enumerate(stages):
         segs = [(plan.leaf_paths[s.leaf_idx], s) for s in plan.buckets[b].segments]
         rows = [off + s.row_lo for path, s in segs for pre, off in base.items()

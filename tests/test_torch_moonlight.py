@@ -24,7 +24,7 @@ import repro_torch.configs as tconfigs
 from bench.reference import moonlight as ref
 from repro_torch.configs.base import InputShape
 from repro_torch.core import build_plan
-from repro_torch.core.overlap import EMBED_STAGE, bucket_first_use
+from repro_torch.core.bucketing import EMBED_STAGE, bucket_first_use
 from repro_torch.data import DataConfig, make_loader
 from repro_torch.launch import analytic_costs, dryrun
 from repro_torch.launch import train as cli
@@ -335,16 +335,20 @@ def test_forms_equal_post_bitwise(form, one_rank_gloo):
 def test_stages_put_the_dense_prefix_first():
     model = build_model(SHARE, device="meta")
     plan = build_plan(model.named_leaves(), bucket_bytes=4096, max_buckets=128, interval=1)
-    stages = bucket_first_use(plan, model.num_stages)
-    for bucket, stage in zip(plan.buckets, stages):
-        for seg in bucket.segments:
-            path = plan.leaf_paths[seg.leaf_idx]
-            if path.startswith("stack.dense."):
-                assert stage <= 0
-            elif path.startswith("stack.blocks."):
-                assert stage <= 1 + seg.row_lo
-            elif path.startswith("embed."):
-                assert stage == EMBED_STAGE
+    stages = bucket_first_use(plan)
+
+    def stage(path, seg):
+        if path.startswith("stack.dense."):
+            return seg.row_lo
+        if path.startswith("stack.blocks."):
+            return 1 + seg.row_lo
+        if path.startswith(("stack.final_norm.", "head.")):
+            return model.num_stages
+        assert path.startswith("embed.")
+        return EMBED_STAGE
+
+    for bucket, got in zip(plan.buckets, stages):
+        assert got == min(stage(plan.leaf_paths[s.leaf_idx], s) for s in bucket.segments)
     assert sorted(set(stages)) == [EMBED_STAGE, 0, 1, 2, 3]
 
 
