@@ -31,7 +31,14 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            deepseek-moe-16b cut to 2 layers (bf16 moments) and of
            gpt2-paper: p, m, v bit for bit and the norm within 1e-6 of the
            plain card path, timed beside its bound, the plain path and
-           ``torch._fused_adamw_`` where that takes the same dtypes
+           ``torch._fused_adamw_`` where that takes the same dtypes;
+           ``causal_attn`` at moonlight's and gpt2-paper b32's attention;
+           ``moe_dispatch`` (the MoE slot map, permute and unpermute,
+           forward and backward) at deepseek's and moonlight's MoE layers:
+           slot, keep, src and the buffer bit for bit against the plain
+           path, y and the gradients within the tests' ulps, each kernel
+           timed beside its bound and the plain path, whose one-hot scan
+           and indexing backward are timed apart
   adamw    one AdamW update on the card against the CPU: moments and
            divisions bit for bit, ``torch.sqrt`` at 1 ulp, the update bit
            for bit where the roots agree; and ``Optimizer.apply`` (the
@@ -176,7 +183,8 @@ Each phase prints one line; any failure raises and the script exits non-zero.
            gradients against ``use_ef_kernel=False`` within ``ef_close``),
            then with ``arena=True, sync="sharded"`` (``pack_ef_cast`` 114 a
            step; == the post run bit for bit); deepseek-moe-16b cut to 2
-           layers (77 a step; the aux loss and each MoE layer's share of
+           layers (77 a step; ``moe_dispatch`` 10 a layer a step under
+           remat; the aux loss and each MoE layer's share of
            assignments dropped at capacity), gemma-2b cut to 2 layers (135
            a step; MQA, head_dim 256, a 256,000 vocab) and
            mistral-large-123b cut to 1 layer (bf16 params and moments,
@@ -279,7 +287,8 @@ STEPS = 5
 F32_FLOPS_PER_S = 67e12
 THRESHOLD_BLOCK = 32768
 KERNELS = ("ef_covap", "pack_ef_cast", "quantize_fp8", "sign_compress",
-           "lowrank_matmul", "threshold_filter", "adamw_fused", "causal_attn")
+           "lowrank_matmul", "threshold_filter", "adamw_fused", "causal_attn",
+           "moe_dispatch")
 MATMUL = "lowrank.matmul"      # the counter and record name of lowrank.matmul
 # the flat-bucket path: each one full-width run
 FLAT_RUNS = (
@@ -356,6 +365,7 @@ def kernel_counters() -> dict:
     ``launches`` count."""
     from repro_torch.kernels.ef_covap import ef_update
     from repro_torch.kernels.lowrank import matmul
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
     from repro_torch.kernels.pack_ef_cast import pack_ef_cast
     from repro_torch.kernels.quantize import dequantize_fp8, quantize_fp8
     from repro_torch.kernels.sign_compress import sign_compress
@@ -363,7 +373,7 @@ def kernel_counters() -> dict:
 
     counters = {f.__name__: f for f in (ef_update, pack_ef_cast, quantize_fp8,
                                         dequantize_fp8, sign_compress,
-                                        threshold_filter)}
+                                        threshold_filter, moe_dispatch)}
     counters[MATMUL] = matmul
     return counters
 
@@ -372,6 +382,16 @@ def launch_counts(**nonzero) -> dict:
     """The expected launch counts of a run: 0 for every kernel but those
     named (``**{MATMUL: n}`` for the matmul)."""
     return {name: nonzero.get(name, 0) for name in kernel_counters()}
+
+
+def moe_launches(cfg, steps: int) -> int:
+    """``moe_dispatch``'s launches in ``steps`` training steps of ``cfg``
+    on the card: a MoE layer's forward launches 4 (the slot map's 2,
+    permute, unpermute), again in the remat recompute, and its backward 2."""
+    from repro_torch.models.transformer import dense_prefix
+
+    layers = cfg.num_layers - dense_prefix(cfg) if cfg.is_moe else 0
+    return steps * layers * (4 * (2 if cfg.remat else 1) + 2)
 
 
 def lowrank_leaves(plan) -> list[int]:
@@ -1483,6 +1503,225 @@ def phase_causal_attn_kernel() -> dict:
     }
 
 
+# [kernels] row 10: the MoE cells' layers the dispatch kernels are timed at:
+# (label, tokens N, routed experts, held E, first held, top-k, d)
+MOE_SHAPES = (
+    ("deepseek-moe-16b-2L.covap.b8", 8192, 64, 64, 0, 6, 2048),
+    ("moonlight-16b-a3b-5L-e32.covap.r2s8k", 16384, 64, 32, 0, 6, 2048),
+)
+
+
+def moe_dispatch_bytes(nk: int, n_slots: int, kept: int, N: int, d: int,
+                       esize: int) -> dict:
+    """Each move's least device-memory bytes, every input byte read once
+    and every output byte written once: the slot map reads top_e and
+    writes slot, keep and src; the permute reads the kept rows and writes
+    the buffer; its backward reads the kept slots' gradients and writes N
+    rows; the unpermute reads the kept rows and w and writes N rows; its
+    backward reads dy, w and the kept rows and writes the buffer's
+    gradient and dw."""
+    row = d * esize
+    return {"slots": 8 * nk + 8 * nk + nk + 4 * n_slots,
+            "permute": kept * row + n_slots * row + 4 * n_slots,
+            "permute_bwd": kept * row + N * row + 8 * nk,
+            "unpermute": kept * row + N * row + (8 + esize) * nk,
+            "unpermute_bwd": (N * row + kept * row + n_slots * row + 4 * n_slots
+                              + (8 + 2 * esize) * nk)}
+
+
+def phase_moe_dispatch_kernel() -> dict:
+    """``moe_dispatch`` (bf16, as the cells run it) at deepseek's and
+    moonlight's MoE layers from router-like assignments (the top k of
+    random scores): slot, keep, src and the permuted buffer bit for bit
+    against the plain path on the card (``dispatch``, ``slot_sources``,
+    ``permute_plain``), the unpermute's y and the gradients within the
+    tests' ulps; two runs bit for bit; 6 launches a forward and backward.
+    Then each move's device ms, forward and backward, beside its bound
+    (bytes over 3.35 TB/s) and the plain path, whose one-hot scan
+    (``cumsum``) and indexing backward (``index_put_(accumulate=True)``
+    of the combine's gather) are timed apart."""
+    from types import SimpleNamespace
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.models import moe
+
+    rows = {}
+    for label, N, routed, E, first, k, d in MOE_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = SimpleNamespace(num_experts=E, first_expert=first, routed_experts=routed,
+                              experts_per_token=k, moe_capacity_factor=1.25)
+        C = moe.capacity(cfg, N)
+        n_slots, nk = E * C, N * k
+        gen = torch.Generator("cuda").manual_seed(11)
+        top_e = torch.topk(torch.rand((N, routed), generator=gen, device="cuda"), k,
+                           dim=-1).indices
+        x = torch.randn((N, d), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.rand(nk, generator=gen, device="cuda").to(torch.bfloat16)
+        out_buf = torch.randn((n_slots, d), generator=gen, device="cuda").to(torch.bfloat16)
+        dy = torch.randn((N, d), generator=gen, device="cuda").to(torch.bfloat16)
+        dbuf = torch.randn((E, C, d), generator=gen, device="cuda").to(torch.bfloat16)
+
+        def kernel_map():
+            return md.moe_dispatch(top_e, first, E, C)
+
+        def plain_map():
+            return moe.dispatch(top_e, cfg, C)
+
+        slot, keep, src = kernel_map()
+        p_slot, p_keep = plain_map()
+        p_src = moe.slot_sources(p_slot, p_keep, n_slots)
+        check(torch.equal(slot, p_slot) and torch.equal(keep, p_keep)
+              and torch.equal(src, p_src), f"moe_dispatch {label}: slot map differs")
+        kept = int(keep.sum())
+
+        def moves(kernels: bool):
+            xs = x.detach().requires_grad_(True)
+            ob = out_buf.detach().requires_grad_(True)
+            ws = w.detach().requires_grad_(True)
+            if kernels:
+                buf = md.permute(xs, slot, src, k, E, C)
+                y = md.unpermute(ob, ws, slot, src, k)
+            else:
+                buf = moe.permute_plain(xs, slot, k, E, C)
+                y = moe.unpermute_plain(ob, slot, keep, ws, k)
+            gx, = torch.autograd.grad(buf, xs, dbuf)
+            gob, gw = torch.autograd.grad(y, (ob, ws), dy)
+            return buf.detach(), y.detach(), gx, gob, gw
+
+        before = md.moe_dispatch.launches
+        slot2, keep2, src2 = kernel_map()
+        got = moves(True)
+        torch.cuda.synchronize()
+        check(md.moe_dispatch.launches - before == 6,
+              f"moe_dispatch {label}: {md.moe_dispatch.launches - before} launches for a "
+              f"slot map and both moves forward and backward")
+        again = moves(True)
+        check(torch.equal(slot2, slot) and torch.equal(src2, src)
+              and all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"moe_dispatch {label}: two runs differ")
+        want = moves(False)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[3], want[3]),
+              f"moe_dispatch {label}: the buffer or the rows' gradient differs from the "
+              f"plain path")
+        # dw, a dot product over d, within one bf16 ulp plus the bound on
+        # two orders of one f32 sum of d terms, d * 2^-24 * sum |terms|,
+        # as the card tests hold it; y and dx within one ulp
+        dw_order = d * 2.0**-24 * keep * (out_buf[slot.clamp(max=n_slots - 1)].float()
+                                          * dy.float().repeat_interleave(k, 0)).abs().sum(1)
+        ulps, dw_beyond = {}, 0
+        for name, a, b in (("y", got[1], want[1]), ("dx", got[2], want[2]),
+                           ("dw", got[4], want[4])):
+            a, b = a.float(), b.float()
+            _, e = torch.frexp(torch.maximum(a.abs(), b.abs()).clamp(min=2.0**-126))
+            ulp = torch.ldexp(torch.ones_like(a), e - 8)
+            ulps[name] = float(((a - b).abs() / ulp).max())
+            if name == "dw":
+                dw_beyond = int(((a - b).abs() > ulp + dw_order).sum())
+        check(ulps["y"] <= 1 and ulps["dx"] <= 1,
+              f"moe_dispatch {label}: y / dx beyond one bf16 ulp: {ulps}")
+        check(dw_beyond == 0,
+              f"moe_dispatch {label}: {dw_beyond} of dw's elements beyond one bf16 ulp plus "
+              f"the f32 order bound (max ulps {ulps['dw']})")
+        check(not bool(got[4][~keep].any()),
+              f"moe_dispatch {label}: dw is not 0 where an assignment is not kept")
+        del again, want
+
+        # the one-hot plain ``dispatch`` scans: a spare column under a share
+        eid = top_e.reshape(-1)
+        share = moe.is_share(cfg)
+        if share:
+            eid = torch.where(moe.held(eid, cfg), eid - first, torch.full_like(eid, E))
+        onehot = F.one_hot(eid, E + share)
+        gather_idx = torch.where(keep, slot, torch.full_like(slot, n_slots - 1))
+        gathered_grad = torch.randn((nk, d), generator=gen, device="cuda").to(torch.bfloat16)
+
+        def timed_pair(run_fwd, run_all, reps=25):
+            fwd = device_timed(run_fwd, reps=reps)
+            return fwd, device_timed(run_all, reps=reps) - fwd
+
+        def perm_fwd(kernels):
+            return (lambda: md.permute(x, slot, src, k, E, C)) if kernels else (
+                lambda: moe.permute_plain(x, slot, k, E, C))
+
+        def perm_all(kernels):
+            def run():
+                xs = x.detach().requires_grad_(True)
+                buf = (md.permute(xs, slot, src, k, E, C) if kernels
+                       else moe.permute_plain(xs, slot, k, E, C))
+                return torch.autograd.grad(buf, xs, dbuf)
+            return run
+
+        def unperm_fwd(kernels):
+            return (lambda: md.unpermute(out_buf, w, slot, src, k)) if kernels else (
+                lambda: moe.unpermute_plain(out_buf, slot, keep, w, k))
+
+        def unperm_all(kernels):
+            def run():
+                ob = out_buf.detach().requires_grad_(True)
+                ws = w.detach().requires_grad_(True)
+                y = (md.unpermute(ob, ws, slot, src, k) if kernels
+                     else moe.unpermute_plain(ob, slot, keep, ws, k))
+                return torch.autograd.grad(y, (ob, ws), dy)
+            return run
+
+        ms = {"slots": device_timed(kernel_map)}
+        plain = {"slots": device_timed(plain_map)}
+        with torch.no_grad():
+            ms["permute"] = device_timed(perm_fwd(True))
+            plain["permute"] = device_timed(perm_fwd(False))
+            ms["unpermute"] = device_timed(unperm_fwd(True))
+            plain["unpermute"] = device_timed(unperm_fwd(False))
+        ms["permute_bwd"] = device_timed(perm_all(True)) - ms["permute"]
+        plain["permute_bwd"] = device_timed(perm_all(False)) - plain["permute"]
+        ms["unpermute_bwd"] = device_timed(unperm_all(True)) - ms["unpermute"]
+        plain["unpermute_bwd"] = device_timed(unperm_all(False)) - plain["unpermute"]
+        acc = torch.zeros((n_slots, d), dtype=torch.bfloat16, device="cuda")
+        with torch.no_grad():
+            scan_ms = device_timed(lambda: torch.cumsum(onehot, dim=0))
+            index_bwd_ms = device_timed(
+                lambda: acc.index_put_((gather_idx,), gathered_grad, accumulate=True))
+        nbytes = moe_dispatch_bytes(nk, n_slots, kept, N, d, 2)
+        bound = {name: b / HBM_BYTES_PER_S * 1e3 for name, b in nbytes.items()}
+        rows[label] = {"shape": {"N": N, "k": k, "routed": routed, "E": E, "first": first,
+                                 "C": C, "d": d, "kept": kept},
+                       "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                       "plain_scan_ms": scan_ms, "plain_index_backward_ms": index_bwd_ms,
+                       "max_ulps_vs_plain": ulps}
+        parts = "; ".join(f"{n} {ms[n]:.4f} (bound {bound[n]:.4f}, plain {plain[n]:.3f})"
+                          for n in ms)
+        print(f"[kernels] moe_dispatch {label}: N {N} x k {k}, {E} of {routed} experts "
+              f"held from {first}, C {C}, d {d} bf16, {kept} of {nk} kept; slot, keep, src "
+              f"and the buffer bit for bit, the rows' gradient too, y / dx / dw max ulps "
+              f"{json.dumps({n: round(v, 3) for n, v in ulps.items()})}; two runs bitwise; "
+              f"device ms: {parts}; in all {sum(ms.values()):.4f} against "
+              f"{sum(bound.values()):.4f} bound, plain {sum(plain.values()):.3f} (its "
+              f"one-hot cumsum {scan_ms:.3f}, the combine's indexing backward "
+              f"{index_bwd_ms:.3f})", flush=True)
+        del x, w, out_buf, dy, dbuf, onehot, gathered_grad, acc, got
+    torch.cuda.empty_cache()
+    last = rows[MOE_SHAPES[-1][0]]
+    return {
+        "name": "moe_dispatch",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_dispatch.py",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the reference leaves the MoE dispatch to XLA",
+        "launches": None,
+        "ms": sum(last["ms"].values()),
+        "plain_ms": sum(last["plain_ms"].values()),
+        "bound_ms": sum(last["bound_ms"].values()),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_call": None,
+        "timed_work": f"one MoE layer's slot map, permute and unpermute, forward and "
+                      f"backward, at {MOE_SHAPES[-1][0]}'s shapes",
+        "by_config": rows,
+    }
+
+
 def phase_adamw() -> None:
     """One AdamW update, as the main path's optimizer makes it, on the card
     and on the CPU from the same moments, gradients and params (leaves of
@@ -1736,6 +1975,12 @@ def phase_train(cfg, *, device="cuda", seq_len=1024, global_batch=8,
     check((attn_launches > 0) == want_attn,
           f"{label}: causal_attn launched {attn_launches} times in {steps} steps")
     tr.attn_launches = attn_launches
+    # every MoE layer's dispatch and combine on the card go through the
+    # moe_dispatch kernels
+    want_moe = moe_launches(cfg, steps) if device != "cpu" else 0
+    check(launches["moe_dispatch"] == want_moe,
+          f"{label}: moe_dispatch launched {launches['moe_dispatch']} times in {steps} "
+          f"steps (want {want_moe})")
 
     hist = tr.history
     losses = [h["loss"] for h in hist]
@@ -2888,23 +3133,24 @@ def f32_segments(plan) -> int:
 
 
 def moe_drops(tr, batch) -> list[tuple[int, int, int]]:
-    """One no-grad forward of ``batch`` with ``moe.dispatch`` observed:
-    ``(kept, assignments, capacity)`` for each MoE block, in order."""
+    """One no-grad forward of ``batch`` with the card's slot map
+    (``moe.moe_dispatch``) observed: ``(kept, assignments, capacity)`` for
+    each MoE block, in order."""
     from repro_torch.models import moe
 
-    seen, dispatch = [], moe.dispatch
+    seen, slot_map = [], moe.moe_dispatch
 
-    def observe(top_e, cfg, C):
-        slot, keep = dispatch(top_e, cfg, C)
+    def observe(top_e, first_expert, num_experts, C):
+        slot, keep, src = slot_map(top_e, first_expert, num_experts, C)
         seen.append((int(keep.sum()), keep.numel(), C))
-        return slot, keep
+        return slot, keep, src
 
-    moe.dispatch = observe
+    moe.moe_dispatch = observe
     try:
         with torch.no_grad():
             tr.model.loss_fn(batch)
     finally:
-        moe.dispatch = dispatch
+        moe.moe_dispatch = slot_map
     return seen
 
 
@@ -2962,14 +3208,14 @@ def phase_families(group, smi: str) -> dict:
     each run's EF kernel launches equal its plan's f32 segments x steps,
     the plan's segments equal the reference's, its losses are finite; each
     run of ``FAMILY_PARITY`` equals its post run bit for bit.  Returns the
-    launches by run label."""
+    EF kernel's launches by run label, and ``moe_dispatch``'s by MoE run."""
     from repro_torch.configs import get_config
     from repro_torch.core import get_compressor
     from repro_torch.models import moe, padded_vocab
     from repro_torch.models.transformer import has_shared_block, superblock_kinds
 
     t_phase = time.perf_counter()
-    launches_by_run, post = {}, {}
+    launches_by_run, moe_by_run, post = {}, {}, {}
     for i, (label, arch, layers, steps, options, moments, want_segs) in enumerate(
             FAMILY_RUNS):
         cfg = get_config(arch)
@@ -2986,9 +3232,12 @@ def phase_families(group, smi: str) -> dict:
               f"{want_segs}")
         kernel = "pack_ef_cast" if options.get("arena") else "ef_update"
         n = f32_segments(plan)
-        check(launches == launch_counts(**{kernel: steps * n}),
+        check(launches == launch_counts(**{kernel: steps * n},
+                                        moe_dispatch=moe_launches(cfg, steps)),
               f"{label}: launches {launches} in {steps} steps; {n} f32 segments")
         launches_by_run[label] = launches[kernel]
+        if cfg.is_moe:
+            moe_by_run[label] = launches["moe_dispatch"]
         bytes_w8 = [get_compressor("covap", interval=4).plan_phase(plan, p, world=8)
                     .bytes_per_worker for p in range(4)]
         ms, tok_s, peak = tr.run_stats
@@ -3106,7 +3355,7 @@ def phase_families(group, smi: str) -> dict:
         torch.cuda.empty_cache()
     print(f"[families] phase took {time.perf_counter() - t_phase:.1f} s ({smi})",
           flush=True)
-    return launches_by_run
+    return launches_by_run, moe_by_run
 
 
 def phase_oktopk_parity(tr, state, loader, group) -> None:
@@ -3432,9 +3681,11 @@ def phase_small_families() -> None:
                         + [r.cpu() for r in state["comp"]],
                         {k: f.launches - before[k] for k, f in counters.items()})
         (l_cpu, x_cpu, n_cpu), (l_gpu, x_gpu, n_gpu) = out["cpu"], out["cuda"]
-        n = STEPS * f32_segments(tr.plan)
-        check(n_cpu == launch_counts() and n_gpu == launch_counts(ef_update=n),
-              f"small {label}: launches cpu {n_cpu}, cuda {n_gpu}, want {n}")
+        n, m = STEPS * f32_segments(tr.plan), moe_launches(cfg, STEPS)
+        check(n_cpu == launch_counts() and n_gpu == launch_counts(ef_update=n,
+                                                                  moe_dispatch=m),
+              f"small {label}: launches cpu {n_cpu}, cuda {n_gpu}, want ef_update {n}, "
+              f"moe_dispatch {m}")
         check(all(math.isclose(a, b, rel_tol=1e-3 if bf16 else 1e-4)
                   for a, b in zip(l_gpu, l_cpu)),
               f"small {label}: losses cuda {l_gpu} vs cpu {l_cpu}")
@@ -3455,8 +3706,8 @@ def phase_small_families() -> None:
                "losses at rtol 1e-4; params and residuals at rtol 1e-4, atol 1e-6")
         print(f"[small] {label}: REDUCED, sgd, {STEPS} steps: cuda losses "
               f"{[round(v, 5) for v in l_gpu]} match the cpu run, {how}: max "
-              f"|diff| {worst:.3g}; ef_update launches {n_gpu['ef_update']}",
-              flush=True)
+              f"|diff| {worst:.3g}; ef_update launches {n_gpu['ef_update']}, "
+              f"moe_dispatch {n_gpu['moe_dispatch']}", flush=True)
 
 
 # [serve]: continuous batching at full width (no kernel lies on this path)
@@ -3893,7 +4144,8 @@ def main() -> int:
     phase_build()
     records = [phase_kernels(), phase_pack_kernels(), *phase_wire_kernels(),
                phase_lowrank_kernels(), phase_threshold_kernels(),
-               phase_adamw_kernel(), phase_causal_attn_kernel()]
+               phase_adamw_kernel(), phase_causal_attn_kernel(),
+               phase_moe_dispatch_kernel()]
     phase_adamw()
     by_name = {r["name"]: r for r in records}
     torch.cuda.set_device(0)
@@ -4021,9 +4273,13 @@ def main() -> int:
         by_run, plane_pack = phase_resilience(cfg, group, smi)
         records[0]["launches_by_run"].update(by_run)
         records[1]["launches_by_run"]["resilience plane guard"] = plane_pack
-        for label, n in phase_families(group, smi).items():
+        ef_by_run, moe_by_run = phase_families(group, smi)
+        for label, n in ef_by_run.items():
             rec = records[1] if "arena" in label else records[0]
             rec["launches_by_run"][f"families {label}"] = n
+        by_name["moe_dispatch"]["launches"] = sum(moe_by_run.values())
+        by_name["moe_dispatch"]["launches_by_run"] = {f"families {label}": n
+                                                      for label, n in moe_by_run.items()}
         phase_serve(smi)
         # last, since the steps that follow a profiled one run slower: a
         # fresh fused run, then one profiled post and fused step

@@ -2,12 +2,15 @@
 in ``ref.py`` (AdamW's beside ``optim.adamw``'s ``update`` and
 ``apply_updates``); ``ops.py`` is the counterpart of ``repro.kernels.ops``.
 CUDA sources live in ``csrc/`` and are built at first use (``_build.py``;
-the causal attention's plain path is ``models.attention._attend_plain``);
+the causal attention's plain path is ``models.attention._attend_plain``, the
+MoE dispatch's ``models.moe``'s);
 nothing is compiled at import time."""
-# under other names, so that ``repro_torch.kernels.adamw_fused`` and
-# ``repro_torch.kernels.causal_attn`` stay the modules
+# under other names, so that ``repro_torch.kernels.adamw_fused``,
+# ``repro_torch.kernels.causal_attn`` and ``repro_torch.kernels.moe_dispatch``
+# stay the modules
 from .adamw_fused import adamw_fused as _adamw_fused
 from .causal_attn import causal_attn as _causal_attn
+from .moe_dispatch import moe_dispatch as _moe_dispatch
 from .ef_covap import ef_update, ef_update_cuda
 from .lowrank import matmul
 from .pack_ef_cast import pack_ef_cast, pack_ef_cast_into
@@ -33,7 +36,7 @@ def launch_counts() -> dict[str, int]:
     as ``"lowrank.matmul"``)."""
     fns = {f.__name__: f for f in (ef_update, pack_ef_cast, quantize_fp8,
                                    dequantize_fp8, sign_compress, threshold_filter,
-                                   _adamw_fused, _causal_attn)}
+                                   _adamw_fused, _causal_attn, _moe_dispatch)}
     fns["lowrank.matmul"] = matmul
     return {name: int(f.launches) for name, f in fns.items()}
 

@@ -9,6 +9,12 @@ Dispatch is capacity-based gather/scatter with static shapes:
     scatter into (E, C, d) buffers -> batched expert matmuls ->
     gather back, weighted by the router probabilities.
 
+That is the plain path, which CPU tensors take (``dispatch``,
+``permute_plain``, ``unpermute_plain``).  CUDA tensors take the kernels of
+``kernels/moe_dispatch.py``: one slot map gives each assignment its slot
+and each slot its assignment (``slot_sources`` is its plain inverse), and
+rows move by gathers with unique destinations, forward and backward.
+
 An assignment past capacity ``C = ceil(N*k/E * capacity_factor)`` (over
 this worker's ``N`` tokens) is dropped: earlier tokens, and within a token
 the higher-probability choice, win a full expert; while a profiler
@@ -43,6 +49,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.moe_dispatch import moe_dispatch, permute, unpermute
 from ..obs.spans import count, recording, span
 from .layers import mlp
 
@@ -139,19 +146,58 @@ def dispatch(top_e: torch.Tensor, cfg, C: int):
     return slot, keep
 
 
+def slot_sources(slot: torch.Tensor, keep: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """The inverse of ``dispatch``'s map: ``src (n_slots,) int32``, the
+    assignment that fills each slot, -1 for a slot left empty."""
+    src = torch.full((n_slots,), -1, dtype=torch.int32, device=slot.device)
+    src[slot[keep]] = torch.nonzero(keep)[:, 0].to(torch.int32)
+    return src
+
+
+def permute_plain(xt: torch.Tensor, slot: torch.Tensor, k: int, E: int,
+                  C: int) -> torch.Tensor:
+    """The held experts' (E, C, d) buffer of the tokens' rows ``xt`` (N, d)
+    by ``dispatch``'s slots; a slot no assignment fills is zero."""
+    N, d = xt.shape
+    # each token's row k times, token-major (the reference's
+    # ``xt[repeat(arange(N), k)]``): an expand, whose backward sums each
+    # token's k rows in a fixed order, where an index's would scatter-add
+    rows = xt[:, None, :].expand(N, k, d).reshape(N * k, d)
+    # one spare row takes every dropped assignment; it is cut off
+    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=xt.device)
+    return buf.index_put((slot,), rows)[:E * C].reshape(E, C, d)
+
+
+def unpermute_plain(out_buf: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+                    w: torch.Tensor, k: int) -> torch.Tensor:
+    """The tokens' outputs (N, d) from the experts' rows ``out_buf`` (E*C,
+    d), each kept assignment's row weighted by ``w``."""
+    last = out_buf.shape[0] - 1
+    gathered = out_buf[torch.where(keep, slot, torch.full_like(slot, last))]
+    gathered = gathered * keep[:, None].to(out_buf.dtype) * w[:, None]
+    # the reference's scatter-add over tokens ``y.at[tok].add``: a sum
+    # over each token's k rows, with a fixed order on every device
+    return gathered.reshape(-1, k, out_buf.shape[1]).sum(dim=1)
+
+
 def moe_apply(params, x: torch.Tensor, cfg):
-    """x: (B, S, d) -> (y, aux_loss)."""
+    """x: (B, S, d) -> (y, aux_loss).  CUDA tensors dispatch and combine
+    through ``kernels/moe_dispatch.py``, any other through the plain path."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     cd = getattr(torch, cfg.compute_dtype)
     N = B * S
     xt = x.reshape(N, d)
+    card = x.is_cuda
 
     with span("moe/route"):
         _, top_p, top_e, aux = route(params, xt, cfg, B)
     with span("moe/dispatch"):
         C = capacity(cfg, N)
-        slot, keep = dispatch(top_e, cfg, C)
+        if card:
+            slot, keep, src = moe_dispatch(top_e, cfg.first_expert, E, C)
+        else:
+            slot, keep = dispatch(top_e, cfg, C)
         w = top_p.reshape(-1).to(cd)
         if recording():
             count("moe/assigned", keep.numel())
@@ -163,13 +209,8 @@ def moe_apply(params, x: torch.Tensor, cfg):
                     return held(top_e.reshape(-1), cfg)
                 count("moe/dropped", lambda keep=keep: (mine() & ~keep).sum())
                 count("moe/held", lambda: mine().sum())
-        # each token's row k times, token-major (the reference's
-        # ``xt[repeat(arange(N), k)]``): an expand, whose backward sums each
-        # token's k rows in a fixed order, where an index's would scatter-add
-        rows = xt.to(cd)[:, None, :].expand(N, k, d).reshape(N * k, d)
-        # one spare row takes every dropped assignment; it is cut off
-        buf = torch.zeros((E * C + 1, d), dtype=cd, device=x.device)
-        buf = buf.index_put((slot,), rows)[:E * C].reshape(E, C, d)
+        buf = (permute(xt.to(cd), slot, src, k, E, C) if card
+               else permute_plain(xt.to(cd), slot, k, E, C))
 
     with span("moe/experts"):
         g = torch.bmm(buf, params["w_gate"].to(cd))
@@ -178,14 +219,10 @@ def moe_apply(params, x: torch.Tensor, cfg):
         out_buf = torch.bmm(h, params["w_down"].to(cd)).reshape(E * C, d)
 
     with span("moe/combine"):
-        gathered = out_buf[torch.where(keep, slot, torch.full_like(slot, E * C - 1))]
-        gathered = gathered * keep[:, None].to(cd) * w[:, None]
-        # the reference's scatter-add over tokens ``y.at[tok].add``: a sum
-        # over each token's k rows, with a fixed order on every device
-        y = gathered.reshape(N, k, d).sum(dim=1)
+        y = (unpermute(out_buf, w, slot, src, k) if card
+             else unpermute_plain(out_buf, slot, keep, w, k))
 
     if cfg.num_shared_experts > 0:
         with span("moe/experts"):
             y = y + mlp(params["shared"], xt, cfg.mlp_act, cd)
     return y.reshape(B, S, d), aux
-
